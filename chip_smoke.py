@@ -9,16 +9,23 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
 
   1. prints the card (``torch`` and ``nvidia-smi``);
   2. builds every kernel from ``src/repro_torch/kernels/csrc`` into
-     ``build/repro_torch``;
-  3. holds the CUDA ``probe_perf`` kernel against its plain PyTorch version,
-     bit for bit, on small and paper-shaped cases, and a small table built
-     and mutated on the card against the same table on the CPU;
-  4. drives the main path at PAPER_HASHMEM with the paper's workload: build
-     100M pairs, probe 10% of them, probe 1M held-back keys, insert those,
-     delete 1M built keys, probe again, checking every found flag and value;
-  5. times the kernel at the main path's shapes against its bound, the plain
-     version and the end-to-end probe rate, and prints the ``kernels`` line;
-  6. prints the device line last.
+     ``build/repro_torch``, one ``nvcc`` per source, all at once;
+  3. holds each CUDA kernel (``probe_perf``, ``probe_area``,
+     ``probe_bitserial``) against its plain PyTorch version, bit for bit, on
+     small and paper-shaped cases, and small tables (a ``perf`` one and a
+     bit-serial one at key_bits=8) built, mutated, grown and compacted on
+     the card against the same tables on the CPU;
+  4. drives the ``perf`` path at PAPER_HASHMEM with the paper's workload:
+     build 100M pairs, probe 10% of them, probe 1M held-back keys, insert
+     those, delete 1M built keys, probe again, checking every found flag and
+     value; then times ``probe_perf`` against its bound;
+  5. drives the bit-serial path at PAPER_HASHMEM on the same 100M pairs:
+     build with bit-planes, probe through ``bitserial``, ``area`` and
+     ``perf``, insert, delete, compact, checking the planes after each
+     write;
+  6. times the three kernels at that path's shapes (``perf`` and ``area``
+     in turns) against their bounds, and prints the ``kernels`` line;
+  7. prints the device line last.
 
 Any failed check raises and the script exits non-zero.  Without a card, or
 without the rest of the repo beside it, it exits non-zero and prints no
@@ -26,10 +33,12 @@ result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -39,10 +48,11 @@ N_BUILD = 100_000_000            # PAPER_WORKLOAD["num_pairs"]
 N_HELD = 1_000_000               # generated beyond the build, inserted later
 N_DELETE = 1_000_000
 TIMED_RUNS = 7
+KERNELS = ("probe_perf", "probe_area", "probe_bitserial")
 
 # The card the port targets, the H100 SXM (NVIDIA data sheet): its memory
 # rate in bytes/s, and its 67 TFLOP/s non-tensor float32 rate, which bounds
-# the probe's 32-bit compares.  Memory moves in 32-byte sectors.
+# the probes' 32-bit compares.  Memory moves in 32-byte sectors.
 CARD = "H100 80GB HBM3"
 HBM_RATE = 3.35e12
 ALU32_RATE = 67e12
@@ -81,20 +91,58 @@ def cuda_ms(fn, runs: int):
     return float(np.median(times))
 
 
+def host_s(fn):
+    """(result, seconds) of ``fn`` on the host clock, ended by a sync."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def reset_launches(wrappers):
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def read_launches(wrappers):
+    sync()
+    return {name: w.launches for name, w in wrappers.items()}
+
+
+def build_kernels(build):
+    """One nvcc per source, all started together; then load each."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        for f in [pool.submit(build.compile_source, n) for n in KERNELS]:
+            f.result()
+    for name in KERNELS:
+        build.load(name)
+    print(f"build: {', '.join(KERNELS)} built for sm_90a in "
+          f"{time.perf_counter() - t0:.3f} s (in parallel)")
+    for name in KERNELS:
+        for line in build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+
 # ---------------------------------------------------------------------------
 # Synthetic probe cases (numpy, seeded)
 # ---------------------------------------------------------------------------
 
-def make_case(rng, P, S, Q, C, holes=0.0, fill=0.7, tombstones=0.05):
-    """A pool with unique keys, tombstones and empty slots, and a schedule
-    whose first half holds each query's page (hits) and whose second half
-    is random pages (mostly misses); ``holes`` blanks that share of steps,
-    never a hit's own page."""
+def make_case(rng, P, S, Q, C, holes=0.0, fill=0.7, tombstones=0.05,
+              key_bits=32):
+    """A pool with unique keys (below 2**key_bits; with repeats where that
+    space is small), tombstones and empty slots, and a schedule whose first
+    half holds each query's page (hits) and whose second half is random
+    pages (mostly misses); ``holes`` blanks that share of steps, never a
+    hit's own page."""
     kp = np.full((P, S), 0xFFFFFFFF, np.uint32)
     vp = np.zeros((P, S), np.uint32)
     n = int(P * S * fill)
+    space = min(2**key_bits - 2, 0xFFFFFFF0)
     pos = rng.choice(P * S, size=n, replace=False)
-    kp.reshape(-1)[pos] = rng.choice(0xFFFFFFF0, size=n, replace=False)
+    kp.reshape(-1)[pos] = rng.choice(space, size=n, replace=n > space)
     vp.reshape(-1)[pos] = rng.integers(0, 2**32, n, dtype=np.uint64)
     tomb = rng.choice(pos, size=int(n * tombstones), replace=False)
     kp.reshape(-1)[tomb] = 0xFFFFFFFE
@@ -106,7 +154,7 @@ def make_case(rng, P, S, Q, C, holes=0.0, fill=0.7, tombstones=0.05):
     col = rng.integers(0, C, h)
     pages[np.arange(h), col] = hit // S
     queries = np.concatenate([kp.reshape(-1)[hit],
-                              rng.choice(0xFFFFFFF0, Q - h).astype(np.uint32)])
+                              rng.choice(space, Q - h).astype(np.uint32)])
     return kp, vp, queries.astype(np.uint32), pages
 
 
@@ -137,6 +185,8 @@ def kernel_cases():
     yield "page_past_pool", (kp, vp, np.array([42, 7], np.uint32),
                              np.array([[-1, 9], [7, -1]], np.int32))
     yield "odd_S200", make_case(rng, 48, 200, 2048, 3, holes=0.2)
+    yield "strip_S64", make_case(rng, 32, 64, 2048, 3, holes=0.2)
+    yield "words_S2048", make_case(rng, 16, 2048, 1024, 3, holes=0.2)
     kp3 = np.full((2, 512), 0xFFFFFFFF, np.uint32)
     vp3 = np.arange(1024, dtype=np.uint32).reshape(2, 512)
     kp3[0, [450, 300, 130, 200]] = 9; kp3[1, 3] = 9; kp3[1, [500, 129]] = 11
@@ -147,47 +197,115 @@ def kernel_cases():
                                            holes=0.6)
 
 
-def check_kernel_cases(probe_pages_perf, probe_pages_ref):
-    import torch
+def compare(name, kernel, got, want):
+    sync()
+    bad = int((got != want).any(dim=1).sum())
+    check(bad == 0, f"{kernel} != plain on {name}: {bad} rows differ")
+    return f"{kernel} equal (found {int(got[:, 1].sum())})"
+
+
+def check_kernel_cases(k, ref, pack_bitplanes):
+    """Every kernel against its plain version on every case.  ``area``
+    must refuse S = 200 (not a multiple of its 128-slot strip) and the
+    bit-serial layout S = 200 (not whole 32-slot words)."""
     for name, case in kernel_cases():
-        args = to_card(*case)
-        got = probe_pages_perf(*args)
-        sync()
-        want = probe_pages_ref(*args)
-        bad = int((got != want).any(dim=1).sum())
-        check(bad == 0, f"kernel != plain on {name}: {bad} rows differ")
-        print(f"kernel_check {name}: Q={case[2].size} equal "
-              f"(found {int(got[:, 1].sum())})")
+        pool, q, pages = to_card(*case)
+        S = pool.shape[1]
+        notes = [compare(name, "perf", k["probe_perf"](pool, q, pages),
+                         ref.probe_pages_ref(pool, q, pages))]
+        if S % min(128, S):
+            try:
+                k["probe_area"](pool, q, pages)
+            except ValueError:
+                notes.append("area refused")
+            else:
+                raise AssertionError(f"probe_area accepted S={S}")
+        else:
+            notes.append(compare(name, "area", k["probe_area"](pool, q, pages),
+                                 ref.probe_pages_ref(pool, q, pages)))
+        if S % 32:
+            try:
+                pack_bitplanes(pool[..., 0], 32)
+            except ValueError:
+                notes.append("bit-planes refused")
+            else:
+                raise AssertionError(f"pack_bitplanes accepted S={S}")
+        else:
+            planes = pack_bitplanes(pool[..., 0], 32)
+            notes.append(compare(
+                name, "bitserial",
+                k["probe_bitserial"](planes, pool, q, pages, 32),
+                ref.probe_bitplanes_ref(planes, pool, q, pages, 32)))
+        print(f"kernel_check {name}: Q={case[2].size}; " + "; ".join(notes))
+    rng = np.random.default_rng(4)
+    for b in (4, 8, 16, 32):
+        pool, q, pages = to_card(*make_case(rng, 64, 512, 8192, 4, holes=0.3,
+                                            key_bits=b, fill=0.5))
+        planes = pack_bitplanes(pool[..., 0], b)              # on the card
+        note = compare(f"key_bits{b}", "bitserial",
+                       k["probe_bitserial"](planes, pool, q, pages, b),
+                       ref.probe_bitplanes_ref(planes, pool, q, pages, b))
+        print(f"kernel_check key_bits{b}: Q=8192; {note}")
 
 
-def check_small_table_vs_cpu(hashmap, HashMemConfig):
-    """Build, insert and delete on the card and on the CPU: equal leaves."""
+def check_small_tables_vs_cpu(hashmap, HashMemConfig):
+    """A perf table and a bit-serial table at key_bits=8, built, inserted
+    into (with a valid mask), deleted from, grown, compacted and
+    auto-grown on the card and on the CPU: equal leaves (planes included)
+    after every step, equal masks and probe results through every
+    backend."""
     import torch
-    cfg = HashMemConfig(num_buckets=64, slots_per_page=128, overflow_pages=16,
-                        max_chain=3)
+    base = HashMemConfig(num_buckets=64, slots_per_page=128, overflow_pages=16,
+                         max_chain=3, max_load_factor=0.6)
     rng = np.random.default_rng(1)
-    keys = rng.choice(0xFFFFFFF0, 14_000, replace=False).astype(np.uint32)
+    keys = rng.choice(0xFFFFFFF0, 20_000, replace=False).astype(np.uint32)
     keys[:2000] = keys[2000:4000]                         # duplicates
     vals = rng.integers(0, 2**32, keys.size, dtype=np.uint64).astype(np.uint32)
-    tabs = {}
-    for dev in ("cuda", "cpu"):
-        hm = hashmap.build(cfg, keys[:9000], vals[:9000], device=dev)
-        hm, ok = hashmap.insert(hm, keys[9000:], vals[9000:],
-                                valid=np.arange(5000) % 7 != 0)
-        hm, found = hashmap.delete(hm, keys[::5])
-        v, f = hashmap.probe(hm, keys)
-        tabs[dev] = (hashmap.to_numpy(hm), ok.cpu(), found.cpu(), v.cpu(),
-                     f.cpu())
-    gpu, cpu = tabs["cuda"], tabs["cpu"]
-    for name in hashmap.LEAVES:
-        check(np.array_equal(gpu[0][name], cpu[0][name]),
-              f"small table: {name} differs between card and CPU")
-    for a, b, what in zip(gpu[1:], cpu[1:], ("ok", "found", "values",
-                                             "probe found")):
-        check(torch.equal(a, b), f"small table: {what} differs")
-    check(not bool(gpu[1].all()), "small table: no insert was refused")
-    print("small_table: build/insert/delete/probe on the card equal the CPU "
-          f"(refused {int((~gpu[1]).sum())}, deleted {int(gpu[2].sum())})")
+    for cfg in (base, dataclasses.replace(base, backend="bitserial",
+                                          key_bits=8)):
+        backends = ("perf", "area", "ref") + (
+            ("bitserial",) if cfg.backend == "bitserial" else ())
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            steps, outs = [], []
+            hm = hashmap.build(cfg, keys[:9000], vals[:9000], device=dev)
+            steps.append(hashmap.to_numpy(hm))
+            hm, ok = hashmap.insert(hm, keys[9000:14000], vals[9000:14000],
+                                    valid=np.arange(5000) % 7 != 0)
+            steps.append(hashmap.to_numpy(hm))
+            hm, found = hashmap.delete(hm, keys[::5])
+            steps.append(hashmap.to_numpy(hm))
+            hm = hashmap.grow(hm)
+            steps.append(hashmap.to_numpy(hm))
+            hm = hashmap.compact(hm)
+            steps.append(hashmap.to_numpy(hm))
+            events = {}
+            hm, ok2 = hashmap.insert_auto(hm, keys[14000:], vals[14000:],
+                                          events=events)
+            steps.append(hashmap.to_numpy(hm))
+            outs += [ok.cpu(), found.cpu(), ok2.cpu()]
+            for backend in backends:
+                v, f = hashmap.probe(hm, keys, backend=backend)
+                outs += [v.cpu(), f.cpu()]
+            runs[dev] = (steps, outs, events)
+        (gs, go, gev), (cs, co, cev) = runs["cuda"], runs["cpu"]
+        for i, (a, b) in enumerate(zip(gs, cs)):
+            check(a.keys() == b.keys(), f"small table: leaves differ at {i}")
+            for name in a:
+                check(np.array_equal(a[name], b[name]),
+                      f"small table {cfg.backend}: {name} differs between "
+                      f"card and CPU after step {i}")
+        for i, (a, b) in enumerate(zip(go, co)):
+            check(torch.equal(a, b), f"small table {cfg.backend}: output {i} "
+                  f"differs between card and CPU")
+        check(gev == cev, "small table: insert_auto events differ")
+        check(not bool(go[0].all()), "small table: no insert was refused")
+        print(f"small_table {cfg.backend} key_bits={cfg.key_bits}: build/"
+              f"insert/delete/grow/compact/insert_auto and probes through "
+              f"{'/'.join(backends)} on the card equal the CPU (refused "
+              f"{int((~go[0]).sum())}, deleted {int(go[1].sum())}, "
+              f"insert_auto events {gev}, leaves "
+              f"{'/'.join(gs[-1])})")
 
 
 def profile_probe(probe, top: int = 8):
@@ -212,7 +330,66 @@ def profile_probe(probe, top: int = 8):
 
 
 # ---------------------------------------------------------------------------
-# Main path at paper scale
+# Bounds: what the probe needs, counted from this run's data
+# ---------------------------------------------------------------------------
+
+def walked(pages, out):
+    """Found mask, and the number of valid schedule steps walked before
+    each query's hit (all valid steps for a miss)."""
+    import torch
+    C = pages.shape[1]
+    found = out[:, 1] != 0
+    hit_col = (pages == out[:, 2:3]) & (pages >= 0) & found[:, None]
+    first = torch.where(found, hit_col.to(torch.uint8).argmax(1), C)
+    before = torch.arange(C, device=pages.device)[None, :] < first[:, None]
+    return found, int(((pages >= 0) & before).sum())
+
+
+def row_bound(pages, out, S, io_bytes):
+    """perf and area: whole (key, value) rows for the steps before the hit,
+    the hit row's slots up to the hit slot in whole sectors."""
+    import torch
+    found, rows = walked(pages, out)
+    hit_slots = out[found, 3].to(torch.int64) + 1
+    hit_bytes = int(((hit_slots * 8 + SECTOR - 1) // SECTOR * SECTOR).sum())
+    nbytes = rows * S * 8 + hit_bytes + io_bytes
+    ops = rows * S + int(hit_slots.sum())
+    note = (f"{rows} whole rows + {hit_bytes / 1e9:.3f} GB of hit rows up to "
+            f"the hit slot, mean slot {float(hit_slots.double().mean()):.1f}")
+    return nbytes, ops, note
+
+
+def plane_bound(pages, out, b, W, io_bytes):
+    """bitserial: whole plane rows (b x W words) for the steps before the
+    hit; on the hit step each plane up to the hit's word in whole sectors,
+    and one value sector."""
+    import torch
+    found, rows = walked(pages, out)
+    hit_words = out[found, 3].to(torch.int64) // 32 + 1
+    hit_bytes = int(((hit_words * 4 + SECTOR - 1) // SECTOR * SECTOR).sum()) \
+        * b + int(found.sum()) * SECTOR
+    nbytes = rows * b * W * 4 + hit_bytes + io_bytes
+    ops = 2 * b * (rows * W + int(hit_words.sum()))   # xor + or per word
+    note = (f"{rows} whole plane rows ({b}x{W} words) + {hit_bytes / 1e9:.3f}"
+            f" GB of hit-step planes up to the hit word and values")
+    return nbytes, ops, note
+
+
+def bound_of(nbytes, ops):
+    bytes_s, ops_s = nbytes / HBM_RATE, ops / ALU32_RATE
+    return max(bytes_s, ops_s) * 1e3, ("bytes" if bytes_s >= ops_s
+                                       else "operations")
+
+
+def mismatch(out, plain):
+    import torch
+    diff = (out.to(torch.int64) & 0xFFFFFFFF) - (plain.to(torch.int64)
+                                                 & 0xFFFFFFFF)
+    return int((diff != 0).any(dim=1).sum()), int(diff.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# Main paths at paper scale
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -226,11 +403,14 @@ def main() -> int:
     from repro_torch.configs import PAPER_HASHMEM, HashMemConfig
     from repro_torch.core import hashmap
     from repro_torch.core.hashing import as_u32
-    from repro_torch.core.layout import to_bits
+    from repro_torch.core.layout import pack_bitplanes, to_bits
     from repro_torch.data.kv_synth import kv_dataset, probe_set
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.probe_area import probe_pages_area
+    from repro_torch.kernels.probe_bitserial import probe_pages_bitserial
     from repro_torch.kernels.probe_perf import probe_pages_perf
-    from repro_torch.kernels.ref import probe_pages_ref
+    k = {"probe_perf": probe_pages_perf, "probe_area": probe_pages_area,
+         "probe_bitserial": probe_pages_bitserial}
 
     # -- 1. device -----------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -241,21 +421,16 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} card(s))")
     print(smi)
     if CARD not in name:
-        fail(f"card {name!r} is not the {CARD} whose rates bound the kernel")
+        fail(f"card {name!r} is not the {CARD} whose rates bound the kernels")
 
     # -- 2. build --------------------------------------------------------------
-    t0 = time.perf_counter()
-    build.load("probe_perf")
-    print(f"build: probe_perf.cu built in {time.perf_counter() - t0:.3f} s")
-    for line in build.build_logs.get("probe_perf", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    build_kernels(build)
 
-    # -- 3. kernel against plain; card against CPU ------------------------------
-    check_kernel_cases(probe_pages_perf, probe_pages_ref)
-    check_small_table_vs_cpu(hashmap, HashMemConfig)
+    # -- 3. kernels against plain; card against CPU ------------------------------
+    check_kernel_cases(k, ref, pack_bitplanes)
+    check_small_tables_vs_cpu(hashmap, HashMemConfig)
 
-    # -- 4. main path at PAPER_HASHMEM -------------------------------------------
+    # -- 4. the perf path at PAPER_HASHMEM --------------------------------------
     cfg = PAPER_HASHMEM
     t0 = time.perf_counter()
     keys_all, vals_all = kv_dataset(N_BUILD + N_HELD)
@@ -267,13 +442,9 @@ def main() -> int:
           f"{probes.size} probes in {time.perf_counter() - t1:.3f} s, made on "
           f"the host (numpy {np.__version__})")
 
-    probe_pages_perf.launches = 0
+    reset_launches(k)
     torch.cuda.reset_peak_memory_stats()
-    sync()
-    t0 = time.perf_counter()
-    hm = hashmap.build(cfg, keys, vals)
-    sync()
-    build_s = time.perf_counter() - t0
+    hm, build_s = host_s(lambda: hashmap.build(cfg, keys, vals))
     mcl = hashmap.max_chain_len(hm)
     st = hashmap.stats(hm)
     pool_gb = hm.store.pool.numel() * 4 / 1e9
@@ -308,81 +479,207 @@ def main() -> int:
     check(np.array_equal(f.cpu().numpy(), alive), "re-probe found flags wrong")
     check(np.array_equal(v.cpu().numpy().astype(np.uint32)[alive],
                          vals[pidx][alive]), "re-probe values wrong")
-    sync()
-    launches = probe_pages_perf.launches
+    perf_path = read_launches(k)
     st2 = hashmap.stats(hm2)
     print(f"main_mutate: inserted {held_k.size} (all ok), deleted {N_DELETE} "
           f"(all found); re-probe: deleted gone, inserted and untouched keys "
           f"return their values; live {st2['live_entries']}, tombstones "
-          f"{st2['tombstones']}; probe_perf launches on the main path: "
-          f"{launches}")
-    check(launches > 0, "the main path never launched probe_perf")
+          f"{st2['tombstones']}; launches on the perf path: {perf_path}")
+    check(perf_path["probe_perf"] > 0, "the perf path never launched probe_perf")
     check(st2["live_entries"] == N_BUILD + N_HELD - N_DELETE, "live count")
     del hm2, v, f, found, ok
 
-    # -- 5. the kernel at the main path's shapes ---------------------------------
     qd = as_u32(probes, "cuda")
     qbits = to_bits(qd)
     pages = hashmap.resolve_pages(hm, qd)
     pool = hm.store.pool
     out = probe_pages_perf(pool, qbits, pages)
-    sync()
-    plain = probe_pages_ref(pool, qbits, pages)
-    sync()
-    diff = (out.to(torch.int64) & 0xFFFFFFFF) - (plain.to(torch.int64)
-                                                  & 0xFFFFFFFF)
-    mismatches = int((diff != 0).any(dim=1).sum())
-    max_abs_err = int(diff.abs().max())
-    check(mismatches == 0, f"kernel != plain on {mismatches} paper probes")
-    print(f"main_kernel_check: {probes.size} paper-scale probes, kernel equals "
-          f"plain (mismatches 0)")
-
-    # what the work needs: every slot of each row walked before the first
-    # hit (all valid rows for a miss), the hit row's slots up to the hit slot
-    # in whole sectors, the queries, the schedule and the output lanes
-    C, S = pages.shape[1], cfg.slots_per_page
-    found = out[:, 1] != 0
-    hit_col = (pages == out[:, 2:3]) & (pages >= 0) & found[:, None]
-    first = torch.where(found, hit_col.to(torch.uint8).argmax(1), C)
-    before = torch.arange(C, device="cuda")[None, :] < first[:, None]
-    rows = int(((pages >= 0) & before).sum())
-    hit_slots = out[found, 3].to(torch.int64) + 1
-    hit_bytes = int(((hit_slots * 8 + SECTOR - 1) // SECTOR * SECTOR).sum())
-    nbytes = (rows * S * 8 + hit_bytes + qbits.numel() * 4 + pages.numel() * 4
-              + out.numel() * 4)
-    ops = rows * S + int(hit_slots.sum())
-    bytes_s, ops_s = nbytes / HBM_RATE, ops / ALU32_RATE
-    bound_ms = max(bytes_s, ops_s) * 1e3
-    bound_by = "bytes" if bytes_s >= ops_s else "operations"
-
+    plain = ref.probe_pages_ref(pool, qbits, pages)
+    perf_mis, _ = mismatch(out, plain)
+    check(perf_mis == 0, f"probe_perf != plain on {perf_mis} paper probes")
+    io_bytes = qbits.numel() * 4 + pages.numel() * 4 + out.numel() * 4
+    nbytes, ops, note = row_bound(pages, out, cfg.slots_per_page, io_bytes)
+    perf_bound, perf_by = bound_of(nbytes, ops)
     kernel_ms = cuda_ms(lambda: probe_pages_perf(pool, qbits, pages),
                         TIMED_RUNS)
-    plain_ms = cuda_ms(lambda: probe_pages_ref(pool, qbits, pages), 3)
+    perf_plain = cuda_ms(lambda: ref.probe_pages_ref(pool, qbits, pages), 3)
     e2e_ms = cuda_ms(lambda: hashmap.probe(hm, qd), TIMED_RUNS)
     print(f"timing: probe_perf {kernel_ms:.4f} ms for {probes.size} probes "
-          f"(needs {rows} whole rows + {hit_bytes / 1e9:.3f} GB of hit rows "
-          f"up to the hit slot, mean slot "
-          f"{float(hit_slots.double().mean()):.1f}; {nbytes / 1e9:.3f} GB in "
-          f"all, {nbytes / kernel_ms / 1e9:.2f} TB/s); bound {bound_ms:.4f} "
-          f"ms ({bound_by}, "
-          f"{HBM_RATE / 1e12:.2f} TB/s); "
-          f"{bound_ms / kernel_ms * 100:.1f}% of bound; "
-          f"plain {plain_ms:.4f} ms")
+          f"(kernel equals plain, mismatches 0; needs {note}; "
+          f"{nbytes / 1e9:.3f} GB in all, {nbytes / kernel_ms / 1e9:.2f} "
+          f"TB/s); bound {perf_bound:.4f} ms ({perf_by}, "
+          f"{HBM_RATE / 1e12:.2f} TB/s); {perf_bound / kernel_ms * 100:.1f}% "
+          f"of bound; plain {perf_plain:.4f} ms")
     print(f"timing: hashmap.probe end to end (hash + chain walk + kernel) "
           f"{e2e_ms:.4f} ms = {probes.size / e2e_ms / 1e3:.1f} Mprobes/s; "
           f"build {build_s:.3f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; median of "
           f"{TIMED_RUNS} runs after warm-up; card: {smi}")
     profile_probe(lambda: hashmap.probe(hm, qd))
+    del hm, pool, pages, out, plain
 
+    # -- 5. the bit-serial path at PAPER_HASHMEM ---------------------------------
+    bcfg = dataclasses.replace(PAPER_HASHMEM, backend="bitserial")
+    three = ("bitserial", "area", "perf")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(k)
+    hb, bs_build_s = host_s(lambda: hashmap.build(bcfg, keys, vals))
+    check(torch.equal(hb.planes, pack_bitplanes(hb.key_pages, 32)),
+          "built planes differ from pack_bitplanes(pool)")
+    st = hashmap.stats(hb)
+    check(st["live_entries"] == N_BUILD, "bit-serial build dropped entries")
+    planes_gb = hb.planes.numel() * 4 / 1e9
+    print(f"bs_build: {N_BUILD} pairs in {bs_build_s:.3f} s; pool "
+          f"{hb.store.pool.numel() * 4 / 1e9:.3f} GB + planes "
+          f"{tuple(hb.planes.shape)} = {planes_gb:.3f} GB; planes equal "
+          f"pack_bitplanes(pool)")
+
+    lanes = {}
+    for backend in three:
+        v, f = hashmap.probe(hb, probes, backend=backend)
+        check(bool(f.all()), f"{backend}: {int((~f).sum())} built keys lost")
+        check(np.array_equal(v.cpu().numpy().astype(np.uint32), vals[pidx]),
+              f"{backend}: probe values differ from the dataset's")
+        lanes[backend] = v
+        _, f = hashmap.probe(hb, held_k, backend=backend)
+        check(not bool(f.any()), f"{backend}: {int(f.sum())} held keys found")
+    check(torch.equal(lanes["bitserial"], lanes["area"])
+          and torch.equal(lanes["area"], lanes["perf"]),
+          "backends disagree on the paper probes")
+    print(f"bs_probe: {probes.size} built keys found with their values "
+          f"through {'/'.join(three)} (equal results); {held_k.size} held-back "
+          f"keys found by none")
+
+    hb2, ok = hashmap.insert(hb, held_k, held_v)
+    check(bool(ok.all()), f"bit-serial: {int((~ok).sum())} inserts refused")
+    hb2, found = hashmap.delete(hb2, keys[:N_DELETE])
+    check(bool(found.all()), f"bit-serial: {int((~found).sum())} deletes lost")
+    check(torch.equal(hb2.planes, pack_bitplanes(hb2.key_pages, 32)),
+          "planes out of step with the keys after insert and delete")
+
+    def reprobe(table, what):
+        for backend in three:
+            v, f = hashmap.probe(table, probes, backend=backend)
+            check(np.array_equal(f.cpu().numpy(), alive),
+                  f"{what} {backend}: found flags wrong")
+            check(np.array_equal(v.cpu().numpy().astype(np.uint32)[alive],
+                                 vals[pidx][alive]),
+                  f"{what} {backend}: values wrong")
+            v, f = hashmap.probe(table, held_k, backend=backend)
+            check(bool(f.all()) and np.array_equal(
+                v.cpu().numpy().astype(np.uint32), held_v),
+                f"{what} {backend}: inserted keys wrong")
+            _, f = hashmap.probe(table, keys[:N_DELETE], backend=backend)
+            check(not bool(f.any()), f"{what} {backend}: deleted keys found")
+
+    reprobe(hb2, "after insert+delete")
+    st2 = hashmap.stats(hb2)
+    print(f"bs_mutate: inserted {held_k.size} (all ok), deleted {N_DELETE} "
+          f"(all found); planes equal pack_bitplanes(pool); re-probe through "
+          f"{'/'.join(three)} exact; tombstones {st2['tombstones']}")
+    hb3, compact_s = host_s(lambda: hashmap.compact(hb2))
+    st3 = hashmap.stats(hb3)
+    check(st3["tombstones"] == 0, "compact left tombstones")
+    check(st3["live_entries"] == N_BUILD, "compact changed the live count")
+    check(torch.equal(hb3.planes, pack_bitplanes(hb3.key_pages, 32)),
+          "planes not re-packed by compact")
+    reprobe(hb3, "after compact")
+    bs_path = read_launches(k)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"bs_compact: {compact_s:.3f} s; tombstones 0, live "
+          f"{st3['live_entries']}, planes re-packed, re-probe exact; "
+          f"launches on the bit-serial path: {bs_path}; peak device memory "
+          f"{peak:.2f} GiB")
+    for kname in KERNELS:
+        check(bs_path[kname] > 0, f"the bit-serial path never launched {kname}")
+    del hb2, hb3, lanes, v, f, ok, found
+
+    # -- 6. the three kernels at the bit-serial path's shapes ---------------------
+    pool, planes = hb.store.pool, hb.planes
+    pages = hashmap.resolve_pages(hb, qd)
+    S, W = bcfg.slots_per_page, planes.shape[2]
+    calls = {
+        "probe_perf": lambda: probe_pages_perf(pool, qbits, pages),
+        "probe_area": lambda: probe_pages_area(pool, qbits, pages),
+        "probe_bitserial": lambda: probe_pages_bitserial(planes, pool, qbits,
+                                                         pages, 32),
+    }
+    plains = {
+        "probe_perf": lambda: ref.probe_pages_ref(pool, qbits, pages),
+        "probe_bitserial": lambda: ref.probe_bitplanes_ref(planes, pool,
+                                                           qbits, pages, 32),
+    }
+    plains["probe_area"] = plains["probe_perf"]
+    rows, outs = {}, {}
+    for kname in KERNELS:
+        out, plain = calls[kname](), plains[kname]()
+        mis, err = mismatch(out, plain)
+        check(mis == 0, f"{kname} != plain on {mis} paper probes")
+        outs[kname] = out
+        if kname == "probe_bitserial":
+            nbytes, ops, note = plane_bound(pages, out, 32, W, io_bytes)
+        else:
+            nbytes, ops, note = row_bound(pages, out, S, io_bytes)
+        bound_ms, bound_by = bound_of(nbytes, ops)
+        rows[kname] = dict(mismatches=mis, max_abs_err=err, bound_ms=bound_ms,
+                           bound_by=bound_by, nbytes=nbytes, note=note)
+    check(all(torch.equal(outs[n], outs["probe_perf"]) for n in KERNELS),
+          "the three kernels' lanes differ on the paper probes")
+    del outs, out, plain
+    turns = [("probe_perf", cuda_ms(calls["probe_perf"], TIMED_RUNS)),
+             ("probe_area", cuda_ms(calls["probe_area"], TIMED_RUNS)),
+             ("probe_area", cuda_ms(calls["probe_area"], TIMED_RUNS)),
+             ("probe_perf", cuda_ms(calls["probe_perf"], TIMED_RUNS))]
+    print("timing turns (perf, area, area, perf): "
+          + ", ".join(f"{n} {ms:.4f} ms" for n, ms in turns))
+    for kname in ("probe_perf", "probe_area"):
+        rows[kname]["ms"] = float(np.mean([ms for n, ms in turns
+                                           if n == kname]))
+    rows["probe_bitserial"]["ms"] = cuda_ms(calls["probe_bitserial"],
+                                            TIMED_RUNS)
+    plain_rows = cuda_ms(plains["probe_perf"], 3)
+    rows["probe_perf"]["plain_ms"] = rows["probe_area"]["plain_ms"] = plain_rows
+    rows["probe_bitserial"]["plain_ms"] = cuda_ms(plains["probe_bitserial"], 3)
+    for kname in KERNELS:
+        r = rows[kname]
+        print(f"timing: {kname} {r['ms']:.4f} ms for {probes.size} probes "
+              f"(kernel equals plain, mismatches 0; needs {r['note']}; "
+              f"{r['nbytes'] / 1e9:.3f} GB in all, "
+              f"{r['nbytes'] / r['ms'] / 1e9:.2f} TB/s); bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{HBM_RATE / 1e12:.2f} TB/s); "
+              f"{r['bound_ms'] / r['ms'] * 100:.1f}% of bound; plain "
+              f"{r['plain_ms']:.4f} ms; launches on the bit-serial path "
+              f"{bs_path[kname]}")
+    print(f"timing: area/perf kernel time ratio on this card "
+          f"{rows['probe_area']['ms'] / rows['probe_perf']['ms']:.4f}; "
+          f"card: {smi}")
+    for backend in three:
+        e2e = cuda_ms(lambda: hashmap.probe(hb, qd, backend=backend),
+                      TIMED_RUNS)
+        print(f"timing: hashmap.probe[{backend}] on the bit-serial table end "
+              f"to end {e2e:.4f} ms = {probes.size / e2e / 1e3:.1f} Mprobes/s")
+    print(f"bs_cost: pool {hb.store.pool.numel() * 4 / 1e9:.3f} GB + planes "
+          f"{planes_gb:.3f} GB; build {bs_build_s:.3f} s; compact "
+          f"{compact_s:.3f} s; peak device memory {peak:.2f} GiB")
+
+    replaces = {"probe_perf": "src/repro/kernels/probe_perf.py:34",
+                "probe_area": "src/repro/kernels/probe_area.py:32",
+                "probe_bitserial": "src/repro/kernels/probe_bitserial.py:36"}
+    launches = {"probe_perf": perf_path["probe_perf"],
+                "probe_area": bs_path["probe_area"],
+                "probe_bitserial": bs_path["probe_bitserial"]}
     print(json.dumps({"kernels": [{
-        "name": "probe_perf", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/probe_perf.cu",
-        "replaces": "src/repro/kernels/probe_perf.py:34",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "mismatches": mismatches, "ms": kernel_ms, "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}))
+        "name": kname, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{kname}.cu",
+        "replaces": replaces[kname], "launches": launches[kname],
+        "max_abs_err": rows[kname]["max_abs_err"],
+        "mismatches": rows[kname]["mismatches"],
+        "ms": rows[kname]["ms"], "kernel_ms": rows[kname]["ms"],
+        "plain_ms": rows[kname]["plain_ms"],
+        "bound_ms": rows[kname]["bound_ms"],
+        "bound_by": rows[kname]["bound_by"], "library_ms": None}
+        for kname in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

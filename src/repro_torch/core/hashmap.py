@@ -5,27 +5,31 @@ package's ``core/hashmap.py`` (paper §2.4-2.5, §3).
   * ``free_top`` is the ``pim_malloc`` bump allocator over the overflow arena;
   * delete writes TOMBSTONE_KEY and never reuses the slot (paper §2.5);
   * probing resolves the page chain (the RLU command stream) and hands the
-    page list to a backend (``core/probe.py``).
+    page list to a backend (``core/probe.py``);
+  * ``grow`` rebuilds into a larger arena and ``compact`` at the same size,
+    re-bucketing every live entry (and re-packing the bit-planes of a
+    bit-serial table); ``insert_auto`` grows when a batch would pass
+    ``max_load_factor`` or when an element is refused.
 
 Keys and values enter as uint32 (numpy arrays or tensors) and are carried as
 int64 tensors holding [0, 2**32) (``hashing.as_u32``); the pool stores their
-bits as int32.  Every function gives the same state and results as its JAX
-counterpart, bit for bit, including the order of duplicate keys (stable
-sorts) and JAX's clamped gathers and dropped scatters.  Like the JAX
-structure, every mutation returns a new HashMem and leaves the old one as it
-was.
+bits as int32.  A table with ``backend="bitserial"`` also keeps the
+bit-plane lane (``layout.pack_bitplanes``) in step with its keys.  Every
+function gives the same state and results as its JAX counterpart, bit for
+bit, including the order of duplicate keys (stable sorts) and JAX's clamped
+gathers and dropped scatters.  Like the JAX structure, every mutation
+returns a new HashMem and leaves the old one as it was.
 
 Entry points that make a table take ``device=None``, which means the card;
 only ``device="cpu"`` runs on the CPU.  Operations on a table run on the
 table's device.
 
 Not ported yet (``create`` raises, naming the ROADMAP item): fingerprint
-lane, displacement and stash (Queue 1 item 6), extendible resize (item 7),
-the ``area`` and ``bitserial`` backends (Queue 2 items 2 and 3).  Grow,
-compact, ``insert_auto`` and ``insert_scan`` (item 5) are not here yet.
+lane, displacement and stash (Queue 1 item 6), extendible resize (item 7).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -34,7 +38,7 @@ import torch
 from repro_torch.configs import HashMemConfig
 from repro_torch.core import layout
 from repro_torch.core.hashing import as_u32, hash_to_bucket
-from repro_torch.core.layout import (EMPTY_BITS, TOMBSTONE_BITS,
+from repro_torch.core.layout import (EMPTY_BITS, TOMBSTONE_BITS, from_bits,
                                      resolve_device, to_bits)
 
 I32 = torch.int32
@@ -62,6 +66,10 @@ class HashMem:
         return self.store.val_pages
 
     @property
+    def planes(self):                      # (P, key_bits, S/32) int32 | None
+        return self.store.planes
+
+    @property
     def page_next(self) -> torch.Tensor:   # (num_pages,) int32, -1 terminal
         return self.store.page_next
 
@@ -86,13 +94,12 @@ def check_config(cfg: HashMemConfig):
         raise NotImplementedError(
             "fingerprint lane, displacement and stash are not ported yet "
             "(ROADMAP Queue 1 item 6)")
-    if cfg.backend in ("area", "bitserial"):
-        item = 2 if cfg.backend == "area" else 3
-        raise NotImplementedError(
-            f"backend={cfg.backend!r} is not ported yet "
-            f"(ROADMAP Queue 2 item {item})")
-    if cfg.backend not in ("perf", "ref"):
+    if cfg.backend not in ("perf", "ref", "area", "bitserial"):
         raise ValueError(f"unknown probe backend {cfg.backend!r}")
+
+
+def _keep_planes(cfg: HashMemConfig) -> bool:
+    return cfg.backend == "bitserial"
 
 
 def create(cfg: HashMemConfig, device=None) -> HashMem:
@@ -100,7 +107,8 @@ def create(cfg: HashMemConfig, device=None) -> HashMem:
     check_config(cfg)
     dev = resolve_device(device)
     store = layout.empty_store(cfg.num_pages, cfg.slots_per_page,
-                               cfg.key_bits, dev)
+                               cfg.key_bits, dev,
+                               with_planes=_keep_planes(cfg))
     store.free_top = torch.tensor(cfg.num_buckets, dtype=I32, device=dev)
     return HashMem(store=store,
                    bucket_head=torch.arange(cfg.num_buckets, dtype=I32,
@@ -112,16 +120,26 @@ def create(cfg: HashMemConfig, device=None) -> HashMem:
 # State carried across packages: numpy leaves in the JAX HashMem's names
 # ---------------------------------------------------------------------------
 
+def leaf_names(cfg: HashMemConfig) -> tuple:
+    """The leaves a table of this config carries: ``LEAVES``, and
+    ``planes`` for a bit-serial table."""
+    return LEAVES + ("planes",) if _keep_planes(cfg) else LEAVES
+
+
 def to_numpy(hm: HashMem) -> dict:
     """``pool`` (P,S,2) uint32, ``page_next``/``page_fill``/``bucket_head``
-    int32 and ``free_top`` () int32, as the JAX HashMem holds them."""
-    return {
+    int32, ``free_top`` () int32 and, for a bit-serial table, ``planes``
+    (P, key_bits, S/32) uint32, as the JAX HashMem holds them."""
+    out = {
         "pool": hm.store.pool.cpu().numpy().view(np.uint32),
         "page_next": hm.page_next.cpu().numpy(),
         "page_fill": hm.page_fill.cpu().numpy(),
         "free_top": hm.free_top.cpu().numpy(),
         "bucket_head": hm.bucket_head.cpu().numpy(),
     }
+    if hm.planes is not None:
+        out["planes"] = hm.planes.cpu().numpy().view(np.uint32)
+    return out
 
 
 def from_numpy(cfg: HashMemConfig, leaves: dict, device=None) -> HashMem:
@@ -131,18 +149,22 @@ def from_numpy(cfg: HashMemConfig, leaves: dict, device=None) -> HashMem:
     want = {"pool": (cfg.num_pages, cfg.slots_per_page, 2),
             "page_next": (cfg.num_pages,), "page_fill": (cfg.num_pages,),
             "free_top": (), "bucket_head": (cfg.num_buckets,)}
+    if _keep_planes(cfg):
+        want["planes"] = (cfg.num_pages, cfg.key_bits,
+                          layout.plane_words(cfg.slots_per_page))
     t = {}
-    for name in LEAVES:
+    for name in leaf_names(cfg):
         a = np.asarray(leaves[name])
         if a.shape != want[name]:
             raise ValueError(f"leaf {name} has shape {a.shape}, the config "
                              f"needs {want[name]}")
-        a = a.astype(np.uint32).view(np.int32) if name == "pool" \
+        a = a.astype(np.uint32).view(np.int32) if name in ("pool", "planes") \
             else a.astype(np.int32)
         t[name] = torch.from_numpy(a).to(dev)
     store = layout.PageStore(pool=t["pool"], page_next=t["page_next"],
                              page_fill=t["page_fill"],
-                             free_top=t["free_top"], key_bits=cfg.key_bits)
+                             free_top=t["free_top"], key_bits=cfg.key_bits,
+                             planes=t.get("planes"))
     return HashMem(store=store, bucket_head=t["bucket_head"], config=cfg)
 
 
@@ -169,7 +191,7 @@ def build_with_buckets(cfg: HashMemConfig, keys, vals, b,
     check_config(cfg)
     dev = resolve_device(device)
     return _scatter_build(cfg, as_u32(keys, dev), as_u32(vals, dev),
-                          torch.as_tensor(b, device=dev))
+                          torch.as_tensor(b, device=dev), valid=None)
 
 
 def _segment_rank(bs: torch.Tensor, num_buckets: int):
@@ -184,13 +206,15 @@ def _segment_rank(bs: torch.Tensor, num_buckets: int):
 
 
 def _scatter_build(cfg: HashMemConfig, keys: torch.Tensor, vals: torch.Tensor,
-                   b: torch.Tensor) -> HashMem:
-    """Sort/rank/segment bulk loader.  Entries with bucket id >= num_buckets
-    are dropped; relative order of surviving entries within a bucket follows
-    their input order (stable sort)."""
+                   b: torch.Tensor, valid) -> HashMem:
+    """Shared sort/rank/segment bulk loader.  Entries with ``valid=False``
+    (or bucket id >= num_buckets) are dropped; relative order of surviving
+    entries within a bucket follows their input order (stable sort)."""
     S, nb, P = cfg.slots_per_page, cfg.num_buckets, cfg.num_pages
     dev = keys.device
     b = b.to(I64)
+    if valid is not None:
+        b = torch.where(valid, b, nb)                         # sorts to the end
     order = torch.argsort(b, stable=True)
     bs, ks, vs = b[order], to_bits(keys)[order], to_bits(vals)[order]
     dropped = bs >= nb
@@ -205,7 +229,7 @@ def _scatter_build(cfg: HashMemConfig, keys: torch.Tensor, vals: torch.Tensor,
     page = torch.where(depth == 0, bs, nb + over_off[ob] + depth - 1)
     page = torch.where(dropped, P, page)                      # OOB -> dropped
 
-    store = layout.empty_store(P, S, cfg.key_bits, dev)
+    store = layout.empty_store(P, S, cfg.key_bits, dev)     # planes packed below
     keep = page < P
     store.pool[page[keep], slot[keep]] = torch.stack([ks, vs], dim=-1)[keep]
     store.page_fill.scatter_reduce_(0, page[keep], (slot + 1)[keep].to(I32),
@@ -218,6 +242,8 @@ def _scatter_build(cfg: HashMemConfig, keys: torch.Tensor, vals: torch.Tensor,
     lk = link_idx < P
     store.page_next[link_idx[lk]] = page[lk].to(I32)
     store.free_top = (nb + n_over.sum()).to(I32)
+    if _keep_planes(cfg):
+        store.planes = layout.pack_bitplanes(store.key_pages, cfg.key_bits)
     return HashMem(store=store,
                    bucket_head=torch.arange(nb, dtype=I32, device=dev),
                    config=cfg)
@@ -421,21 +447,212 @@ def delete(hm: HashMem, keys):
 def delete_with_buckets(hm: HashMem, keys, b):
     """``delete`` with caller-supplied bucket ids.
 
-    The JAX package finds the first match with a (Q, C, S) gather.  The port
-    takes the [page, slot] lanes of the probe backend instead (the kernel
-    on the card), which hold the same first match in chain order, lowest
-    slot, without the gather."""
+    The JAX package finds the first match with a full 32-bit key compare
+    over a (Q, C, S) gather, whatever the table's backend.  The port takes
+    the [page, slot] lanes of the same full-key row compare instead: the
+    ``perf`` kernel on the card, the plain version on the CPU or for a
+    ``ref`` table.  They hold the same first match in chain order, lowest
+    slot, without the gather.  The table's own backend is not used: the
+    bit-serial compare matches on the low ``key_bits`` bits only and would
+    tombstone another key."""
     from repro_torch.core.probe import probe_lanes
     cfg = hm.config
     q = to_bits(as_u32(keys, hm.device))
     pages = resolve_pages_by_bucket(hm, b)
-    out = probe_lanes(hm.store.pool, q, pages, cfg.backend)
+    out = probe_lanes(hm.store, q, pages,
+                      "ref" if cfg.backend == "ref" else "perf")
     found = out[:, 1] != 0
-    wp = torch.where(found, out[:, 2].to(I64), cfg.num_pages)   # OOB drop
-    store = hm.store.write_keys(wp, out[:, 3],
-                                torch.full_like(q, TOMBSTONE_BITS))
+    pg, s = out[:, 2].to(I64), out[:, 3].to(I64)
+    wp = torch.where(found, pg, cfg.num_pages)                  # OOB drop
+    store = hm.store.write_keys(wp, s, torch.full_like(q, TOMBSTONE_BITS),
+                                plane_pages=_dedup_plane_pages(hm, found,
+                                                               pg, s))
     return HashMem(store=store, bucket_head=hm.bucket_head,
                    config=cfg), found
+
+
+def _dedup_plane_pages(hm: HashMem, found, pg, s):
+    """Page ids for the bit-plane update of a tombstone batch: duplicate
+    queries target one (page, slot), and only its first is kept, so that
+    the update sets each bit once; None when the table keeps no planes."""
+    cfg = hm.config
+    if hm.planes is None or found.numel() == 0:
+        return None
+    flat = torch.where(found, pg * cfg.slots_per_page + s, -1)
+    o = torch.argsort(flat, stable=True)
+    fs = flat[o]
+    first = torch.ones_like(found)
+    first[1:] = fs[1:] != fs[:-1]
+    uniq = torch.empty_like(found)
+    uniq[o] = first
+    return torch.where(found & uniq, pg, cfg.num_pages)
+
+
+def insert_scan(hm: HashMem, keys, vals):
+    """Sequential per-element insert (paper §3.1 Listing 1), the JAX
+    package's ``lax.scan`` as a Python loop.
+
+    The reference the vectorized ``insert`` is tested against.  Unlike
+    ``insert``, it does not enforce the ``max_chain`` bound.  Returns
+    (new_hm, ok (B,) bool)."""
+    cfg = hm.config
+    S, P = cfg.slots_per_page, cfg.num_pages
+    k = as_u32(keys, hm.device)
+    v = as_u32(vals, hm.device)
+    bs = hash_to_bucket(k, cfg.num_buckets, cfg.hash_fn, cfg.salt).tolist()
+    kb, vb = to_bits(k), to_bits(v)
+    st = hm.store
+    pool, page_next, page_fill = (st.pool.clone(), st.page_next.clone(),
+                                  st.page_fill.clone())
+    planes = None if st.planes is None else st.planes.clone()
+    free_top = int(st.free_top)
+    oks = []
+    for i, b in enumerate(bs):
+        last = int(hm.bucket_head[b])               # walk to the chain tail
+        for _ in range(cfg.max_chain - 1):          # (gathers clamp, as JAX's)
+            nxt = int(page_next[min(max(last, 0), P - 1)])
+            last = nxt if nxt >= 0 else last
+        fill = int(page_fill[min(last, P - 1)])
+        need_new = fill >= S
+        ok = free_top < P if need_new else True
+        oks.append(ok)
+        if not ok:
+            continue
+        tp, ts = (free_top, 0) if need_new else (last, fill)
+        if tp < P:                                  # a write past the pool drops
+            pool[tp, ts, layout.KEY_LANE] = kb[i]
+            pool[tp, ts, layout.VAL_LANE] = vb[i]
+            if planes is not None:
+                _write_key_bits(planes, tp, ts, int(k[i]), cfg.key_bits)
+            page_fill[tp] = ts + 1
+        if need_new:
+            if last < P:
+                page_next[last] = free_top
+            free_top += 1
+    store = dataclasses.replace(
+        st, pool=pool, planes=planes, page_next=page_next,
+        page_fill=page_fill,
+        free_top=torch.tensor(free_top, dtype=I32, device=hm.device))
+    return (HashMem(store=store, bucket_head=hm.bucket_head, config=cfg),
+            torch.tensor(oks, dtype=torch.bool, device=hm.device))
+
+
+def _write_key_bits(planes: torch.Tensor, page: int, slot: int, key: int,
+                    key_bits: int):
+    """Bit-plane upkeep for one (page, slot) write, in place: bit
+    ``slot % 32`` of word ``slot // 32`` of each plane j takes bit j of
+    ``key``."""
+    word, bit = slot // 32, slot % 32
+    kbits = torch.tensor([(key >> j) & 1 for j in range(key_bits)],
+                         dtype=I64, device=planes.device)
+    old = from_bits(planes[page, :, word])
+    planes[page, :, word] = to_bits((old & ~(1 << bit)) | (kbits << bit))
+
+
+# ---------------------------------------------------------------------------
+# Dynamic resizing (grow / compact / auto-grow policy)
+# ---------------------------------------------------------------------------
+
+def _rebuild(hm: HashMem, new_cfg: HashMemConfig) -> HashMem:
+    """Re-bucket every live entry into a fresh arena under ``new_cfg``.
+
+    Flat (page-major) slot order IS chain order per bucket (page ids
+    increase along every chain), and the build's stable sort keeps it, so
+    same-key duplicates keep their relative order: probe and delete
+    semantics survive the rebuild."""
+    flat = hm.store.pool.reshape(-1, 2)
+    kbits = flat[:, layout.KEY_LANE]
+    live = (kbits != EMPTY_BITS) & (kbits != TOMBSTONE_BITS)
+    keys = from_bits(kbits)
+    b = hash_to_bucket(keys, new_cfg.num_buckets, new_cfg.hash_fn,
+                       new_cfg.salt)
+    return _scatter_build(new_cfg, keys, from_bits(flat[:, layout.VAL_LANE]),
+                          b, valid=live)
+
+
+def grow(hm: HashMem, factor=None) -> HashMem:
+    """Rehash into a ``factor``x larger arena (default
+    config.growth_factor): num_buckets and overflow_pages both scale, all
+    live entries are re-bucketed, chains and bit-planes are rebuilt.
+    Tombstones are dropped (grow subsumes compact)."""
+    cfg = hm.config
+    f = factor or cfg.growth_factor
+    new_cfg = dataclasses.replace(cfg, num_buckets=cfg.num_buckets * f,
+                                  overflow_pages=cfg.overflow_pages * f)
+    return _rebuild(hm, new_cfg)
+
+
+def compact(hm: HashMem) -> HashMem:
+    """Reclaim tombstoned slots and overflow pages by rebuilding at the
+    same config.  After compact: stats()['tombstones'] == 0 and every chain
+    is the minimum length for its live population."""
+    return _rebuild(hm, hm.config)
+
+
+def rebuild_check(hm: HashMem, new_cfg: HashMemConfig) -> dict:
+    """Host-side pre-flight: would the live entries fit under new_cfg?"""
+    kp = hm.key_pages.reshape(-1)
+    lk = from_bits(kp[(kp != EMPTY_BITS) & (kp != TOMBSTONE_BITS)])
+    b = hash_to_bucket(lk, new_cfg.num_buckets, new_cfg.hash_fn,
+                       new_cfg.salt)
+    counts = torch.bincount(b, minlength=new_cfg.num_buckets).cpu().numpy()
+    return _fit_report(counts, new_cfg)
+
+
+def compact_due(hm: HashMem, tombstones: int, *, fraction: bool = True,
+                chain: bool = True) -> bool:
+    """The compaction trigger policy: with tombstones present, compact when
+    they exceed ``compact_tombstone_frac`` of capacity (``fraction``) or,
+    with ``compact_chain_len`` > 0, when any bucket chain exceeds that many
+    pages (``chain``: a device walk and a host sync)."""
+    cfg = hm.config
+    if tombstones <= 0:
+        return False
+    if fraction and tombstones > \
+            cfg.compact_tombstone_frac * cfg.num_pages * cfg.slots_per_page:
+        return True
+    return chain and cfg.compact_chain_len > 0 and \
+        max_chain_len(hm) > cfg.compact_chain_len
+
+
+def insert_auto(hm: HashMem, keys, vals, max_grows: int = 8,
+                events=None):
+    """Host-level insert with auto-grow.  Grows proactively while the batch
+    would pass config.max_load_factor, and reactively while any element is
+    refused; the two loops draw on SEPARATE ``max_grows`` budgets, so a
+    proactive doubling never starves the repair of a refused batch.
+    ``events`` (optional dict) counts each grow under "rebuilds".  Returns
+    (new_hm, ok (B,) bool): all True unless growth ran out or is off."""
+    k = as_u32(keys, hm.device)
+    v = as_u32(vals, hm.device)
+    n = k.numel()
+    cfg = hm.config
+    if cfg.auto_grow:
+        proactive = 0
+        live = int(live_count(hm))
+        while live + n > cfg.max_load_factor * \
+                cfg.num_pages * cfg.slots_per_page and proactive < max_grows:
+            hm = grow(hm)
+            cfg = hm.config
+            proactive += 1
+            if events is not None:
+                events["rebuilds"] = events.get("rebuilds", 0) + 1
+
+    ok = torch.zeros(n, dtype=torch.bool, device=hm.device)
+    remaining = torch.arange(n, device=hm.device)
+    reactive = 0
+    while remaining.numel():
+        hm, ok_r = insert(hm, k[remaining], v[remaining])
+        ok[remaining[ok_r]] = True
+        remaining = remaining[~ok_r]
+        if remaining.numel() == 0 or not hm.config.auto_grow \
+                or reactive >= max_grows:
+            break
+        hm = grow(hm)
+        reactive += 1
+        if events is not None:
+            events["rebuilds"] = events.get("rebuilds", 0) + 1
+    return hm, ok
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,12 @@ value).  The pool holds uint32 bits in int32 words, so a slot's key and value
 are one 8-byte load in the probe kernel and ``pool.numpy().view(np.uint32)``
 gives the JAX package's uint32 pool without a copy.
 
-The JAX store's bit-plane, fingerprint, stash and local-depth lanes are not
-part of this port yet; their fields stay ``None``.
+The bit-plane lane (``planes``, the paper's column-oriented key layout,
+§2.2) is kept by bit-serial tables: plane j, word w holds bit j of the keys
+at slots [32w, 32w+32), LSB first, as ``(num_pages, key_bits, slots // 32)``
+int32 words with uint32 bits.  ``write_slots`` and ``write_keys`` keep it in
+sync with the key lane.  The JAX store's fingerprint, stash and local-depth
+lanes are not part of this port yet; their fields stay ``None``.
 
 Writes follow JAX's ``.at[...].set(mode="drop")``: a write whose page id lies
 outside ``[0, num_pages)`` is dropped.  torch has no drop mode, so the out of
@@ -28,6 +32,11 @@ KEY_LANE = 0
 VAL_LANE = 1
 
 I32 = torch.int32
+I64 = torch.int64
+
+# pack_bitplanes works on blocks of pages whose (pages, S, b) int64 bit
+# tensor stays near this size, so its peak is near the pool's own.
+PACK_BYTES = 1 << 30
 
 
 def resolve_device(device=None) -> torch.device:
@@ -91,34 +100,53 @@ class PageStore:
 
     def write_slots(self, pages, slots_idx, keys, vals) -> "PageStore":
         """ONE pool scatter writes key and value (int32 bits) into the same
-        rows; a page id outside the pool drops its write.  In-range
-        (page, slot) pairs must be unique within the batch."""
+        rows; a page id outside the pool drops its write, and the bit-planes
+        follow when present.  In-range (page, slot) pairs must be unique
+        within the batch."""
         m = self._in_range(pages)
         kv = torch.stack([keys.to(I32), vals.to(I32)], dim=-1)
         pool = self.pool.clone()
         pool[pages[m].long(), slots_idx[m].long()] = kv[m]
-        return dataclasses.replace(self, pool=pool)
+        planes = self.planes
+        if planes is not None:
+            planes = update_bitplanes_batch(planes, pages, slots_idx, keys,
+                                            self.key_bits)
+        return dataclasses.replace(self, pool=pool, planes=planes)
 
-    def write_keys(self, pages, slots_idx, keys) -> "PageStore":
+    def write_keys(self, pages, slots_idx, keys,
+                   plane_pages=None) -> "PageStore":
         """Key-lane-only scatter (tombstone writes): the value lane of the
-        row is left untouched."""
+        row is left untouched.  ``plane_pages`` optionally overrides the
+        page ids used for the bit-plane update (delete drops duplicate
+        targets there)."""
         m = self._in_range(pages)
         pool = self.pool.clone()
         pool[pages[m].long(), slots_idx[m].long(), KEY_LANE] = \
             keys.to(I32)[m]
-        return dataclasses.replace(self, pool=pool)
+        planes = self.planes
+        if planes is not None:
+            pp = pages if plane_pages is None else plane_pages
+            planes = update_bitplanes_batch(planes, pp, slots_idx, keys,
+                                            self.key_bits)
+        return dataclasses.replace(self, pool=pool, planes=planes)
 
 
 def empty_store(num_pages: int, slots: int, key_bits: int = 32,
-                device=None) -> PageStore:
-    """Fresh PageStore: every key EMPTY, every value 0, no chains."""
+                device=None, with_planes: bool = False) -> PageStore:
+    """Fresh PageStore: every key EMPTY, every value 0, no chains.
+    ``with_planes`` adds the bit-plane lane, all ones as EMPTY's bits."""
     dev = resolve_device(device)
+    planes = None
+    if with_planes:
+        planes = torch.full((num_pages, key_bits, plane_words(slots)), -1,
+                            dtype=I32, device=dev)
     return PageStore(
         pool=empty_pool(num_pages, slots, dev),
         page_next=torch.full((num_pages,), -1, dtype=I32, device=dev),
         page_fill=torch.zeros((num_pages,), dtype=I32, device=dev),
         free_top=torch.zeros((), dtype=I32, device=dev),
         key_bits=key_bits,
+        planes=planes,
     )
 
 
@@ -134,3 +162,84 @@ def interleave(key_pages: torch.Tensor, val_pages: torch.Tensor) -> torch.Tensor
     """Zip split (P, S) key/value arrays into the (P, S, 2) pool layout.
     Accepts int32 bits or int64 uint32-values."""
     return torch.stack([to_bits(key_pages), to_bits(val_pages)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Bit-plane packing (the paper's column-oriented key layout)
+# ---------------------------------------------------------------------------
+
+def plane_words(slots: int) -> int:
+    """Words per plane row; bit-planes need whole 32-slot words."""
+    if slots % 32:
+        raise ValueError(f"slots must be a multiple of 32 for bit-plane "
+                         f"packing, got {slots}")
+    return slots // 32
+
+
+def pack_bitplanes(key_pages: torch.Tensor, key_bits: int) -> torch.Tensor:
+    """(P, S) keys (int32 bits) -> (P, key_bits, S // 32) int32 bit-planes:
+    bit i of plane[p, j, w] = bit j of key_pages[p, 32w + i].
+
+    Works on blocks of pages so that the (pages, S, b) bit tensor stays
+    near ``PACK_BYTES``: at PAPER_HASHMEM the whole of it would be 43 GB."""
+    P, S = key_pages.shape
+    W = plane_words(S)
+    planes = torch.empty((P, key_bits, W), dtype=I32, device=key_pages.device)
+    j = torch.arange(key_bits, device=key_pages.device)
+    weights = torch.ones(32, dtype=I64, device=key_pages.device) << \
+        torch.arange(32, device=key_pages.device)
+    block = max(1, PACK_BYTES // (S * key_bits * 8))
+    for lo in range(0, P, block):
+        kp = key_pages[lo:lo + block].to(I64) & MASK32
+        bits = (kp[:, :, None] >> j) & 1                      # (p, S, b)
+        bits = bits.transpose(1, 2).reshape(-1, key_bits, W, 32)
+        planes[lo:lo + block] = to_bits((bits * weights).sum(-1))
+    return planes
+
+
+def unpack_bitplanes(planes: torch.Tensor, key_bits: int) -> torch.Tensor:
+    """Inverse of pack_bitplanes: (P, b, W) -> (P, 32W) int32 key bits
+    (the low ``key_bits`` bits of each key, the rest zero)."""
+    P, b, W = planes.shape
+    if b != key_bits:
+        raise ValueError(f"planes hold {b} bits, key_bits is {key_bits}")
+    i = torch.arange(32, device=planes.device)
+    bits = (from_bits(planes)[..., None] >> i) & 1            # (P, b, W, 32)
+    bits = bits.reshape(P, b, W * 32).transpose(1, 2)         # (P, S, b)
+    j = torch.arange(key_bits, device=planes.device)
+    return to_bits((bits << j).sum(-1))
+
+
+def update_bitplanes_batch(planes: torch.Tensor, pages, slots_idx, new_keys,
+                           key_bits: int) -> torch.Tensor:
+    """Bit-planes after writing ``new_keys`` (int32 bits or uint32 values)
+    at (``pages``, ``slots_idx``); a page outside the pool drops its update.
+
+    The JAX package merges each written (page, word) with scatter-adds over
+    a full (P, b, W) temporary, which act as OR because every in-range
+    (page, slot) pair is unique within a batch.  This form gathers and
+    rewrites only the written (page, word) pairs; its adds are int64
+    masked to 32 bits, so it gives the same words as the uint32 adds for
+    any batch.  Returns a new tensor; ``planes`` is left as it was."""
+    P, b, W = planes.shape
+    if b != key_bits:
+        raise ValueError(f"planes hold {b} bits, key_bits is {key_bits}")
+    pages = torch.as_tensor(pages, device=planes.device).to(I64)
+    slots_idx = torch.as_tensor(slots_idx, device=planes.device).to(I64)
+    keys = torch.as_tensor(new_keys, device=planes.device).to(I64) & MASK32
+    m = (pages >= 0) & (pages < P)
+    pages, slots_idx, keys = pages[m], slots_idx[m], keys[m]
+    flat = pages * W + slots_idx // 32
+    bit = slots_idx % 32
+    uniq, inv = torch.unique(flat, return_inverse=True)
+    clear = torch.zeros(uniq.shape, dtype=I64, device=planes.device) \
+        .index_add_(0, inv, torch.ones_like(bit) << bit)
+    j = torch.arange(key_bits, device=planes.device)
+    kbits = ((keys[:, None] >> j) & 1) << bit[:, None]         # (B, b)
+    setb = torch.zeros((uniq.numel(), key_bits), dtype=I64,
+                       device=planes.device).index_add_(0, inv, kbits)
+    pg, wd = uniq // W, uniq % W
+    out = planes.clone()
+    out[pg, :, wd] = (out[pg, :, wd] & ~to_bits(clear)[:, None]) \
+        | to_bits(setb)
+    return out

@@ -1,8 +1,9 @@
 """Parity of the port's HashMem (build, resolve, probe, insert, delete,
 stats) with the JAX package on small tables.  Same keys in, bit-equal state
-out: ``pool``, ``page_next``, ``page_fill``, ``free_top`` and ``bucket_head``
-after every operation, equal ok/found masks and probe results, and agreement
-with the ``DictModel`` oracle.  Tolerance 0 throughout (integer state)."""
+out: ``pool``, ``page_next``, ``page_fill``, ``free_top``, ``bucket_head``
+and, for bit-serial tables, ``planes`` after every operation, equal ok/found
+masks and probe results, and agreement with the ``DictModel`` oracle.
+Tolerance 0 throughout (integer state)."""
 import dataclasses
 from functools import partial
 
@@ -17,6 +18,7 @@ from repro.core import hashmap as jhm
 
 from repro_torch.configs import HashMemConfig
 from repro_torch.core import hashmap as thm
+from repro_torch.core import layout as tlayout
 from repro_torch.kernels.probe_perf import probe_pages_perf
 
 from model import DictModel, mine_bucket_colliding_keys, murmur3_fmix_np
@@ -35,16 +37,20 @@ def jcfg(cfg: HashMemConfig) -> JaxConfig:
 
 
 def jax_leaves(hm) -> dict:
-    return {"pool": np.asarray(hm.store.pool),
-            "page_next": np.asarray(hm.page_next),
-            "page_fill": np.asarray(hm.page_fill),
-            "free_top": np.asarray(hm.free_top),
-            "bucket_head": np.asarray(hm.bucket_head)}
+    out = {"pool": np.asarray(hm.store.pool),
+           "page_next": np.asarray(hm.page_next),
+           "page_fill": np.asarray(hm.page_fill),
+           "free_top": np.asarray(hm.free_top),
+           "bucket_head": np.asarray(hm.bucket_head)}
+    if hm.planes is not None:
+        out["planes"] = np.asarray(hm.planes)
+    return out
 
 
 def assert_same_state(thm_table, jhm_table):
     got, want = thm.to_numpy(thm_table), jax_leaves(jhm_table)
-    for name in thm.LEAVES:
+    assert set(got) == set(want) == set(thm.leaf_names(thm_table.config))
+    for name in got:
         assert got[name].dtype == want[name].dtype, name
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
 
@@ -149,6 +155,26 @@ def test_build_agrees_with_dict_model():
     np.testing.assert_array_equal(v.numpy(), ev)
 
 
+@pytest.mark.parametrize("case", ["murmur_chains", "duplicates",
+                                  "arena_too_small"])
+def test_bitserial_build_matches_jax(case):
+    """A bit-serial table: equal leaves, planes included, and every backend
+    of the port probes as JAX's bit-serial backend does."""
+    cfg, keys, vals = build_case(case)
+    cfg = dataclasses.replace(cfg, backend="bitserial")
+    t = thm.build(cfg, keys, vals, device=CPU)
+    j = j_build(jcfg(cfg), jnp.asarray(keys), jnp.asarray(vals))
+    assert_same_state(t, j)
+    assert torch.equal(t.planes, tlayout.pack_bitplanes(t.key_pages, 32))
+    q = np.concatenate([keys[::9], _unique(np.random.default_rng(2), 100)])
+    jv, jf = jhm.probe(j, jnp.asarray(q), backend="bitserial")
+    for backend in ("bitserial", "ref", "perf", "area"):
+        tv, tf = thm.probe(t, q, backend=backend)
+        np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+        np.testing.assert_array_equal(tv.numpy().astype(np.uint32),
+                                      np.asarray(jv))
+
+
 MUT = HashMemConfig(num_buckets=8, slots_per_page=32, overflow_pages=12,
                     max_chain=3)
 
@@ -159,10 +185,22 @@ def test_insert_delete_schedule_matches_jax(seed):
     chain-bound and arena refusals) and deletes (with duplicate queries):
     equal ok/found and equal leaves after every op, and the DictModel
     agrees."""
+    run_insert_delete_schedule(MUT, seed)
+
+
+@pytest.mark.parametrize("seed", [2])
+def test_bitserial_insert_delete_schedule_matches_jax(seed):
+    """The same schedule on a bit-serial table: planes stay equal to JAX's
+    after every insert and delete."""
+    run_insert_delete_schedule(dataclasses.replace(MUT, backend="bitserial"),
+                               seed)
+
+
+def run_insert_delete_schedule(cfg, seed):
     rng = np.random.default_rng(seed)
     keyspace = _unique(rng, 160, hi=100_000)
-    t = thm.create(MUT, device=CPU)
-    j = jhm.create(jcfg(MUT))
+    t = thm.create(cfg, device=CPU)
+    j = jhm.create(jcfg(cfg))
     model = DictModel()
     refused = 0
     for step in range(24):
@@ -229,6 +267,9 @@ def test_from_numpy_of_jax_table_matches():
     t = thm.from_numpy(cfg, jax_leaves(j), device=CPU)
     assert_same_state(t, j)
     q = np.concatenate([keys[::7], keys[8000:]])
+    with pytest.raises(KeyError):                # a bit-serial table needs planes
+        thm.from_numpy(dataclasses.replace(cfg, backend="bitserial"),
+                       jax_leaves(j), device=CPU)
     assert_same_probe(t, j, q)
     t, tok = thm.insert(t, keys[8000:], vals[8000:])
     j, jok = j_insert(j, jnp.asarray(keys[8000:]), jnp.asarray(vals[8000:]))
@@ -241,6 +282,51 @@ def test_from_numpy_of_jax_table_matches():
     with pytest.raises(ValueError):
         thm.from_numpy(dataclasses.replace(cfg, num_buckets=32),
                        jax_leaves(j), device=CPU)
+
+
+def test_from_numpy_of_jax_bitserial_table_probes_identically():
+    """A bit-serial table built by JAX at key_bits=16 crosses over with its
+    planes, probes as JAX's bit-serial backend does, and mutates as JAX's
+    does."""
+    cfg, keys, vals = build_case("murmur_chains")
+    cfg = dataclasses.replace(cfg, backend="bitserial", key_bits=16)
+    j = j_build(jcfg(cfg), jnp.asarray(keys[:8000]), jnp.asarray(vals[:8000]))
+    t = thm.from_numpy(cfg, jax_leaves(j), device=CPU)
+    assert_same_state(t, j)
+    q = np.concatenate([keys[::7], keys[8000:]])
+    tv, tf = thm.probe(t, q)
+    jv, jf = jhm.probe(j, jnp.asarray(q))
+    np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(tv.numpy().astype(np.uint32), np.asarray(jv))
+    t, _ = thm.insert(t, keys[8000:], vals[8000:])
+    j, _ = j_insert(j, jnp.asarray(keys[8000:]), jnp.asarray(vals[8000:]))
+    t, _ = thm.delete(t, keys[:300])
+    j, _ = j_delete(j, jnp.asarray(keys[:300]))
+    assert_same_state(t, j)
+
+
+def test_delete_compares_full_keys_on_bitserial_tables():
+    """At key_bits=8 two keys equal in their low 8 bits share one bucket.
+    The bit-serial compare matches either, but delete tombstones the slot
+    JAX's full 32-bit compare picks, whatever the table's backend."""
+    cfg = HashMemConfig(num_buckets=8, slots_per_page=32, overflow_pages=8,
+                        max_chain=3, hash_fn="identity", backend="bitserial",
+                        key_bits=8)
+    keys = np.array([0x105, 0x205, 0x305], np.uint32)      # bucket 5, low 0x05
+    vals = np.array([1, 2, 3], np.uint32)
+    t, _ = thm.insert(thm.create(cfg, device=CPU), keys, vals)
+    j, _ = jhm.insert(jhm.create(jcfg(cfg)), jnp.asarray(keys),
+                      jnp.asarray(vals))
+    v, f = thm.probe(t, keys[1:2])                 # bit-serial: slot 0 matches
+    assert bool(f[0]) and int(v[0]) == 1
+    t, tf = thm.delete(t, keys[1:2])
+    j, jf = jhm.delete(j, jnp.asarray(keys[1:2]))
+    assert bool(tf[0]) and bool(jf[0])
+    assert_same_state(t, j)
+    kp = thm.to_numpy(t)["pool"][5, :3, 0]
+    assert kp.tolist() == [0x105, 0xFFFFFFFE, 0x305]
+    v, f = thm.probe(t, keys, backend="ref")
+    assert f.tolist() == [True, False, True]
 
 
 def test_mutations_leave_the_old_table_unchanged():
@@ -283,8 +369,6 @@ def test_no_device_means_the_card():
     (dict(displacement=True), "Queue 1 item 6"),
     (dict(stash_slots=4), "Queue 1 item 6"),
     (dict(resize="extendible"), "Queue 1 item 7"),
-    (dict(backend="area"), "Queue 2 item 2"),
-    (dict(backend="bitserial"), "Queue 2 item 3"),
 ])
 def test_unported_features_raise(change, item):
     cfg = dataclasses.replace(SMALL, **change)
@@ -292,3 +376,5 @@ def test_unported_features_raise(change, item):
         thm.create(cfg, device=CPU)
     with pytest.raises(ValueError):
         thm.create(dataclasses.replace(SMALL, resize="sideways"), device=CPU)
+    with pytest.raises(ValueError):
+        thm.create(dataclasses.replace(SMALL, backend="cam"), device=CPU)

@@ -154,11 +154,14 @@ def test_cpu_dispatch_takes_plain_version():
     kp, vp, live = make_pool(rng, 16, 128)
     q, pages = make_queries(rng, kp, vp, live, 32, 2, 16)
     args = t_pool(kp, vp), t_q(q), t_pages(pages)
+    store = tlayout.empty_store(16, 128, device="cpu")
+    store.pool = args[0]
     before = probe_pages_perf.launches
     want = tref.probe_pages_ref(*args)
     for backend in ("perf", "ref"):
-        assert torch.equal(tprobe.probe_lanes(*args, backend), want)
+        assert torch.equal(tprobe.probe_lanes(store, *args[1:], backend),
+                           want)
     assert torch.equal(ops.probe_perf(*args), want)
     assert probe_pages_perf.launches == before     # no kernel on the CPU
-    with pytest.raises(NotImplementedError):
-        tprobe.probe_lanes(*args, "area")
+    with pytest.raises(ValueError, match="unknown probe backend"):
+        tprobe.probe_lanes(store, *args[1:], "cam")
