@@ -12,9 +12,11 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      ``build/repro_torch``, one ``nvcc`` per source, all at once;
   3. holds each CUDA kernel (``probe_perf``, ``probe_area``,
      ``probe_bitserial``) against its plain PyTorch version, bit for bit, on
-     small and paper-shaped cases, and small tables (a ``perf`` one and a
-     bit-serial one at key_bits=8) built, mutated, grown and compacted on
-     the card against the same tables on the CPU;
+     small and paper-shaped cases, the bit-serial kernel also on the edges
+     of its sector-by-sector walk, at key widths 1/4/8/13/16/31/32 and on
+     planes that are not 16-byte aligned, and small tables (a ``perf`` one
+     and a bit-serial one at key_bits=8) built, mutated, grown and
+     compacted on the card against the same tables on the CPU;
   4. drives the ``perf`` path at PAPER_HASHMEM with the paper's workload:
      build 100M pairs, probe 10% of them, probe 1M held-back keys, insert
      those, delete 1M built keys, probe again, checking every found flag and
@@ -24,7 +26,8 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      ``perf``, insert, delete, compact, checking the planes after each
      write;
   6. times the three kernels at that path's shapes (``perf`` and ``area``
-     in turns) against their bounds, and prints the ``kernels`` line;
+     in turns) against their bounds, traces one ``hashmap.probe`` through
+     ``bitserial``, and prints the ``kernels`` line;
   7. prints the device line last.
 
 Any failed check raises and the script exits non-zero.  Without a card, or
@@ -140,7 +143,7 @@ def make_case(rng, P, S, Q, C, holes=0.0, fill=0.7, tombstones=0.05,
     kp = np.full((P, S), 0xFFFFFFFF, np.uint32)
     vp = np.zeros((P, S), np.uint32)
     n = int(P * S * fill)
-    space = min(2**key_bits - 2, 0xFFFFFFF0)
+    space = min(max(2**key_bits - 2, 2), 0xFFFFFFF0)
     pos = rng.choice(P * S, size=n, replace=False)
     kp.reshape(-1)[pos] = rng.choice(space, size=n, replace=n > space)
     vp.reshape(-1)[pos] = rng.integers(0, 2**32, n, dtype=np.uint64)
@@ -197,6 +200,73 @@ def kernel_cases():
                                            holes=0.6)
 
 
+def sector_edges(S):
+    """Edges of the bit-serial kernel's walk one 256-slot chunk (one 32-byte
+    sector of each plane) at a time, on pages of random keys >= 1000:
+    the only match at slot 255 or at 256; matches in both chunks of a row
+    (the first wins); a hit on step 2 after a full-row miss on step 1, at
+    the row's last slot or at slot 0; a query that matches nothing, with a
+    page id past the pool.  Keys 101..107 are the queries."""
+    rng = np.random.default_rng(S)
+    kp = rng.integers(1000, 0xFFFFFFF0, (4, S), dtype=np.uint64)
+    kp = kp.astype(np.uint32)
+    vp = rng.integers(0, 2**32, (4, S), dtype=np.uint64).astype(np.uint32)
+    kp[0, 255] = 101
+    kp[0, 256] = 102
+    kp[1, [S - 200, 100]] = 103
+    kp[1, [256, 255]] = 104
+    kp[2, 5] = 104
+    kp[2, S - 1] = 105
+    kp[2, 0] = 106
+    queries = np.arange(101, 108, dtype=np.uint32)
+    pages = np.array([[0, 1, 2], [0, -1, 1], [1, 0, -1], [-1, 1, 2],
+                      [3, 2, 1], [3, 2, 0], [3, 9, 1]], np.int32)
+    return kp, vp, queries, pages
+
+
+def sector_edge_hits(S):
+    """(page, slot) of each ``sector_edges(S)`` query's first match, or
+    None."""
+    return [(0, 255), (0, 256), (1, 100), (1, 255), (2, S - 1), (2, 0), None]
+
+
+def bitserial_cases():
+    """The bit-serial kernel's own cases, each (name, (kp, vp, queries,
+    pages), key_bits): the sector edges at W = 16 and W = 64, then random
+    tables at the paper's key widths 4/8/16/32 and at 1/13/31, the odd
+    widths also with queries that differ from the keys above bit
+    key_bits; then rows whose last 256-slot chunk is ragged, at key_bits
+    32 and 13: S = 320 (W = 10, 4-byte loads, a chunk of two words) and
+    S = 384 (W = 12, 16-byte loads, a chunk of four)."""
+    for S in (512, 2048):
+        yield f"sector_edges_S{S}", sector_edges(S), 32
+    rng = np.random.default_rng(4)
+    for b in (4, 8, 16, 32, 1, 13, 31):
+        kp, vp, q, pages = make_case(rng, 64, 512, 8192, 4, holes=0.3,
+                                     key_bits=b, fill=0.5)
+        yield f"key_bits{b}", (kp, vp, q, pages), b
+        if b in (1, 13, 31):
+            yield (f"key_bits{b}_high_query_bits",
+                   (kp, vp, q | np.uint32(1 << b), pages), b)
+    rng = np.random.default_rng(5)
+    for S in (320, 384):
+        for b in (32, 13):
+            yield (f"ragged_S{S}_key_bits{b}",
+                   make_case(rng, 32, S, 2048, 3, holes=0.3, key_bits=b,
+                             fill=0.5), b)
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    import torch
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    off = next(i for i in range(4) if (buf.data_ptr() + 4 * i) % 16 == 4)
+    view = buf[off:off + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def compare(name, kernel, got, want):
     sync()
     bad = int((got != want).any(dim=1).sum())
@@ -204,10 +274,14 @@ def compare(name, kernel, got, want):
     return f"{kernel} equal (found {int(got[:, 1].sum())})"
 
 
-def check_kernel_cases(k, ref, pack_bitplanes):
+def check_kernel_cases(k, ref, pack_bitplanes, load_width):
     """Every kernel against its plain version on every case.  ``area``
     must refuse S = 200 (not a multiple of its 128-slot strip) and the
-    bit-serial layout S = 200 (not whole 32-slot words)."""
+    bit-serial layout S = 200 (not whole 32-slot words).  Then the
+    bit-serial cases (``bitserial_cases``; at key_bits = 32 through all
+    three kernels), the sector edges also with their known hits and on a
+    planes view that is not 16-byte aligned, which the kernel reads with
+    4-byte loads."""
     for name, case in kernel_cases():
         pool, q, pages = to_card(*case)
         S = pool.shape[1]
@@ -235,17 +309,37 @@ def check_kernel_cases(k, ref, pack_bitplanes):
             notes.append(compare(
                 name, "bitserial",
                 k["probe_bitserial"](planes, pool, q, pages, 32),
-                ref.probe_bitplanes_ref(planes, pool, q, pages, 32)))
+                ref.probe_bitplanes_ref(planes, pool, q, pages, 32))
+                + f", {load_width(planes)}-byte loads")
         print(f"kernel_check {name}: Q={case[2].size}; " + "; ".join(notes))
-    rng = np.random.default_rng(4)
-    for b in (4, 8, 16, 32):
-        pool, q, pages = to_card(*make_case(rng, 64, 512, 8192, 4, holes=0.3,
-                                            key_bits=b, fill=0.5))
+    for name, case, b in bitserial_cases():
+        pool, q, pages = to_card(*case)
         planes = pack_bitplanes(pool[..., 0], b)              # on the card
-        note = compare(f"key_bits{b}", "bitserial",
-                       k["probe_bitserial"](planes, pool, q, pages, b),
-                       ref.probe_bitplanes_ref(planes, pool, q, pages, b))
-        print(f"kernel_check key_bits{b}: Q=8192; {note}")
+        want = ref.probe_bitplanes_ref(planes, pool, q, pages, b)
+        got = k["probe_bitserial"](planes, pool, q, pages, b)
+        notes = [compare(name, "bitserial", got, want)
+                 + f", {load_width(planes)}-byte loads"]
+        S = pool.shape[1]
+        if b == 32:
+            # area takes whole 128-slot strips only (refused above at S=200)
+            for kname in ("probe_perf",) + (("probe_area",) if S % 128 == 0
+                                            else ()):
+                notes.append(compare(name, kname[6:], k[kname](pool, q, pages),
+                                     ref.probe_pages_ref(pool, q, pages)))
+        if name.startswith("sector_edges"):
+            hits = [None if r[1] == 0 else (r[2], r[3])
+                    for r in got.cpu().tolist()]
+            check(hits == sector_edge_hits(S),
+                  f"bitserial on {name}: hits {hits}")
+            odd = misaligned(planes)
+            width = load_width(odd)
+            check(width == 4, f"misaligned planes took {width}-byte loads")
+            notes.append(compare(name + "_misaligned", "bitserial",
+                                 k["probe_bitserial"](odd, pool, q, pages, b),
+                                 want) + f" on planes at data_ptr % 16 = "
+                         f"{odd.data_ptr() % 16}, {width}-byte loads")
+        print(f"kernel_check {name}: Q={case[2].size}, key_bits={b}; "
+              + "; ".join(notes))
 
 
 def check_small_tables_vs_cpu(hashmap, HashMemConfig):
@@ -308,7 +402,7 @@ def check_small_tables_vs_cpu(hashmap, HashMemConfig):
               f"{'/'.join(gs[-1])})")
 
 
-def profile_probe(probe, top: int = 8):
+def profile_probe(probe, label: str = "hashmap.probe", top: int = 8):
     """Device time by kernel over one traced end-to-end probe call
     (torch.profiler), and the device's busy share of that call's wall time."""
     from torch.autograd import DeviceType
@@ -321,7 +415,7 @@ def profile_probe(probe, top: int = 8):
         wall_us = (time.perf_counter() - t0) * 1e6
     evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in evs)
-    print(f"profile: traced hashmap.probe wall {wall_us / 1e3:.4f} ms, device "
+    print(f"profile: traced {label} wall {wall_us / 1e3:.4f} ms, device "
           f"busy {busy_us / 1e3:.4f} ms ({busy_us / wall_us * 100:.1f}%), "
           f"{sum(e.count for e in evs)} device ops")
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:top]:
@@ -361,8 +455,9 @@ def row_bound(pages, out, S, io_bytes):
 
 def plane_bound(pages, out, b, W, io_bytes):
     """bitserial: whole plane rows (b x W words) for the steps before the
-    hit; on the hit step each plane up to the hit's word in whole sectors,
-    and one value sector."""
+    hit; on the hit step each plane up to the hit's word in whole sectors
+    (a plane starts on a sector where W is a multiple of 8, as at the
+    paper's W = 16), and one value sector."""
     import torch
     found, rows = walked(pages, out)
     hit_words = out[found, 3].to(torch.int64) // 32 + 1
@@ -407,7 +502,8 @@ def main() -> int:
     from repro_torch.data.kv_synth import kv_dataset, probe_set
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.probe_area import probe_pages_area
-    from repro_torch.kernels.probe_bitserial import probe_pages_bitserial
+    from repro_torch.kernels.probe_bitserial import (load_width,
+                                                     probe_pages_bitserial)
     from repro_torch.kernels.probe_perf import probe_pages_perf
     k = {"probe_perf": probe_pages_perf, "probe_area": probe_pages_area,
          "probe_bitserial": probe_pages_bitserial}
@@ -427,7 +523,7 @@ def main() -> int:
     build_kernels(build)
 
     # -- 3. kernels against plain; card against CPU ------------------------------
-    check_kernel_cases(k, ref, pack_bitplanes)
+    check_kernel_cases(k, ref, pack_bitplanes, load_width)
     check_small_tables_vs_cpu(hashmap, HashMemConfig)
 
     # -- 4. the perf path at PAPER_HASHMEM --------------------------------------
@@ -618,6 +714,10 @@ def main() -> int:
         outs[kname] = out
         if kname == "probe_bitserial":
             nbytes, ops, note = plane_bound(pages, out, 32, W, io_bytes)
+            # the same walk if every plane of the hit row is read whole
+            hit, walked_rows = walked(pages, out)
+            whole_rows = (walked_rows + int(hit.sum())) * 32 * W * 4 \
+                + int(hit.sum()) * SECTOR + io_bytes
         else:
             nbytes, ops, note = row_bound(pages, out, S, io_bytes)
         bound_ms, bound_by = bound_of(nbytes, ops)
@@ -651,6 +751,9 @@ def main() -> int:
               f"{r['bound_ms'] / r['ms'] * 100:.1f}% of bound; plain "
               f"{r['plain_ms']:.4f} ms; launches on the bit-serial path "
               f"{bs_path[kname]}")
+    print(f"timing: probe_bitserial if each plane of the hit row is read "
+          f"whole: {whole_rows / 1e9:.3f} GB, "
+          f"{whole_rows / rows['probe_bitserial']['ms'] / 1e9:.2f} TB/s")
     print(f"timing: area/perf kernel time ratio on this card "
           f"{rows['probe_area']['ms'] / rows['probe_perf']['ms']:.4f}; "
           f"card: {smi}")
@@ -659,6 +762,8 @@ def main() -> int:
                       TIMED_RUNS)
         print(f"timing: hashmap.probe[{backend}] on the bit-serial table end "
               f"to end {e2e:.4f} ms = {probes.size / e2e / 1e3:.1f} Mprobes/s")
+    profile_probe(lambda: hashmap.probe(hb, qd, backend="bitserial"),
+                  "hashmap.probe[bitserial]")
     print(f"bs_cost: pool {hb.store.pool.numel() * 4 / 1e9:.3f} GB + planes "
           f"{planes_gb:.3f} GB; build {bs_build_s:.3f} s; compact "
           f"{compact_s:.3f} s; peak device memory {peak:.2f} GiB")

@@ -10,7 +10,8 @@ bits equal the query's.  Only the pool's value lane is read.  The shapes are
 checked on either device, as the JAX kernel asserts them.  Planes on the CPU
 take the plain version ``ref.probe_bitplanes_ref``; planes on the card
 launch the kernel, or the call raises.  ``probe_pages_bitserial.launches``
-counts the kernel's launches.
+counts the kernel's launches.  ``load_width(planes)`` says whether the
+kernel reads these planes with 16-byte or 4-byte loads.
 """
 from __future__ import annotations
 
@@ -29,6 +30,14 @@ def _kernel_fn():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int64, ctypes.c_void_p])
+
+
+def load_width(planes: torch.Tensor) -> int:
+    """Bytes per plane load the kernel takes on these card planes, by the
+    rule of ``probe_bitserial_launch``: 16 where W % 4 == 0 and the planes
+    are 16-byte aligned, else 4."""
+    return 16 if planes.shape[2] % 4 == 0 and planes.data_ptr() % 16 == 0 \
+        else 4
 
 
 def probe_pages_bitserial(planes: torch.Tensor, pool: torch.Tensor,
