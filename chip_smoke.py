@@ -12,10 +12,13 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      ``build/repro_torch``, one ``nvcc`` per source, all at once;
   3. holds each CUDA kernel (``probe_perf``, ``probe_area``,
      ``probe_bitserial``) against its plain PyTorch version, bit for bit, on
-     small and paper-shaped cases, the bit-serial kernel also on the edges
-     of its sector-by-sector walk, at key widths 1/4/8/13/16/31/32 and on
-     planes that are not 16-byte aligned, and small tables (a ``perf`` one
-     and a bit-serial one at key_bits=8) built, mutated, grown and
+     small and paper-shaped cases (one a displaced (Q, 9) schedule whose
+     holes come from the fingerprint pre-pass, column 0 included), the
+     bit-serial kernel also on the edges of its sector-by-sector walk, at
+     key widths 1/4/8/13/16/31/32 and on planes that are not 16-byte
+     aligned; and small tables (a ``perf`` one and a bit-serial one at
+     key_bits=8; a displaced one with fingerprints and a stash in both; an
+     extendible one that splits and doubles) built, mutated, grown and
      compacted on the card against the same tables on the CPU;
   4. drives the ``perf`` path at PAPER_HASHMEM with the paper's workload:
      build 100M pairs, probe 10% of them, probe 1M held-back keys, insert
@@ -27,8 +30,18 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      write;
   6. times the three kernels at that path's shapes (``perf`` and ``area``
      in turns) against their bounds, traces one ``hashmap.probe`` through
-     ``bitserial``, and prints the ``kernels`` line;
-  7. prints the device line last.
+     ``bitserial``;
+  7. drives the displaced path at PAPER_HASHMEM with 12-bit fingerprints,
+     displacement and a 256-entry stash on the same data: build through the
+     displaced replay, probe, insert a burst of keys into one bucket (round
+     2, H2 relocation, places what its direct page cannot take), insert the
+     held-back keys, delete 1M keys with duplicate queries, compact; the
+     fingerprint lane equals ``pack_fprints(keys)`` and every probe equals
+     the expected map after every write; then rows activated per probe with
+     fingerprints on and off, the end-to-end probe rate, each step of the
+     probe alone, a trace split by step, and ``probe_perf`` on the filtered
+     schedule against plain and its bound; prints the ``kernels`` line;
+  8. prints the device line last.
 
 Any failed check raises and the script exits non-zero.  Without a card, or
 without the rest of the repo beside it, it exits non-zero and prints no
@@ -198,6 +211,28 @@ def kernel_cases():
         np.array([[0, 1], [1, 0], [0, 1]], np.int32))
     yield "paper_shape_S512_C8", make_case(rng, 8192, 512, 1 << 18, 8,
                                            holes=0.6)
+    yield "fp_filtered_S512_C9", fp_filtered_case(rng)
+
+
+def fp_filtered_case(rng, P=4096, S=512, Q=1 << 16, C=9, fp_bits=12):
+    """A (Q, max_chain + 1) schedule, the displaced probe's shape, whose
+    holes come from the port's fingerprint pre-pass (run on the CPU): a
+    random page survives only where its fingerprint lane holds a slot with
+    the query's fingerprint, so most steps are -1, column 0 included."""
+    import torch
+    from repro_torch.core import hashmap
+    from repro_torch.core.layout import empty_store, interleave, pack_fprints
+    kp, vp, queries, pages = make_case(rng, P, S, Q, C)
+    store = empty_store(P, S, 32, "cpu")
+    store.pool = interleave(torch.from_numpy(kp.view(np.int32)),
+                            torch.from_numpy(vp.view(np.int32)))
+    store.fprints, store.fp_bits = pack_fprints(store.key_pages, fp_bits), \
+        fp_bits
+    kept = hashmap._fp_filter(store, queries, torch.from_numpy(pages)).numpy()
+    check((kept[:, 0] == -1).any() and (kept[:, 0] >= 0).any()
+          and (kept[:Q // 2] >= 0).any(axis=1).all(),
+          "fingerprint pre-pass left no holes in column 0, or dropped a hit")
+    return kp, vp, queries, kept
 
 
 def sector_edges(S):
@@ -342,13 +377,39 @@ def check_kernel_cases(k, ref, pack_bitplanes, load_width):
               + "; ".join(notes))
 
 
-def check_small_tables_vs_cpu(hashmap, HashMemConfig):
-    """A perf table and a bit-serial table at key_bits=8, built, inserted
-    into (with a valid mask), deleted from, grown, compacted and
-    auto-grown on the card and on the CPU: equal leaves (planes included)
-    after every step, equal masks and probe results through every
-    backend."""
+def compare_runs(runs, what):
+    """Each run is (leaves after every step, outputs, extra); the card's
+    must equal the CPU's: every leaf, every output tensor, the extra."""
     import torch
+    (gs, go, gx), (cs, co, cx) = runs["cuda"], runs["cpu"]
+    check(len(gs) == len(cs) and len(go) == len(co), f"{what}: runs differ")
+    for i, (a, b) in enumerate(zip(gs, cs)):
+        check(a.keys() == b.keys(), f"{what}: leaves differ at step {i}")
+        for name in a:
+            check(np.array_equal(a[name], b[name]),
+                  f"{what}: {name} differs between card and CPU after "
+                  f"step {i}")
+    for i, (a, b) in enumerate(zip(go, co)):
+        check(torch.equal(a, b), f"{what}: output {i} differs between card "
+              f"and CPU")
+    check(gx == cx, f"{what}: {gx} on the card, {cx} on the CPU")
+
+
+def check_small_tables_vs_cpu(hashmap, HashMemConfig):
+    """Small tables driven on the card and on the CPU, with equal leaves
+    after every step (planes, fingerprints, stash and depths included) and
+    equal masks, probes through every backend and events:
+
+      * a perf table and a bit-serial table at key_bits=8, built, inserted
+        into (with a valid mask), deleted from, grown, compacted and
+        auto-grown;
+      * a displaced table (fingerprints, displacement and a stash) in perf
+        and in bit-serial at key_bits=8, S=32, filled with one-bucket keys
+        so that the direct page, the H2 chain and the stash all take keys,
+        then deleted from (duplicate queries), grown and compacted;
+      * an extendible table driven by ``insert_auto`` until groups split
+        and the directory doubles."""
+    from repro_torch.core import hashing
     base = HashMemConfig(num_buckets=64, slots_per_page=128, overflow_pages=16,
                          max_chain=3, max_load_factor=0.6)
     rng = np.random.default_rng(1)
@@ -357,54 +418,174 @@ def check_small_tables_vs_cpu(hashmap, HashMemConfig):
     vals = rng.integers(0, 2**32, keys.size, dtype=np.uint64).astype(np.uint32)
     for cfg in (base, dataclasses.replace(base, backend="bitserial",
                                           key_bits=8)):
-        backends = ("perf", "area", "ref") + (
-            ("bitserial",) if cfg.backend == "bitserial" else ())
-        runs = {}
-        for dev in ("cuda", "cpu"):
-            steps, outs = [], []
-            hm = hashmap.build(cfg, keys[:9000], vals[:9000], device=dev)
-            steps.append(hashmap.to_numpy(hm))
-            hm, ok = hashmap.insert(hm, keys[9000:14000], vals[9000:14000],
-                                    valid=np.arange(5000) % 7 != 0)
-            steps.append(hashmap.to_numpy(hm))
-            hm, found = hashmap.delete(hm, keys[::5])
-            steps.append(hashmap.to_numpy(hm))
-            hm = hashmap.grow(hm)
-            steps.append(hashmap.to_numpy(hm))
-            hm = hashmap.compact(hm)
-            steps.append(hashmap.to_numpy(hm))
-            events = {}
-            hm, ok2 = hashmap.insert_auto(hm, keys[14000:], vals[14000:],
-                                          events=events)
-            steps.append(hashmap.to_numpy(hm))
-            outs += [ok.cpu(), found.cpu(), ok2.cpu()]
-            for backend in backends:
-                v, f = hashmap.probe(hm, keys, backend=backend)
-                outs += [v.cpu(), f.cpu()]
-            runs[dev] = (steps, outs, events)
-        (gs, go, gev), (cs, co, cev) = runs["cuda"], runs["cpu"]
-        for i, (a, b) in enumerate(zip(gs, cs)):
-            check(a.keys() == b.keys(), f"small table: leaves differ at {i}")
-            for name in a:
-                check(np.array_equal(a[name], b[name]),
-                      f"small table {cfg.backend}: {name} differs between "
-                      f"card and CPU after step {i}")
-        for i, (a, b) in enumerate(zip(go, co)):
-            check(torch.equal(a, b), f"small table {cfg.backend}: output {i} "
-                  f"differs between card and CPU")
-        check(gev == cev, "small table: insert_auto events differ")
-        check(not bool(go[0].all()), "small table: no insert was refused")
+        runs = {dev: drive_chained(hashmap, cfg, keys, vals, dev)
+                for dev in ("cuda", "cpu")}
+        compare_runs(runs, f"small table {cfg.backend}")
+        (steps, outs, events) = runs["cuda"]
+        check(not bool(outs[0].all()), "small table: no insert was refused")
         print(f"small_table {cfg.backend} key_bits={cfg.key_bits}: build/"
               f"insert/delete/grow/compact/insert_auto and probes through "
-              f"{'/'.join(backends)} on the card equal the CPU (refused "
-              f"{int((~go[0]).sum())}, deleted {int(go[1].sum())}, "
-              f"insert_auto events {gev}, leaves "
-              f"{'/'.join(gs[-1])})")
+              f"{'/'.join(backends_of(cfg))} on the card equal the CPU "
+              f"(refused {int((~outs[0]).sum())}, deleted "
+              f"{int(outs[1].sum())}, insert_auto events {events}, leaves "
+              f"{'/'.join(steps[-1])})")
+
+    dcfg = HashMemConfig(num_buckets=8, slots_per_page=32, overflow_pages=8,
+                         max_chain=2, auto_grow=False, displacement=True,
+                         fingerprint_bits=8, stash_slots=16)
+    dkeys = (rng.choice(0xFFFFFFF0, 100, replace=False).astype(np.uint32),
+             one_bucket_keys(hashing, 72, 8, 5, same_b2=True),
+             one_bucket_keys(hashing, 40, 8, 2, same_b2=False),
+             rng.choice(0xFFFFFFF0, 30).astype(np.uint32))
+    for cfg in (dcfg, dataclasses.replace(dcfg, backend="bitserial",
+                                          key_bits=8)):
+        runs = {dev: drive_displaced(hashmap, cfg, dkeys, dev)
+                for dev in ("cuda", "cpu")}
+        compare_runs(runs, f"displaced table {cfg.backend}")
+        steps, outs, classes = runs["cuda"]
+        check(min(classes.values()) > 0, f"displaced table: a class took no "
+              f"key: {classes}")
+        print(f"small_displaced {cfg.backend} key_bits={cfg.key_bits}: "
+              f"build/insert/delete (duplicate queries)/grow/compact, probes "
+              f"through {'/'.join(backends_of(cfg))} and rows activated on "
+              f"the card equal the CPU; classes after the insert {classes}; "
+              f"leaves {'/'.join(steps[-1])}")
+
+    ecfg = HashMemConfig(num_buckets=8, slots_per_page=4, overflow_pages=248,
+                         max_chain=3, resize="extendible", max_load_factor=1.0)
+    colliders = one_bucket_keys(hashing, 48, 8, 3, same_b2=False)
+    runs = {dev: drive_extendible(hashmap, ecfg, colliders, dev)
+            for dev in ("cuda", "cpu")}
+    compare_runs(runs, "extendible table")
+    steps, outs, events = runs["cuda"]
+    check(events.get("splits", 0) > 0 and events.get("doublings", 0) > 0,
+          f"extendible table: events {events}, want splits and doublings")
+    print(f"small_extendible: insert_auto/delete/probe through "
+          f"{'/'.join(backends_of(ecfg))} on the card equal the CPU; events "
+          f"{events}; leaves {'/'.join(steps[-1])}")
+
+
+def backends_of(cfg):
+    return ("perf", "area", "ref") + (
+        ("bitserial",) if cfg.backend == "bitserial" else ())
+
+
+def one_bucket_keys(hashing, n, num_buckets, bucket, same_b2):
+    """``n`` distinct keys whose H1 bucket is ``bucket``; with ``same_b2``
+    their H2 bucket is the same one (displacement cannot move them), else
+    never (it must)."""
+    import torch
+    cand = torch.arange(1, 1 << 22)
+    b1 = hashing.hash_to_bucket(cand, num_buckets)
+    b2 = hashing.hash_to_bucket2(cand, num_buckets)
+    keys = cand[(b1 == bucket) & ((b2 == b1) == same_b2)][:n]
+    check(keys.numel() == n, f"mined {keys.numel()} of {n} one-bucket keys")
+    return keys.numpy().astype(np.uint32)
+
+
+def drive_chained(hashmap, cfg, keys, vals, dev):
+    steps, outs = [], []
+    hm = hashmap.build(cfg, keys[:9000], vals[:9000], device=dev)
+    steps.append(hashmap.to_numpy(hm))
+    hm, ok = hashmap.insert(hm, keys[9000:14000], vals[9000:14000],
+                            valid=np.arange(5000) % 7 != 0)
+    steps.append(hashmap.to_numpy(hm))
+    hm, found = hashmap.delete(hm, keys[::5])
+    steps.append(hashmap.to_numpy(hm))
+    hm = hashmap.grow(hm)
+    steps.append(hashmap.to_numpy(hm))
+    hm = hashmap.compact(hm)
+    steps.append(hashmap.to_numpy(hm))
+    events = {}
+    hm, ok2 = hashmap.insert_auto(hm, keys[14000:], vals[14000:],
+                                  events=events)
+    steps.append(hashmap.to_numpy(hm))
+    outs += [ok.cpu(), found.cpu(), ok2.cpu()]
+    for backend in backends_of(cfg):
+        v, f = hashmap.probe(hm, keys, backend=backend)
+        outs += [v.cpu(), f.cpu()]
+    return steps, outs, events
+
+
+def placement_classes(hashmap, hm):
+    """Live entries on their H1 bucket's direct page, elsewhere in the pool
+    (an H2 page or an overflow page), and in the stash."""
+    import torch
+    from repro_torch.core.layout import EMPTY_BITS, TOMBSTONE_BITS, from_bits
+    cfg = hm.config
+    kp = hm.key_pages.reshape(-1)
+    live = (kp != EMPTY_BITS) & (kp != TOMBSTONE_BITS)
+    page = torch.nonzero(live).squeeze(1) // cfg.slots_per_page
+    b1 = hashmap.hash_to_bucket(from_bits(kp[live]), cfg.num_buckets,
+                                cfg.hash_fn, cfg.salt)
+    direct = int((page == hm.bucket_head[b1]).sum())
+    return {"direct": direct, "pool_elsewhere": int(live.sum()) - direct,
+            "stash": hashmap.stats(hm)["stash_live"]}
+
+
+def drive_displaced(hashmap, cfg, keys, dev):
+    base, same, reloc, miss = keys
+    queries = np.concatenate(keys)
+    steps, outs = [], []
+
+    def record(hm):
+        steps.append(hashmap.to_numpy(hm))
+        for backend in backends_of(cfg):
+            v, f = hashmap.probe(hm, queries, backend=backend)
+            outs.extend([v.cpu(), f.cpu()])
+        for fp in (True, False):
+            outs.append(hashmap.rows_activated_per_probe(hm, queries,
+                                                         fp).cpu())
+
+    hm = hashmap.build(cfg, base, base * np.uint32(3), device=dev)
+    record(hm)
+    new = np.concatenate([same, reloc])
+    hm, ok = hashmap.insert(hm, new, new + np.uint32(7))
+    outs.append(ok.cpu())
+    classes = placement_classes(hashmap, hm)
+    record(hm)
+    dk = np.concatenate([same[::9], same[-6:], same[-6:-3], reloc[::7],
+                         base[:5], miss[:3]])            # duplicate queries
+    hm, found = hashmap.delete(hm, dk)
+    outs.append(found.cpu())
+    record(hm)
+    hm = hashmap.grow(hm)
+    record(hm)
+    hm = hashmap.compact(hm)
+    record(hm)
+    return steps, outs, classes
+
+
+def drive_extendible(hashmap, cfg, colliders, dev):
+    rng = np.random.default_rng(17)
+    hm = hashmap.create(cfg, device=dev)
+    steps, outs, events = [], [], {}
+    for step in range(8):
+        ins = np.concatenate([rng.integers(1, 4000, 12, dtype=np.uint32),
+                              colliders[6 * step:6 * (step + 1)]])
+        vals = rng.integers(1, 2**20, ins.size, dtype=np.uint32)
+        hm, ok = hashmap.insert_auto(hm, ins, vals, events=events)
+        hm, found = hashmap.delete(hm, rng.integers(1, 4000, 4,
+                                                    dtype=np.uint32))
+        steps.append(hashmap.to_numpy(hm))
+        outs += [ok.cpu(), found.cpu()]
+        for backend in backends_of(cfg):
+            v, f = hashmap.probe(hm, ins, backend=backend)
+            outs += [v.cpu(), f.cpu()]
+    return steps, outs, events
+
+
+SPANS = ("probe.schedule", "probe.fp_filter", "probe.kernel", "probe.stash")
 
 
 def profile_probe(probe, label: str = "hashmap.probe", top: int = 8):
     """Device time by kernel over one traced end-to-end probe call
-    (torch.profiler), and the device's busy share of that call's wall time."""
+    (torch.profiler), the device's busy share of that call's wall time, and
+    the device time of the kernels that ran inside each of
+    ``hashmap.probe_with_buckets``'s ``record_function`` ranges (``SPANS``),
+    read from the ranges' windows on the device timeline.  The ranges' own
+    device-side events are not kernels and count in no sum.  Returns (busy
+    ms, wall ms, {span: ms, or None if the trace has no such window})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -413,7 +594,12 @@ def profile_probe(probe, label: str = "hashmap.probe", top: int = 8):
         probe()
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6
-    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def on_device(e, annotation):
+        return e.device_type == DeviceType.CUDA and \
+            bool(getattr(e, "is_user_annotation", False)) == annotation
+
+    evs = [e for e in prof.key_averages() if on_device(e, False)]
     busy_us = sum(e.self_device_time_total for e in evs)
     print(f"profile: traced {label} wall {wall_us / 1e3:.4f} ms, device "
           f"busy {busy_us / 1e3:.4f} ms ({busy_us / wall_us * 100:.1f}%), "
@@ -421,6 +607,16 @@ def profile_probe(probe, label: str = "hashmap.probe", top: int = 8):
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.4f} ms x{e.count:<3d} "
               f"{e.key[:90]}")
+    events = prof.events()
+    kernels = [e.time_range for e in events if on_device(e, False)]
+    spans = {}
+    for name in SPANS:
+        windows = [e.time_range for e in events
+                   if on_device(e, True) and e.name == name]
+        spans[name] = sum(k.elapsed_us() for k in kernels if any(
+            w.start <= k.start < w.end for w in windows)) / 1e3 \
+            if windows else None
+    return busy_us / 1e3, wall_us / 1e3, spans
 
 
 # ---------------------------------------------------------------------------
@@ -481,6 +677,224 @@ def mismatch(out, plain):
     diff = (out.to(torch.int64) & 0xFFFFFFFF) - (plain.to(torch.int64)
                                                  & 0xFFFFFFFF)
     return int((diff != 0).any(dim=1).sum()), int(diff.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The displaced path at paper scale
+# ---------------------------------------------------------------------------
+
+N_BURST = 4096                   # keys inserted into one H1 bucket at once
+HOT_BUCKET = 0
+
+
+def hot_bucket_keys(hashmap, cfg, n, taken):
+    """``n`` keys whose H1 bucket is ``HOT_BUCKET`` and that are not in
+    ``taken`` (an int64 tensor on the card), found by hashing a candidate
+    range on the card, 2**26 keys at a time."""
+    import torch
+    got, lo = [], 0
+    while sum(t.numel() for t in got) < n:
+        check(lo < 0xFFFFFFF0, "candidate range exhausted")
+        cand = torch.arange(lo, min(lo + (1 << 26), 0xFFFFFFF0),
+                            device="cuda")
+        cand = cand[hashmap.hash_to_bucket(cand, cfg.num_buckets, cfg.hash_fn,
+                                           cfg.salt) == HOT_BUCKET]
+        got.append(cand[~torch.isin(cand, taken)])
+        lo += 1 << 26
+    return torch.cat(got)[:n].cpu().numpy().astype(np.uint32)
+
+
+def displaced_path(hashmap, k, ref, data, smi):
+    """Phase 7: the fingerprint/displacement/stash config of
+    ``benchmarks/kernel_bench.py`` on the paper's table, with the paper's
+    workload.  Build through the displaced replay, probe, insert a burst of
+    keys into one bucket (its direct page overflows, so H2 relocation runs),
+    insert the held-back keys, delete 1M built keys with duplicate queries,
+    probe, compact; the fingerprint lane equals ``pack_fprints`` of the
+    keys and every result equals the expected map after every write.  Then
+    the measurements.  Returns the launches of the path."""
+    import torch
+    from repro_torch.configs import PAPER_HASHMEM
+    from repro_torch.core.hashing import as_u32
+    from repro_torch.core.layout import pack_fprints
+    probe_pages_perf = k["probe_perf"]
+    keys, vals, held_k, held_v = (data[n] for n in
+                                  ("keys", "vals", "held_k", "held_v"))
+    probes, pidx, qd, qbits = (data[n] for n in
+                               ("probes", "pidx", "qd", "qbits"))
+    cfg = dataclasses.replace(PAPER_HASHMEM, displacement=True,
+                              fingerprint_bits=12, stash_slots=256)
+    fb = cfg.fingerprint_bits
+
+    def invariant(hm, what):
+        check(torch.equal(hm.store.fprints, pack_fprints(hm.key_pages, fb)),
+              f"displaced {what}: fprints differ from pack_fprints(keys)")
+        st = hashmap.stats(hm)
+        check(st["stash_live"] == st["stash_fill"] == 0, f"displaced {what}: "
+              f"stash {st['stash_live']} live, fill {st['stash_fill']}")
+        return st
+
+    def expect(hm, q, want_v, want_f, what):
+        v, f = hashmap.probe(hm, q)
+        f = f.cpu().numpy()
+        check(np.array_equal(f, want_f), f"displaced {what}: "
+              f"{int((f != want_f).sum())} found flags wrong")
+        check(np.array_equal(v.cpu().numpy().astype(np.uint32)[f],
+                             want_v[f]), f"displaced {what}: values wrong")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(k)
+    hd, build_s = host_s(lambda: hashmap.build(cfg, keys, vals))
+    peaks = {"build": torch.cuda.max_memory_allocated() / 2**30}
+    st = invariant(hd, "build")
+    check(st["live_entries"] == N_BUILD, "displaced build dropped entries")
+    check(int(hd.free_top) == cfg.num_buckets,
+          "displaced build allocated overflow pages")
+    print(f"d_build: {N_BUILD} pairs through the displaced replay in "
+          f"{build_s:.3f} s; fprints {tuple(hd.store.fprints.shape)} = "
+          f"{hd.store.fprints.numel() * 4 / 1e9:.3f} GB equal "
+          f"pack_fprints(keys); stash {tuple(hd.store.stash.shape)} = "
+          f"{hd.store.stash.numel() * 4} B, empty; no overflow page")
+    expect(hd, probes, vals[pidx], np.ones(probes.size, bool), "probe")
+    expect(hd, held_k, held_v, np.zeros(held_k.size, bool), "held probe")
+
+    # a burst into one bucket: round 1 fills its direct page, round 2
+    # places the rest at H2, the stash takes nothing
+    taken = as_u32(np.concatenate([keys, held_k]), "cuda")
+    burst = hot_bucket_keys(hashmap, cfg, N_BURST, taken)
+    del taken
+    burst_v = burst * np.uint32(5) + np.uint32(3)
+    head = int(hd.bucket_head[HOT_BUCKET])
+    fill0 = int(hd.page_fill[head])
+    fills0 = hd.page_fill.clone()
+    hd2, ok = hashmap.insert(hd, burst, burst_v)
+    check(bool(ok.all()), "burst inserts refused")
+    st = invariant(hd2, "burst insert")
+    round1 = int(hd2.page_fill[head]) - fill0
+    grew = int((hd2.page_fill != fills0).sum()) - 1
+    round2 = N_BURST - round1
+    check(round1 == cfg.slots_per_page - fill0 and round2 > 0,
+          f"burst: round 1 placed {round1} of {cfg.slots_per_page - fill0}")
+    expect(hd2, burst, burst_v, np.ones(N_BURST, bool), "burst probe")
+    print(f"d_burst: {N_BURST} new keys of H1 bucket {HOT_BUCKET} (direct "
+          f"page at {fill0} of {cfg.slots_per_page} slots): round 1 placed "
+          f"{round1} on the direct page, round 2 placed {round2} at H2 "
+          f"({grew} other pages grew, {int(hd2.free_top) - cfg.num_buckets} "
+          f"overflow pages), the stash {st['stash_live']}; all found")
+    del fills0
+
+    hd2, ok = hashmap.insert(hd2, held_k, held_v)
+    check(bool(ok.all()), f"{int((~ok).sum())} inserts refused")
+    invariant(hd2, "insert")
+    expect(hd2, held_k, held_v, np.ones(held_k.size, bool), "insert")
+    dk = np.concatenate([keys[:N_DELETE], keys[:1000]])   # duplicate queries
+    hd2, found = hashmap.delete(hd2, dk)
+    check(bool(found.all()), f"{int((~found).sum())} deletes not found")
+    st = invariant(hd2, "delete")
+    check(st["tombstones"] == N_DELETE, "one tombstone per deleted key")
+
+    alive = pidx >= N_DELETE
+
+    def reprobe(hm, what):
+        expect(hm, probes, vals[pidx], alive, what)
+        expect(hm, held_k, held_v, np.ones(held_k.size, bool), what)
+        expect(hm, burst, burst_v, np.ones(N_BURST, bool), what)
+        expect(hm, keys[:N_DELETE], vals[:N_DELETE],
+               np.zeros(N_DELETE, bool), what)
+
+    reprobe(hd2, "after insert+delete")
+    live = N_BUILD + N_BURST + N_HELD - N_DELETE
+    peaks["probe, burst, insert, delete"] = \
+        torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    hd3, compact_s = host_s(lambda: hashmap.compact(hd2))
+    peaks["compact"] = torch.cuda.max_memory_allocated() / 2**30
+    st = invariant(hd3, "compact")
+    check(st["tombstones"] == 0 and st["live_entries"] == live,
+          "compact: tombstones left or live count changed")
+    reprobe(hd3, "after compact")
+    path = read_launches(k)
+    print(f"d_mutate: inserted {N_HELD} (all ok), deleted {N_DELETE} with "
+          f"{dk.size - N_DELETE} duplicate queries (all found), compacted in "
+          f"{compact_s:.3f} s; fprints equal pack_fprints(keys) and the stash "
+          f"empty after every write; probes of built, held-back, burst and "
+          f"deleted keys exact before and after compact; live {live}; "
+          f"launches on the displaced path: {path}; peak device memory "
+          + ", ".join(f"{n} {gib:.2f} GiB" for n, gib in peaks.items()))
+    del hd2, hd3, found, ok
+
+    # -- measurements on the built table --------------------------------------
+    rows_act = {}
+    for label, q in (("hits", qd), ("misses", as_u32(held_k, "cuda"))):
+        for fp in (True, False):
+            rows_act[label, fp] = float(
+                hashmap.rows_activated_per_probe(hd, q, fp))
+    p_miss = 1 - np.exp(-N_BUILD / cfg.num_buckets / 2**fb)
+    check(abs(rows_act["hits", True] - 1) < 1e-4
+          and abs(rows_act["hits", False] - 1) < 1e-4,
+          f"hits read {rows_act} rows, want 1.0")
+    check(1.99 < rows_act["misses", False] <= 2.0
+          and abs(rows_act["misses", True] - 2 * p_miss) < 0.05,
+          f"misses read {rows_act}, want 2.0 off and {2 * p_miss:.4f} on")
+    print("rows_activated_per_probe: "
+          + "; ".join(f"{lab} fingerprints {'on' if fp else 'off'} {r:.6f}"
+                      for (lab, fp), r in rows_act.items())
+          + f" (misses expected {2 * p_miss:.4f} on, 2.0 off)")
+
+    b = hashmap.hash_to_bucket(qd, cfg.num_buckets, cfg.hash_fn, cfg.salt)
+    sched = hashmap.resolve_pages_displaced(hd, qd, b)
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fpages = hashmap._fp_filter(hd.store, qd, sched)
+    sync()
+    fp_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    pool = hd.store.pool
+    out = probe_pages_perf(pool, qbits, fpages)
+    plain = ref.probe_pages_ref(pool, qbits, fpages)
+    mis, _ = mismatch(out, plain)
+    check(mis == 0, f"probe_perf != plain on {mis} displaced paper probes")
+    io_bytes = qbits.numel() * 4 + fpages.numel() * 4 + out.numel() * 4
+    nbytes, ops, note = row_bound(fpages, out, cfg.slots_per_page, io_bytes)
+    bound_ms, bound_by = bound_of(nbytes, ops)
+    steps = {
+        "schedule": cuda_ms(lambda: hashmap.resolve_pages_displaced(hd, qd, b),
+                            TIMED_RUNS),
+        "fp_filter": cuda_ms(lambda: hashmap._fp_filter(hd.store, qd, sched),
+                             TIMED_RUNS),
+        "kernel": cuda_ms(lambda: probe_pages_perf(pool, qbits, fpages),
+                          TIMED_RUNS),
+        "stash": cuda_ms(lambda: hashmap.stash_probe(hd.store, qd),
+                         TIMED_RUNS),
+    }
+    e2e = cuda_ms(lambda: hashmap.probe(hd, qd), TIMED_RUNS)
+    print(f"d_timing: hashmap.probe end to end {e2e:.4f} ms = "
+          f"{probes.size / e2e / 1e3:.1f} Mprobes/s (median of {TIMED_RUNS} "
+          f"after warm-up); steps alone: "
+          + ", ".join(f"{n} {ms:.4f} ms" for n, ms in steps.items())
+          + f"; fingerprint pre-pass peak {fp_peak:.3f} GiB over its input; "
+          f"build {build_s:.3f} s, compact {compact_s:.3f} s; card: {smi}")
+    print(f"d_timing: probe_perf on the filtered (Q, {fpages.shape[1]}) "
+          f"schedule {steps['kernel']:.4f} ms (equals plain, mismatches 0; "
+          f"needs {note}; {nbytes / 1e9:.3f} GB); bound {bound_ms:.4f} ms "
+          f"({bound_by}); {bound_ms / steps['kernel'] * 100:.1f}% of bound; "
+          f"{int((fpages >= 0).sum())} pages survive the pre-pass of "
+          f"{int((sched >= 0).sum())} in the schedule")
+    busy, wall, spans = profile_probe(lambda: hashmap.probe(hd, qd),
+                                      "hashmap.probe on the displaced table")
+    rest = busy - sum(ms for ms in spans.values() if ms is not None)
+
+    def share(ms):
+        if ms is None:
+            return "not in the trace"
+        return f"{ms:.4f} ms ({ms / busy * 100:.1f}%)" if busy else \
+            f"{ms:.4f} ms"
+
+    print("d_profile: device time by range "
+          + ", ".join(f"{n[6:]} {share(ms)}" for n, ms in spans.items())
+          + f", the rest {share(rest)}; busy "
+          f"{busy:.4f} of wall {wall:.4f} ms ({busy / wall * 100:.1f}%)")
+    return path
 
 
 # ---------------------------------------------------------------------------
@@ -767,10 +1181,18 @@ def main() -> int:
     print(f"bs_cost: pool {hb.store.pool.numel() * 4 / 1e9:.3f} GB + planes "
           f"{planes_gb:.3f} GB; build {bs_build_s:.3f} s; compact "
           f"{compact_s:.3f} s; peak device memory {peak:.2f} GiB")
+    del hb, pool, planes, pages, calls, plains
+
+    # -- 7. the displaced path at PAPER_HASHMEM ---------------------------------
+    data = dict(keys=keys, vals=vals, held_k=held_k, held_v=held_v,
+                probes=probes, pidx=pidx, qd=qd, qbits=qbits)
+    d_path = displaced_path(hashmap, k, ref, data, smi)
 
     replaces = {"probe_perf": "src/repro/kernels/probe_perf.py:34",
                 "probe_area": "src/repro/kernels/probe_area.py:32",
                 "probe_bitserial": "src/repro/kernels/probe_bitserial.py:36"}
+    check(d_path["probe_perf"] > 0,
+          "the displaced path never launched probe_perf")
     launches = {"probe_perf": perf_path["probe_perf"],
                 "probe_area": bs_path["probe_area"],
                 "probe_bitserial": bs_path["probe_bitserial"]}

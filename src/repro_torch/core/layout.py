@@ -9,9 +9,21 @@ gives the JAX package's uint32 pool without a copy.
 The bit-plane lane (``planes``, the paper's column-oriented key layout,
 §2.2) is kept by bit-serial tables: plane j, word w holds bit j of the keys
 at slots [32w, 32w+32), LSB first, as ``(num_pages, key_bits, slots // 32)``
-int32 words with uint32 bits.  ``write_slots`` and ``write_keys`` keep it in
-sync with the key lane.  The JAX store's fingerprint, stash and local-depth
-lanes are not part of this port yet; their fields stay ``None``.
+int32 words with uint32 bits.  The optional lanes of the JAX store follow:
+
+  * ``fprints`` (``fp_bits > 0``, Dash §4): the low ``fp_bits`` of
+    ``fingerprint(key)`` of every slot, packed like ``planes`` into
+    ``(num_pages, fp_bits, slots // 32)``.  It is exact per slot: empty and
+    tombstoned slots carry the fingerprint of their sentinel, so
+    ``fprints == pack_fprints(key_pages, fp_bits)`` always holds;
+  * ``stash`` (``stash_slots > 0``, IcebergHT §3): a ``(stash_slots, 2)``
+    int32 key/value list, EMPTY keys at first, with its bump pointer
+    ``stash_fill``;
+  * ``local_depth`` (extendible tables): a ``(num_pages,)`` int32 lane of
+    local depths, read at group-head pages.
+
+``write_slots`` and ``write_keys`` keep ``planes`` and ``fprints`` in sync
+with the key lane.
 
 Writes follow JAX's ``.at[...].set(mode="drop")``: a write whose page id lies
 outside ``[0, num_pages)`` is dropped.  torch has no drop mode, so the out of
@@ -26,7 +38,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.hashing import EMPTY_KEY, MASK32, TOMBSTONE_KEY
+from repro_torch.core.hashing import (EMPTY_KEY, MASK32, TOMBSTONE_KEY,
+                                      fingerprint)
 
 KEY_LANE = 0
 VAL_LANE = 1
@@ -98,48 +111,74 @@ class PageStore:
     def _in_range(self, pages: torch.Tensor) -> torch.Tensor:
         return (pages >= 0) & (pages < self.num_pages)
 
+    def _packed_lanes(self, pages, slots_idx, keys) -> dict:
+        """``planes`` and ``fprints`` after writing ``keys`` at (``pages``,
+        ``slots_idx``), for the lanes the store keeps."""
+        out = {}
+        if self.planes is not None:
+            out["planes"] = update_bitplanes_batch(self.planes, pages,
+                                                   slots_idx, keys,
+                                                   self.key_bits)
+        if self.fprints is not None:
+            out["fprints"] = update_bitplanes_batch(
+                self.fprints, pages, slots_idx,
+                fingerprint(from_bits(keys), self.fp_bits), self.fp_bits)
+        return out
+
     def write_slots(self, pages, slots_idx, keys, vals) -> "PageStore":
         """ONE pool scatter writes key and value (int32 bits) into the same
         rows; a page id outside the pool drops its write, and the bit-planes
-        follow when present.  In-range (page, slot) pairs must be unique
-        within the batch."""
+        and fingerprints follow when present.  In-range (page, slot) pairs
+        must be unique within the batch."""
         m = self._in_range(pages)
         kv = torch.stack([keys.to(I32), vals.to(I32)], dim=-1)
         pool = self.pool.clone()
         pool[pages[m].long(), slots_idx[m].long()] = kv[m]
-        planes = self.planes
-        if planes is not None:
-            planes = update_bitplanes_batch(planes, pages, slots_idx, keys,
-                                            self.key_bits)
-        return dataclasses.replace(self, pool=pool, planes=planes)
+        return dataclasses.replace(
+            self, pool=pool, **self._packed_lanes(pages, slots_idx, keys))
 
     def write_keys(self, pages, slots_idx, keys,
                    plane_pages=None) -> "PageStore":
         """Key-lane-only scatter (tombstone writes): the value lane of the
         row is left untouched.  ``plane_pages`` optionally overrides the
-        page ids used for the bit-plane update (delete drops duplicate
-        targets there)."""
+        page ids used for the bit-plane and fingerprint updates (delete
+        drops duplicate targets there)."""
         m = self._in_range(pages)
         pool = self.pool.clone()
         pool[pages[m].long(), slots_idx[m].long(), KEY_LANE] = \
             keys.to(I32)[m]
-        planes = self.planes
-        if planes is not None:
-            pp = pages if plane_pages is None else plane_pages
-            planes = update_bitplanes_batch(planes, pp, slots_idx, keys,
-                                            self.key_bits)
-        return dataclasses.replace(self, pool=pool, planes=planes)
+        pp = pages if plane_pages is None else plane_pages
+        return dataclasses.replace(self, pool=pool,
+                                   **self._packed_lanes(pp, slots_idx, keys))
 
 
 def empty_store(num_pages: int, slots: int, key_bits: int = 32,
-                device=None, with_planes: bool = False) -> PageStore:
+                device=None, with_planes: bool = False, fp_bits: int = 0,
+                stash_slots: int = 0,
+                local_depth: Optional[int] = None) -> PageStore:
     """Fresh PageStore: every key EMPTY, every value 0, no chains.
-    ``with_planes`` adds the bit-plane lane, all ones as EMPTY's bits."""
+
+    ``with_planes`` adds the bit-plane lane, all ones as EMPTY's bits;
+    ``fp_bits > 0`` the fingerprint lane, holding EMPTY's fingerprint in
+    every slot; ``stash_slots > 0`` the stash (EMPTY keys, fill 0);
+    ``local_depth`` (an int) the extendible depth lane, filled with it."""
     dev = resolve_device(device)
-    planes = None
+    planes = fprints = stash = stash_fill = depths = None
     if with_planes:
         planes = torch.full((num_pages, key_bits, plane_words(slots)), -1,
                             dtype=I32, device=dev)
+    if fp_bits > 0:
+        efp = int(fingerprint(torch.tensor(EMPTY_KEY), fp_bits))
+        words = torch.tensor([-((efp >> j) & 1) for j in range(fp_bits)],
+                             dtype=I32, device=dev)   # 0 or all ones a plane
+        fprints = words[None, :, None].expand(
+            num_pages, fp_bits, plane_words(slots)).contiguous()
+    if stash_slots > 0:
+        stash = torch.zeros((stash_slots, 2), dtype=I32, device=dev)
+        stash[:, KEY_LANE] = EMPTY_BITS
+        stash_fill = torch.zeros((), dtype=I32, device=dev)
+    if local_depth is not None:
+        depths = torch.full((num_pages,), local_depth, dtype=I32, device=dev)
     return PageStore(
         pool=empty_pool(num_pages, slots, dev),
         page_next=torch.full((num_pages,), -1, dtype=I32, device=dev),
@@ -147,6 +186,11 @@ def empty_store(num_pages: int, slots: int, key_bits: int = 32,
         free_top=torch.zeros((), dtype=I32, device=dev),
         key_bits=key_bits,
         planes=planes,
+        fprints=fprints,
+        stash=stash,
+        stash_fill=stash_fill,
+        local_depth=depths,
+        fp_bits=fp_bits,
     )
 
 
@@ -197,6 +241,21 @@ def pack_bitplanes(key_pages: torch.Tensor, key_bits: int) -> torch.Tensor:
     return planes
 
 
+def pack_fprints(key_pages: torch.Tensor, fp_bits: int) -> torch.Tensor:
+    """The fingerprint lane of a (P, S) key lane (int32 bits):
+    ``pack_bitplanes(fingerprint(key_pages), fp_bits)``, a block of pages
+    at a time so the int64 fingerprints stay near ``PACK_BYTES``."""
+    P, S = key_pages.shape
+    out = torch.empty((P, fp_bits, plane_words(S)), dtype=I32,
+                      device=key_pages.device)
+    block = max(1, PACK_BYTES // (S * 8))
+    for lo in range(0, P, block):
+        out[lo:lo + block] = pack_bitplanes(
+            fingerprint(from_bits(key_pages[lo:lo + block]), fp_bits),
+            fp_bits)
+    return out
+
+
 def unpack_bitplanes(planes: torch.Tensor, key_bits: int) -> torch.Tensor:
     """Inverse of pack_bitplanes: (P, b, W) -> (P, 32W) int32 key bits
     (the low ``key_bits`` bits of each key, the rest zero)."""
@@ -234,10 +293,10 @@ def update_bitplanes_batch(planes: torch.Tensor, pages, slots_idx, new_keys,
     uniq, inv = torch.unique(flat, return_inverse=True)
     clear = torch.zeros(uniq.shape, dtype=I64, device=planes.device) \
         .index_add_(0, inv, torch.ones_like(bit) << bit)
-    j = torch.arange(key_bits, device=planes.device)
-    kbits = ((keys[:, None] >> j) & 1) << bit[:, None]         # (B, b)
     setb = torch.zeros((uniq.numel(), key_bits), dtype=I64,
-                       device=planes.device).index_add_(0, inv, kbits)
+                       device=planes.device)
+    for j in range(key_bits):        # one plane at a time: no (B, b) temporary
+        setb[:, j].index_add_(0, inv, ((keys >> j) & 1) << bit)
     pg, wd = uniq // W, uniq % W
     out = planes.clone()
     out[pg, :, wd] = (out[pg, :, wd] & ~to_bits(clear)[:, None]) \

@@ -42,8 +42,9 @@ def jax_leaves(hm) -> dict:
            "page_fill": np.asarray(hm.page_fill),
            "free_top": np.asarray(hm.free_top),
            "bucket_head": np.asarray(hm.bucket_head)}
-    if hm.planes is not None:
-        out["planes"] = np.asarray(hm.planes)
+    for name in ("planes", "fprints", "stash", "stash_fill", "local_depth"):
+        if getattr(hm.store, name) is not None:
+            out[name] = np.asarray(getattr(hm.store, name))
     return out
 
 
@@ -364,17 +365,33 @@ def test_no_device_means_the_card():
         thm.from_numpy(SMALL, thm.to_numpy(thm.create(SMALL, device=CPU)))
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(fingerprint_bits=8), "Queue 1 item 6"),
-    (dict(displacement=True), "Queue 1 item 6"),
-    (dict(stash_slots=4), "Queue 1 item 6"),
-    (dict(resize="extendible"), "Queue 1 item 7"),
+@pytest.mark.parametrize("change,match", [
+    (dict(resize="incremental"), "unknown resize"),
+    (dict(resize="extendible", displacement=True), "extendible"),
+    (dict(resize="extendible", stash_slots=32), "extendible"),
+    (dict(resize="extendible", num_buckets=6), "power-of-two"),
+    (dict(resize="extendible", fingerprint_bits=8, num_buckets=6),
+     "power-of-two"),
 ])
-def test_unported_features_raise(change, item):
+def test_resize_knob_validation_matches_jax(change, match):
+    """``create`` refuses what the JAX package's ``_check_resize`` refuses,
+    with the same message; an unknown backend is refused too."""
     cfg = dataclasses.replace(SMALL, **change)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=match) as t_err:
         thm.create(cfg, device=CPU)
+    with pytest.raises(ValueError, match=match) as j_err:
+        jhm.create(jcfg(cfg))
+    assert str(t_err.value) == str(j_err.value)
     with pytest.raises(ValueError):
         thm.create(dataclasses.replace(SMALL, resize="sideways"), device=CPU)
     with pytest.raises(ValueError):
         thm.create(dataclasses.replace(SMALL, backend="cam"), device=CPU)
+
+
+def test_rebuild_mode_accepts_every_lane():
+    """Rebuild mode takes displacement, fingerprints and a stash, on a
+    directory that is not a power of two: both packages create the same
+    empty table, every lane included."""
+    cfg = dataclasses.replace(SMALL, displacement=True, fingerprint_bits=8,
+                              stash_slots=32, num_buckets=6)
+    assert_same_state(thm.create(cfg, device=CPU), jhm.create(jcfg(cfg)))
