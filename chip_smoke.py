@@ -19,7 +19,10 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      aligned; and small tables (a ``perf`` one and a bit-serial one at
      key_bits=8; a displaced one with fingerprints and a stash in both; an
      extendible one that splits and doubles) built, mutated, grown and
-     compacted on the card against the same tables on the CPU;
+     compacted on the card against the same tables on the CPU; and small
+     serving engines (three shards, pipeline depth 2, YCSB A/B/E/F) on each
+     backend and on a tiny table that grows at drain time, on the card
+     against the CPU: equal results, schedules, metrics and tables;
   4. drives the ``perf`` path at PAPER_HASHMEM with the paper's workload:
      build 100M pairs, probe 10% of them, probe 1M held-back keys, insert
      those, delete 1M built keys, probe again, checking every found flag and
@@ -40,8 +43,21 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      the expected map after every write; then rows activated per probe with
      fingerprints on and off, the end-to-end probe rate, each step of the
      probe alone, a trace split by step, and ``probe_perf`` on the filtered
-     schedule against plain and its bound; prints the ``kernels`` line;
-  8. prints the device line last.
+     schedule against plain and its bound;
+  8. serves YCSB A-F from six tenants at paper scale: 16M pairs each (96M
+     in all) preloaded into one PAPER_HASHMEM ``perf`` table through
+     ``engine.preload``, 2048 requests of 4 ops per tenant through 4096
+     slots at pipeline depth 1 and, on a fresh engine, depth 2 (equal
+     results and schedules), every result checked against the DictModel
+     replay (``tests/model.py``), the trace checked by
+     ``tools/trace_report.py``, ``probe_perf`` launched on every tick with a
+     probe or delete phase and no synchronise in the issue path; reports
+     ops/s, ticks, latency in ticks and ms, per-phase host time, device
+     busy and idle share over a ``torch.profiler`` window, stalls, rows
+     activated and peak memory; then the per-request baseline
+     (``coalesce=False``) on 64 requests per tenant; prints the
+     ``kernels`` line;
+  9. prints the device line last.
 
 Any failed check raises and the script exits non-zero.  Without a card, or
 without the rest of the repo beside it, it exits non-zero and prints no
@@ -898,6 +914,343 @@ def displaced_path(hashmap, k, ref, data, smi):
 
 
 # ---------------------------------------------------------------------------
+# Serving: small engines on the card against the CPU, and the paper-scale
+# request stream
+# ---------------------------------------------------------------------------
+
+SERVE_WORKLOADS = "ABCDEF"       # one tenant per YCSB core workload
+SERVE_RECORDS = 16_000_000       # per tenant: 96M preloaded pairs in all
+SERVE_REQUESTS = 2048            # per tenant, 4 ops each: 49,152 ops
+SERVE_SLOTS = 4096
+SERVE_BASELINE_REQUESTS = 64     # per tenant, through coalesce=False
+SERVE_PROFILE = (4, 12)          # the profiled ticks [start, stop)
+SERVE_SPANS = "tick,gather,probe,delete,insert,writeback"
+POOL_COPY_MS = 0.1               # a 1.342 GB pool copy takes ~0.8 ms
+CLOCK_KEYS = ("wall_seconds", "ops_per_sec", "request_latency_ms",
+              "queue_ms", "service_ms", "tick_ms")
+
+
+def serving_engine(serving, cfg, workloads, record_count, per_tenant, dev,
+                   **kw):
+    """An engine on ``dev`` with one tenant (a LoadGen of seed i) per
+    workload letter, loaded through ``engine.preload``, and its requests.
+    Returns (engine, requests, load seconds, {tenant id: preload values})."""
+    reg = serving.TenantRegistry()
+    gens = [serving.LoadGen(serving.WorkloadSpec(
+        wl, record_count=record_count, ops_per_request=4),
+        reg.register(f"tenant{i}-{wl}"), seed=i)
+        for i, wl in enumerate(workloads)]
+    eng = serving.ServingEngine(cfg, tenants=reg, record_schedule=True,
+                                device=dev, **kw)
+    vals = {}
+    t0 = time.perf_counter()
+    for g in gens:
+        keys, v = g.preload_kv()
+        eng.preload(keys, v, tenant=g.tenant)
+        vals[g.tenant.tid] = v
+    if eng.device.type == "cuda":
+        sync()
+    load_s = time.perf_counter() - t0
+    return eng, [r for g in gens for r in g.requests(per_tenant)], load_s, \
+        vals
+
+
+def deterministic(eng, snap):
+    """The engine's snapshot and stats without their clock fields."""
+    snap = {k: v for k, v in snap.items() if k not in CLOCK_KEYS}
+    snap["phase_ms"] = {k: v["count"] for k, v in snap["phase_ms"].items()}
+    st = eng.stats()
+    st["tenants"] = {n: {k: v for k, v in t.items()
+                         if k not in ("queue_secs", "service_secs")}
+                     for n, t in st["tenants"].items()}
+    return snap, st
+
+
+def engine_outcome(hashmap, eng, reqs, snap):
+    return ([r.results for r in reqs], eng.schedule,
+            deterministic(eng, snap),
+            [hashmap.to_numpy(hm) for hm in eng.shards])
+
+
+def check_small_engines_vs_cpu(serving, hashmap, HashMemConfig, k):
+    """The same short LoadGen stream (YCSB A, B, E, F) through an engine on
+    the card and one on the CPU, on three shards at pipeline depth 2, for
+    each backend, and once on a tiny ``perf`` table that grows at drain
+    time: equal results, schedules, deterministic metrics and table leaves.
+    Returns the kernels' launches on the card's engines."""
+    base = HashMemConfig(num_buckets=64, slots_per_page=64, overflow_pages=64,
+                         max_chain=8)
+    cases = [(b, dataclasses.replace(base, backend=b), "ABEF", 256)
+             for b in ("ref", "perf", "area", "bitserial")]
+    cases.append(("perf_grows", HashMemConfig(
+        num_buckets=2, slots_per_page=8, overflow_pages=2, max_chain=2),
+        "A", 64))
+    reset_launches(k)
+    for name, cfg, wls, records in cases:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            eng, reqs, _, _ = serving_engine(
+                serving, cfg, wls, records, 16, dev, num_shards=3,
+                max_slots=16, pipeline_depth=2)
+            loaded = eng.grow_events
+            eng.submit_all(reqs)
+            out[dev] = engine_outcome(hashmap, eng, reqs, eng.run())
+        (res, sched, det, leaves), cpu = out["cuda"], out["cpu"]
+        check(res == cpu[0], f"small engine {name}: results differ")
+        check(sched == cpu[1], f"small engine {name}: schedules differ")
+        check(det == cpu[2], f"small engine {name}: metrics differ")
+        check(len(leaves) == len(cpu[3]) and all(
+            a.keys() == b.keys() and all(np.array_equal(a[n], b[n])
+                                         for n in a)
+            for a, b in zip(leaves, cpu[3])),
+            f"small engine {name}: table leaves differ")
+        if name == "perf_grows":
+            check(loaded == 0 and eng.grow_events > 0,
+                  f"small engine {name}: no drain-time grow")
+        print(f"small_engine {name}: {len(reqs)} requests, {eng.ticks} "
+              f"ticks, batch calls {eng.batch_calls}, grows "
+              f"{eng.grow_events}; card equals CPU (results, schedule, "
+              f"metrics, leaves of 3 shards)")
+    launches = read_launches(k)
+    for kname in KERNELS:
+        check(launches[kname] > 0, f"the small engines never launched "
+              f"{kname}")
+    print(f"small_engines: launches on the card {launches}")
+    return launches
+
+
+def drive_stream(eng, kernel):
+    """Tick ``eng`` until idle, then ``run()`` for its snapshot.  Records per
+    tick the calls, ``kernel``'s launches and the synchronises the card saw
+    (``torch.cuda.set_sync_debug_mode``), and the synchronises inside the
+    issue of each tick's phases.  Returns (snapshot, wall seconds ended by
+    a synchronise, per-tick records, issue synchronises per tick)."""
+    import warnings
+
+    import torch
+    per_tick, issue = [], []
+    orig = eng._issue
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def counted_issue(*args):
+            n0 = len(caught)
+            rec = orig(*args)
+            issue.append(len(caught) - n0)
+            return rec
+        eng._issue = counted_issue
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sync()
+            t0 = time.perf_counter()
+            while not eng.pool.idle():
+                n0, l0 = len(caught), kernel.launches
+                eng.tick()
+                per_tick.append((dict(eng.calls_last_tick),
+                                 kernel.launches - l0, len(caught) - n0))
+            snap = eng.run()
+            sync()
+            wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            del eng._issue
+    return snap, wall, per_tick, issue
+
+
+def dict_model_replay(schedule, space, vals):
+    """Replay ``schedule`` against tests/model.py's DictModel seeded with
+    the preload values of the keys the schedule touches (the only keys it
+    can ask about)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from model import DictModel, replay_schedule_against_model
+    model = DictModel()
+    touched = np.asarray(sorted({key for e in schedule for key in e[2]}),
+                         np.uint32)
+    tids, raw = space.unfold(touched)
+    for key, tid, r in zip(touched, tids, raw):
+        if r < SERVE_RECORDS:
+            model.insert([key], [vals[int(tid)][r]], [True])
+    replay_schedule_against_model(schedule, model)
+    return touched.size
+
+
+def device_profile(prof, wall_s, top=8):
+    """Device busy ms over a profiler window, the idle share of its wall
+    time, the kernels by device time, and the whole-pool copies: the
+    device-to-device memcpys of more than ``POOL_COPY_MS`` each (count,
+    ms each)."""
+    from torch.autograd import DeviceType
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key[:80])
+            for e in sorted(evs, key=lambda e: -e.self_device_time_total)]
+    copies = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "DtoD" in e.name]
+    return busy_ms, 1.0 - busy_ms / (wall_s * 1e3), rows[:top], \
+        [ms for ms in copies if ms > POOL_COPY_MS]
+
+
+def serving_path(serving, hashmap, k, smi):
+    """Phase 8: YCSB A-F from six tenants, each preloaded with 16M pairs
+    (96M in all) into one PAPER_HASHMEM ``perf`` table through
+    ``engine.preload``, served through 4096 slots at pipeline depth 1 and,
+    on a fresh engine, at depth 2 (equal results and schedules), every
+    result checked against the DictModel replay; both runs traced, their
+    traces checked by tools/trace_report.py, and profiled by
+    ``torch.profiler`` over the same window of ticks; then the per-request
+    baseline on a third engine.  Returns the launches of the depth-1
+    run."""
+    import torch
+    from repro_torch.configs import PAPER_HASHMEM
+    cfg = PAPER_HASHMEM
+    probe_perf = k["probe_perf"]
+    out_dir = ROOT / "build" / "serving"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t_phase = time.perf_counter()
+    runs = {}
+    for depth in (1, 2):
+        torch.cuda.reset_peak_memory_stats()
+        kw = dict(max_slots=SERVE_SLOTS, pipeline_depth=depth,
+                  trace=serving.Tracer(capacity=1 << 19))
+        t0 = time.perf_counter()
+        eng, reqs, load_s, vals = serving_engine(
+            serving, cfg, SERVE_WORKLOADS, SERVE_RECORDS, SERVE_REQUESTS,
+            None, **kw)
+        gen_s = time.perf_counter() - t0 - load_s
+        load_peak = torch.cuda.max_memory_allocated() / 2**30
+        st = hashmap.stats(eng.shards[0])
+        check(st["live_entries"] == len(SERVE_WORKLOADS) * SERVE_RECORDS,
+              f"preload stored {st['live_entries']} pairs")
+        print(f"serve_preload depth {depth}: {st['live_entries']} pairs of "
+              f"{len(SERVE_WORKLOADS)} tenants through engine.preload in "
+              f"{load_s:.3f} s; load {st['load_factor']:.4f} of "
+              f"{st['capacity']} slots, max chain {st['max_chain']}; pool "
+              f"{eng.shards[0].store.pool.numel() * 4 / 1e9:.3f} GB; "
+              f"{len(reqs)} requests drawn in {gen_s:.3f} s; peak device "
+              f"memory {load_peak:.2f} GiB")
+        eng.profile_ticks(*SERVE_PROFILE, str(out_dir / f"depth{depth}"))
+        reset_launches(k)
+        torch.cuda.reset_peak_memory_stats()
+        eng.submit_all(reqs)
+        snap, wall, per_tick, issue = drive_stream(eng, probe_perf)
+        launches = read_launches(k)
+        runs[depth] = dict(
+            results=[r.results for r in reqs], schedule=eng.schedule,
+            det=deterministic(eng, snap), snap=snap, wall=wall,
+            per_tick=per_tick, issue=issue, launches=launches,
+            stats=eng.stats(), peak=torch.cuda.max_memory_allocated() / 2**30,
+            profile=device_profile(eng.profiler, eng.profile_seconds),
+            profile_ms=eng.profile_seconds * 1e3)
+        path = out_dir / f"trace_depth{depth}.json"
+        n_ev = eng.export_trace(str(path), workloads=SERVE_WORKLOADS)
+        rep = subprocess.run(
+            [sys.executable, str(ROOT / "tools" / "trace_report.py"),
+             str(path), "--assert-spans", SERVE_SPANS],
+            capture_output=True, text=True, timeout=600)
+        check(rep.returncode == 0, f"trace_report refused the depth-{depth} "
+              f"trace:\n{rep.stdout[-3000:]}{rep.stderr[-2000:]}")
+        print(f"serve_trace depth {depth}: {n_ev} events (dropped "
+              f"{eng.tracer.dropped}) accepted by trace_report.py "
+              f"--assert-spans {SERVE_SPANS}")
+        for line in rep.stdout.splitlines():
+            if line.strip():
+                print(f"  trace_report: {line}")
+        if depth == 1:
+            n_touched = dict_model_replay(eng.schedule, eng.tenants.space,
+                                          vals)
+            print(f"serve_check: every result of {len(reqs)} requests "
+                  f"({snap['total_ops']} ops over {n_touched} keys) equals "
+                  f"the DictModel replay")
+        del eng, reqs, vals
+    one, two = runs[1], runs[2]
+    check(one["results"] == two["results"],
+          "pipeline depth 2 changed a result")
+    check(one["schedule"] == two["schedule"],
+          "pipeline depth 2 changed the schedule")
+    check({**one["det"][0], "phase_ms": None}
+          == {**two["det"][0], "phase_ms": None},
+          "pipeline depth 2 changed a deterministic metric")
+
+    for depth, r in runs.items():
+        snap, st = r["snap"], r["stats"]
+        ticks = len(r["per_tick"])
+        for i, (calls, launched, _) in enumerate(r["per_tick"]):
+            want = calls["probe"] + calls["delete"]
+            check(launched >= want,
+                  f"depth {depth} tick {i}: {launched} probe_perf launches "
+                  f"for {want} probe/delete calls")
+        check(r["launches"]["probe_perf"] > 0, "phase 8 launched no probe")
+        syncs = [s for _, _, s in r["per_tick"]]
+        if sum(syncs) == 0:
+            sync_note = "not measured (the debug mode reported none)"
+        else:
+            check(sum(r["issue"]) == 0, f"depth {depth}: the issue path "
+                  f"synchronised {sum(r['issue'])} times")
+            sync_note = (f"{sum(syncs) / ticks:.3f} a tick (max "
+                         f"{max(syncs)}), 0 in the issue path")
+        ph = snap["phase_ms"]
+        print(f"serve_depth{depth}: {snap['total_ops']} ops of "
+              f"{snap['requests_completed']} requests in {r['wall']:.3f} s = "
+              f"{snap['total_ops'] / r['wall']:.1f} ops/s; {ticks} ticks, "
+              f"{snap['ops_per_tick']:.2f} ops/tick; request latency "
+              f"p50/p99 {snap['request_latency_ticks']['p50']:.0f}/"
+              f"{snap['request_latency_ticks']['p99']:.0f} ticks, "
+              f"{snap['request_latency_ms']['p50']:.3f}/"
+              f"{snap['request_latency_ms']['p99']:.3f} ms; stalls "
+              f"{st['pipeline']['stalls']}, grows {st['grow_events']}, "
+              f"compactions {st['compact_events']}; rows activated per "
+              f"probe mean {snap['rows_activated']['mean']:.4f}; after the "
+              f"run max chain {st['shards'][0]['max_chain']}, tombstones "
+              f"{st['shards'][0]['tombstones']}; "
+              f"probe_perf launches {r['launches']['probe_perf']} = "
+              f"{r['launches']['probe_perf'] / ticks:.3f} a tick; host "
+              f"synchronises {sync_note}; peak device memory "
+              f"{r['peak']:.2f} GiB")
+        print(f"serve_phases_depth{depth} (host ms mean/p50/p99 x count): "
+              + "; ".join(f"{n} {v['mean']:.3f}/{v['p50']:.3f}/"
+                          f"{v['p99']:.3f} x{v['count']}"
+                          for n, v in sorted(ph.items())))
+    pool_bytes = 2 * cfg.num_pages * cfg.slots_per_page * 8
+    for depth, r in runs.items():
+        busy, idle, rows, copies = r["profile"]
+        check(copies, f"depth {depth}: the profile holds no pool copy")
+        print(f"serve_profile depth {depth}: ticks [{SERVE_PROFILE[0]}, "
+              f"{SERVE_PROFILE[1]}) (torch.profiler): wall "
+              f"{r['profile_ms']:.3f} ms, device busy {busy:.3f} ms, idle "
+              f"share {idle * 100:.1f}%; whole-pool copies {len(copies)} = "
+              f"{sum(copies):.3f} ms, {np.mean(copies):.4f} ms each "
+              f"({pool_bytes / np.mean(copies) / 1e9:.2f} TB/s of "
+              f"{pool_bytes / 1e9:.3f} GB read and written; bound "
+              f"{pool_bytes / HBM_RATE * 1e3:.4f} ms)")
+        for ms, count, key in rows:
+            print(f"  {ms:9.3f} ms x{count:<5d} {key}")
+
+    # the per-request baseline: one hashmap call per op
+    eng, reqs, _, vals = serving_engine(
+        serving, cfg, SERVE_WORKLOADS, SERVE_RECORDS,
+        SERVE_BASELINE_REQUESTS, None, max_slots=SERVE_SLOTS, coalesce=False)
+    eng.submit_all(reqs)
+    sync()
+    t0 = time.perf_counter()
+    snap = eng.run()
+    sync()
+    wall = time.perf_counter() - t0
+    dict_model_replay(eng.schedule, eng.tenants.space, vals)
+    base_rate = snap["total_ops"] / wall
+    rate = one["snap"]["total_ops"] / one["wall"]
+    print(f"serve_per_request: {snap['total_ops']} ops of {len(reqs)} "
+          f"requests through coalesce=False in {wall:.3f} s = "
+          f"{base_rate:.1f} ops/s, {sum(eng.batch_calls.values())} hashmap "
+          f"calls, results equal the DictModel replay; coalesced depth 1 / "
+          f"per-request ops/s = {rate / base_rate:.2f}; card: {smi}")
+    print(f"serve_time: phase 8 took {time.perf_counter() - t_phase:.3f} s")
+    del eng, reqs, vals
+    return one["launches"]
+
+
+# ---------------------------------------------------------------------------
 # Main paths at paper scale
 # ---------------------------------------------------------------------------
 
@@ -909,6 +1262,7 @@ def main() -> int:
         fail(f"src/repro_torch not found beside {Path(__file__).name}; run it "
              "from the root of a checkout")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import serving
     from repro_torch.configs import PAPER_HASHMEM, HashMemConfig
     from repro_torch.core import hashmap
     from repro_torch.core.hashing import as_u32
@@ -939,6 +1293,7 @@ def main() -> int:
     # -- 3. kernels against plain; card against CPU ------------------------------
     check_kernel_cases(k, ref, pack_bitplanes, load_width)
     check_small_tables_vs_cpu(hashmap, HashMemConfig)
+    check_small_engines_vs_cpu(serving, hashmap, HashMemConfig, k)
 
     # -- 4. the perf path at PAPER_HASHMEM --------------------------------------
     cfg = PAPER_HASHMEM
@@ -1187,12 +1542,18 @@ def main() -> int:
     data = dict(keys=keys, vals=vals, held_k=held_k, held_v=held_v,
                 probes=probes, pidx=pidx, qd=qd, qbits=qbits)
     d_path = displaced_path(hashmap, k, ref, data, smi)
+    del data, qd, qbits
+
+    # -- 8. serving at paper scale ----------------------------------------------
+    s_path = serving_path(serving, hashmap, k, smi)
 
     replaces = {"probe_perf": "src/repro/kernels/probe_perf.py:34",
                 "probe_area": "src/repro/kernels/probe_area.py:32",
                 "probe_bitserial": "src/repro/kernels/probe_bitserial.py:36"}
     check(d_path["probe_perf"] > 0,
           "the displaced path never launched probe_perf")
+    check(s_path["probe_perf"] > 0,
+          "the serving path never launched probe_perf")
     launches = {"probe_perf": perf_path["probe_perf"],
                 "probe_area": bs_path["probe_area"],
                 "probe_bitserial": bs_path["probe_bitserial"]}

@@ -245,7 +245,10 @@ def _segment_rank(bs: torch.Tensor, num_buckets: int):
     (what ``searchsorted(bs, bs, side="left")`` gives), and the per-bucket
     counts.  Ids >= num_buckets share one trailing run."""
     bc = bs.clamp(max=num_buckets)
-    counts = torch.bincount(bc, minlength=num_buckets + 1)
+    # scatter-add, not bincount, whose output size waits for the device
+    counts = torch.zeros(num_buckets + 1, dtype=I64,
+                         device=bs.device).scatter_add_(
+        0, bc, torch.ones_like(bc))
     start = (torch.cumsum(counts, 0) - counts)[bc]
     rank = torch.arange(bs.numel(), device=bs.device) - start
     return rank, counts[:num_buckets]
@@ -534,6 +537,12 @@ def rows_activated_per_probe(hm: HashMem, queries,
     return acts.sum().to(torch.float32) * (one / q.numel())
 
 
+def _with_spare(lane: torch.Tensor) -> torch.Tensor:
+    """A copy of a (P,) page lane with one spare entry at P, for scatters
+    whose dropped updates go there."""
+    return torch.cat([lane, lane.new_zeros(1)])
+
+
 def _chain_tails(hm: HashMem, b: torch.Tensor):
     """Per-key chain tail page, tail fill and chain length (bounded walk)."""
     last = hm.config.num_pages - 1
@@ -622,17 +631,21 @@ def _insert_chained(hm: HashMem, keys: torch.Tensor, vals: torch.Tensor,
     wp = torch.where(ok, page, P)                    # OOB drop if !ok
 
     store = hm.store.write_slots(wp, slot, ks, vs)   # fused k+v scatter
-    keep = wp < P
-    store.page_fill = store.page_fill.clone().scatter_reduce_(
-        0, wp[keep], (slot + 1)[keep].to(I32), reduce="amax")
+    # page_fill and page_next get one spare entry P that takes the dropped
+    # updates (and a tail past the pool, which an overflowed build links),
+    # so no data-dependent mask waits for the device
+    fill = _with_spare(store.page_fill)
+    store.page_fill = fill.scatter_reduce_(
+        0, wp.clamp(max=P), (slot + 1).to(I32), reduce="amax")[:P]
 
     # chain links: first element on each newly allocated page links prev -> page
     is_link = ok & (depth >= 1) & (slot == 0)
     prev = torch.where(depth == 1, tails, page - 1)
     link_idx = torch.where(is_link, prev, P)
     lk = (link_idx >= 0) & (link_idx < P)
-    store.page_next = store.page_next.clone()
-    store.page_next[link_idx[lk]] = page[lk].to(I32)
+    nxt = _with_spare(store.page_next)
+    nxt[torch.where(lk, link_idx, P)] = page.to(I32)
+    store.page_next = nxt[:P]
     store.free_top = (free_top + n_fit).to(I32)
 
     ok_orig = torch.empty_like(ok)

@@ -26,9 +26,11 @@ int32 words with uint32 bits.  The optional lanes of the JAX store follow:
 with the key lane.
 
 Writes follow JAX's ``.at[...].set(mode="drop")``: a write whose page id lies
-outside ``[0, num_pages)`` is dropped.  torch has no drop mode, so the out of
-range rows are masked out before ``index_put_``.  Writes return a new store
-and leave the old one as it was, as the JAX store's do.
+outside ``[0, num_pages)`` is dropped.  torch has no drop mode, so the copy a
+write makes has one spare row past the pool, the dropped writes land there,
+and the new pool is the view of the first ``num_pages`` rows: no
+data-dependent mask, so a pool write never waits for the device.  Writes
+return a new store and leave the old one as it was, as the JAX store's do.
 """
 from __future__ import annotations
 
@@ -125,17 +127,33 @@ class PageStore:
                 fingerprint(from_bits(keys), self.fp_bits), self.fp_bits)
         return out
 
+    def _pool_with_drop_row(self) -> torch.Tensor:
+        """A copy of the pool with one spare row past it: ``ext[:P]`` is
+        the new pool, and dropped writes land in row P."""
+        P = self.num_pages
+        ext = self.pool.new_empty((P + 1,) + tuple(self.pool.shape[1:]))
+        ext[:P] = self.pool
+        return ext
+
+    def _drop_index(self, pages, slots_idx):
+        """Scatter indices of each (page, slot): a page outside the pool
+        writes slot 0 of the spare row, so the drop needs no data-dependent
+        mask (no wait for the device)."""
+        m = self._in_range(pages)
+        return (torch.where(m, pages, self.num_pages).long(),
+                torch.where(m, slots_idx, 0).long())
+
     def write_slots(self, pages, slots_idx, keys, vals) -> "PageStore":
         """ONE pool scatter writes key and value (int32 bits) into the same
         rows; a page id outside the pool drops its write, and the bit-planes
         and fingerprints follow when present.  In-range (page, slot) pairs
         must be unique within the batch."""
-        m = self._in_range(pages)
         kv = torch.stack([keys.to(I32), vals.to(I32)], dim=-1)
-        pool = self.pool.clone()
-        pool[pages[m].long(), slots_idx[m].long()] = kv[m]
+        ext = self._pool_with_drop_row()
+        ext[self._drop_index(pages, slots_idx)] = kv
         return dataclasses.replace(
-            self, pool=pool, **self._packed_lanes(pages, slots_idx, keys))
+            self, pool=ext[:self.num_pages],
+            **self._packed_lanes(pages, slots_idx, keys))
 
     def write_keys(self, pages, slots_idx, keys,
                    plane_pages=None) -> "PageStore":
@@ -143,12 +161,10 @@ class PageStore:
         row is left untouched.  ``plane_pages`` optionally overrides the
         page ids used for the bit-plane and fingerprint updates (delete
         drops duplicate targets there)."""
-        m = self._in_range(pages)
-        pool = self.pool.clone()
-        pool[pages[m].long(), slots_idx[m].long(), KEY_LANE] = \
-            keys.to(I32)[m]
+        ext = self._pool_with_drop_row()
+        ext[self._drop_index(pages, slots_idx) + (KEY_LANE,)] = keys.to(I32)
         pp = pages if plane_pages is None else plane_pages
-        return dataclasses.replace(self, pool=pool,
+        return dataclasses.replace(self, pool=ext[:self.num_pages],
                                    **self._packed_lanes(pp, slots_idx, keys))
 
 

@@ -262,6 +262,27 @@ def test_insert_refuses_past_chain_bound():
     assert thm.max_chain_len(t) <= MUT.max_chain
 
 
+def test_insert_after_a_build_that_overflowed_the_arena():
+    """A build whose overflow arena is too small links chains to page ids
+    past the pool; inserts then find tails there.  The port writes what
+    JAX writes (its scatters drop those pages) and raises nothing."""
+    cfg = HashMemConfig(num_buckets=64, slots_per_page=128, overflow_pages=16,
+                        max_chain=3)
+    rng = np.random.default_rng(1)
+    keys = _unique(rng, 14_000)
+    vals = rng.integers(0, 2**32, keys.size, dtype=np.uint64).astype(np.uint32)
+    t = thm.build(cfg, keys[:9000], vals[:9000], device=CPU)
+    j = j_build(jcfg(cfg), jnp.asarray(keys[:9000]), jnp.asarray(vals[:9000]))
+    assert int(t.page_next.max()) >= cfg.num_pages
+    valid = np.arange(5000) % 7 != 0
+    t, tok = thm.insert(t, keys[9000:], vals[9000:], valid=valid)
+    j, jok = j_insert(j, jnp.asarray(keys[9000:]), jnp.asarray(vals[9000:]),
+                      jnp.asarray(valid))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    assert_same_state(t, j)
+    assert_same_probe(t, j, keys)
+
+
 def test_from_numpy_of_jax_table_matches():
     cfg, keys, vals = build_case("murmur_chains")
     j = j_build(jcfg(cfg), jnp.asarray(keys[:8000]), jnp.asarray(vals[:8000]))
