@@ -22,7 +22,14 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      compacted on the card against the same tables on the CPU; and small
      serving engines (three shards, pipeline depth 2, YCSB A/B/E/F) on each
      backend and on a tiny table that grows at drain time, on the card
-     against the CPU: equal results, schedules, metrics and tables;
+     against the CPU: equal results, schedules, metrics and tables; and
+     mesh engines (2 and 4 shards stacked on the card) on ``perf``, ``area``
+     and ``bitserial``, fused and unfused, at depth 1 and 2, a displaced
+     one, one that grows at drain, one that splits and doubles, and the
+     routed ``probe_sharded``/``delete_sharded``/``insert_mesh`` calls with
+     every key routed to one shard, on the card against the CPU (results,
+     schedules, metrics, stacked leaves), each probe phase and each
+     delete's find one kernel launch for all shards;
   4. drives the ``perf`` path at PAPER_HASHMEM with the paper's workload:
      build 100M pairs, probe 10% of them, probe 1M held-back keys, insert
      those, delete 1M built keys, probe again, checking every found flag and
@@ -55,9 +62,20 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      ops/s, ticks, latency in ticks and ms, per-phase host time, device
      busy and idle share over a ``torch.profiler`` window, stalls, rows
      activated and peak memory; then the per-request baseline
-     (``coalesce=False``) on 64 requests per tenant; prints the
-     ``kernels`` line;
-  9. prints the device line last.
+     (``coalesce=False``) on 64 requests per tenant;
+  9. drives the mesh path at paper scale: PAPER_HASHMEM cut four ways
+     (2^16 buckets x 512 slots, 2^14 overflow pages a shard), 4 shards
+     stacked on the card.  Loads the 100M pairs of phase 4 through
+     ``rlu.insert_sharded``, probes the 10M probes through
+     ``rlu.probe_sharded`` (one ``probe_perf`` launch), checking every
+     result, times it and splits its device time by range; then serves the
+     phase 8 stream through the mesh engine three ways (fused tick at depth
+     1 and 2, unfused at depth 1), every result against the DictModel
+     replay and phase 8's, with ops/s, latency, host time a span, device
+     idle share, pool copies a write phase, launches a tick, synchronises
+     in the issue path and the routing capacities; prints the ``kernels``
+     line;
+ 10. prints the device line last.
 
 Any failed check raises and the script exits non-zero.  Without a card, or
 without the rest of the repo beside it, it exits non-zero and prints no
@@ -592,14 +610,18 @@ def drive_extendible(hashmap, cfg, colliders, dev):
 
 
 SPANS = ("probe.schedule", "probe.fp_filter", "probe.kernel", "probe.stash")
+MESH_SPANS = ("rlu.route", "probe.schedule", "probe.kernel",
+              "rlu.gather_back")
 
 
-def profile_probe(probe, label: str = "hashmap.probe", top: int = 8):
+def profile_probe(probe, label: str = "hashmap.probe", top: int = 8,
+                  spans=SPANS):
     """Device time by kernel over one traced end-to-end probe call
     (torch.profiler), the device's busy share of that call's wall time, and
-    the device time of the kernels that ran inside each of
-    ``hashmap.probe_with_buckets``'s ``record_function`` ranges (``SPANS``),
-    read from the ranges' windows on the device timeline.  The ranges' own
+    the device time of the kernels that ran inside each of the
+    ``record_function`` ranges ``spans`` (default ``SPANS``, those of
+    ``hashmap.probe_with_buckets``), read from the ranges' windows on the
+    device timeline.  The ranges' own
     device-side events are not kernels and count in no sum.  Returns (busy
     ms, wall ms, {span: ms, or None if the trace has no such window})."""
     from torch.autograd import DeviceType
@@ -625,14 +647,14 @@ def profile_probe(probe, label: str = "hashmap.probe", top: int = 8):
               f"{e.key[:90]}")
     events = prof.events()
     kernels = [e.time_range for e in events if on_device(e, False)]
-    spans = {}
-    for name in SPANS:
+    out = {}
+    for name in spans:
         windows = [e.time_range for e in events
                    if on_device(e, True) and e.name == name]
-        spans[name] = sum(k.elapsed_us() for k in kernels if any(
+        out[name] = sum(k.elapsed_us() for k in kernels if any(
             w.start <= k.start < w.end for w in windows)) / 1e3 \
             if windows else None
-    return busy_us / 1e3, wall_us / 1e3, spans
+    return busy_us / 1e3, wall_us / 1e3, out
 
 
 # ---------------------------------------------------------------------------
@@ -1022,9 +1044,10 @@ def check_small_engines_vs_cpu(serving, hashmap, HashMemConfig, k):
 def drive_stream(eng, kernel):
     """Tick ``eng`` until idle, then ``run()`` for its snapshot.  Records per
     tick the calls, ``kernel``'s launches and the synchronises the card saw
-    (``torch.cuda.set_sync_debug_mode``), and the synchronises inside the
-    issue of each tick's phases.  Returns (snapshot, wall seconds ended by
-    a synchronise, per-tick records, issue synchronises per tick)."""
+    (``torch.cuda.set_sync_debug_mode``), and, inside the issue of each
+    tick's phases, the synchronises, ``kernel``'s launches and the phases
+    issued.  Returns (snapshot, wall seconds ended by a synchronise,
+    per-tick records, per-issue (synchronises, launches, phase kinds))."""
     import warnings
 
     import torch
@@ -1034,9 +1057,10 @@ def drive_stream(eng, kernel):
         warnings.simplefilter("always")
 
         def counted_issue(*args):
-            n0 = len(caught)
+            n0, l0 = len(caught), kernel.launches
             rec = orig(*args)
-            issue.append(len(caught) - n0)
+            issue.append((len(caught) - n0, kernel.launches - l0,
+                          [ph.kind for ph in rec.phases]))
             return rec
         eng._issue = counted_issue
         torch.cuda.set_sync_debug_mode("warn")
@@ -1186,8 +1210,9 @@ def serving_path(serving, hashmap, k, smi):
         if sum(syncs) == 0:
             sync_note = "not measured (the debug mode reported none)"
         else:
-            check(sum(r["issue"]) == 0, f"depth {depth}: the issue path "
-                  f"synchronised {sum(r['issue'])} times")
+            n_issue = sum(i[0] for i in r["issue"])
+            check(n_issue == 0, f"depth {depth}: the issue path "
+                  f"synchronised {n_issue} times")
             sync_note = (f"{sum(syncs) / ticks:.3f} a tick (max "
                          f"{max(syncs)}), 0 in the issue path")
         ph = snap["phase_ms"]
@@ -1247,7 +1272,370 @@ def serving_path(serving, hashmap, k, smi):
           f"per-request ops/s = {rate / base_rate:.2f}; card: {smi}")
     print(f"serve_time: phase 8 took {time.perf_counter() - t_phase:.3f} s")
     del eng, reqs, vals
-    return one["launches"]
+    return one["launches"], one["results"]
+
+
+# ---------------------------------------------------------------------------
+# The mesh backend: small mesh engines on the card against the CPU, and the
+# paper-scale mesh path
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4                  # phase 9: PAPER_HASHMEM cut four ways:
+MESH_BUCKETS = 1 << 16           # 2^18 / 4 buckets and 2^16 / 4 overflow
+MESH_OVERFLOW = 1 << 14          # pages a shard, the same stacked pool
+MESH_SERVE_SPANS = {True: "tick,gather,route,fused_tick,writeback",
+                    False: "tick,gather,probe,delete,insert,writeback"}
+
+
+def all_launches(k):
+    return sum(w.launches for w in k.values())
+
+
+def issue_launches_wanted(eng, kinds) -> int:
+    """Kernel launches one tick's issue must make: one a probe phase and one
+    a delete's find, for all shards at once.  A fused tick always routes
+    all three phases (an empty one as a batch of pads, as JAX's does), so
+    it makes both."""
+    if eng.fused_tick:
+        return 2
+    return sum(kd in ("probe", "delete") for kd in kinds)
+
+
+def count_issue_launches(eng, k):
+    """Wrap ``eng._issue``: a list that gets, per tick, the phases issued
+    and the kernel launches (all kernels) inside the issue."""
+    per = []
+    orig = eng._issue
+
+    def issue(*args):
+        l0 = all_launches(k)
+        rec = orig(*args)
+        per.append(([ph.kind for ph in rec.phases], all_launches(k) - l0))
+        return rec
+    eng._issue = issue
+    return per
+
+
+def mesh_insert_heavy(serving, cfg, D, dev, **kw):
+    """An engine on a D-shard mesh driven by ``tests/model.py``'s
+    insert-heavy streams (growth or extendible splits); returns (engine,
+    requests)."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    sys.path.insert(0, str(ROOT / "tests"))
+    from model import make_insert_heavy_schedule
+    streams = make_insert_heavy_schedule(
+        9, n_requests=48, ops_per_request=3, keyspace=96,
+        zipf_theta=0.6 if cfg.resize == "extendible" else 0.0)
+    eng = serving.ServingEngine(cfg, mesh=make_serving_mesh(D, device=dev),
+                                max_slots=8, record_schedule=True,
+                                device=dev, **kw)
+    return eng, [serving.Request(ops=list(ops)) for ops in streams]
+
+
+def check_small_mesh_vs_cpu(serving, hashmap, HashMemConfig, k):
+    """Mesh engines with 2 and 4 shards stacked on the card against the
+    same engines on the CPU: equal results, schedules, deterministic metrics
+    and stacked leaves, for each kernel backend, fused and unfused, at
+    pipeline depth 1 and 2; a displaced table; a tiny table that grows at
+    drain; an extendible one that splits and doubles.  On the card each
+    probe phase and each delete's find is one kernel launch for all shards
+    (counted inside the issue of every tick).  Then the routed calls with
+    every key routed to one shard.  Returns the launches."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    base = HashMemConfig(num_buckets=64, slots_per_page=64, overflow_pages=64,
+                         max_chain=8)
+    cases = []
+    for backend in ("perf", "area", "bitserial"):
+        for D in (2, 4):
+            for fused in (True, False):
+                for depth in (1, 2):
+                    cases.append((
+                        f"{backend}_D{D}_{'fused' if fused else 'unfused'}"
+                        f"_d{depth}", dataclasses.replace(base,
+                                                          backend=backend),
+                        D, dict(fused_tick=None if fused else False,
+                                pipeline_depth=depth)))
+    cases.append(("displaced_D2", HashMemConfig(
+        num_buckets=16, slots_per_page=32, overflow_pages=32, max_chain=4,
+        displacement=True, fingerprint_bits=8, stash_slots=32), 2,
+        dict(pipeline_depth=2)))
+    heavy = {"grows_D2": HashMemConfig(
+        num_buckets=4, slots_per_page=4, overflow_pages=8, max_chain=2,
+        max_load_factor=0.95), "extendible_D2": HashMemConfig(
+        num_buckets=4, slots_per_page=4, overflow_pages=60, max_chain=2,
+        resize="extendible", max_load_factor=1.0)}
+    reset_launches(k)
+    phases = {"probe": [], "delete": []}
+    for name, cfg, D, kw in cases + [(n, c, 2, dict(pipeline_depth=2))
+                                     for n, c in heavy.items()]:
+        out = {}
+        for dev in ("cuda", "cpu"):
+            if name in heavy:
+                eng, reqs = mesh_insert_heavy(serving, cfg, D, dev, **kw)
+            else:
+                eng, reqs, _, _ = serving_engine(
+                    serving, cfg, "ABEF", 256, 8, dev, max_slots=16,
+                    mesh=make_serving_mesh(D, device=dev), **kw)
+            per = count_issue_launches(eng, k) if dev == "cuda" else None
+            eng.submit_all(reqs)
+            out[dev] = engine_outcome(hashmap, eng, reqs, eng.run())
+            if per is not None:
+                for kinds, launched in per:
+                    want = issue_launches_wanted(eng, kinds)
+                    check(launched == want, f"mesh engine {name}: {launched} "
+                          f"launches for the phases {kinds}")
+                    for kd in kinds:
+                        if kd in phases:
+                            phases[kd].append(1)
+        (res, sched, det, leaves), cpu = out["cuda"], out["cpu"]
+        check(res == cpu[0], f"mesh engine {name}: results differ")
+        check(sched == cpu[1], f"mesh engine {name}: schedules differ")
+        check(det == cpu[2], f"mesh engine {name}: metrics differ")
+        check(all(np.array_equal(a[n], b[n]) for a, b in zip(leaves, cpu[3])
+                  for n in a) and len(leaves) == len(cpu[3]) == D,
+              f"mesh engine {name}: stacked leaves differ")
+        st = eng.stats()
+        if name == "grows_D2":
+            check(eng.grow_events > 0, "mesh engine grows_D2: no grow")
+        if name == "extendible_D2":
+            check(eng.split_events > 0 and eng.directory_doublings > 0
+                  and eng.grow_events == 0, f"mesh engine extendible_D2: "
+                  f"{eng.split_events} splits, {eng.directory_doublings} "
+                  f"doublings, {eng.grow_events} grows")
+        print(f"small_mesh {name}: {len(reqs)} requests, {eng.ticks} ticks, "
+              f"batch calls {eng.batch_calls}, grows {eng.grow_events}, "
+              f"splits {eng.split_events}, route caps "
+              f"{st['route_cap_totals']}; card equals CPU (results, "
+              f"schedule, metrics, stacked leaves of {D} shards)")
+    launches = read_launches(k)
+    print(f"small_mesh: {len(phases['probe'])} probe phases and "
+          f"{len(phases['delete'])} delete phases on the card, each ONE "
+          f"kernel launch for all shards; launches {launches}")
+    routed_one_shard(hashmap, HashMemConfig, k)
+    return launches
+
+
+def routed_one_shard(hashmap, HashMemConfig, k):
+    """probe_sharded, delete_sharded and insert_mesh at ``routing_cap``
+    with every key owned by shard 0 of 4, card against CPU; one launch a
+    probe and one a delete's find."""
+    import torch
+    from repro_torch.core import rlu
+    from repro_torch.launch.mesh import make_serving_mesh
+    D, sb = 4, "highbits"
+    cfg = HashMemConfig(num_buckets=64, slots_per_page=64, overflow_pages=64,
+                        max_chain=8)
+    cand = np.arange(1, 400_000, dtype=np.uint32)
+    hot = cand[rlu.owner_of_np(cand, cfg, D, sb) == 0][:3072]
+    keys, new = hot[:2048], hot[2048:]
+    q = np.concatenate([keys[:1024], new[:1024]])
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        mesh = make_serving_mesh(D, device=dev)
+        hs = hashmap.stack([hashmap.create(cfg, device=dev)
+                            for _ in range(D)])
+        hs, ok, cfg2 = rlu.insert_sharded(hs, keys, keys ^ 5, cfg, D,
+                                          shard_by=sb)
+        caps = [rlu.routing_cap(x, cfg2, D, sb) for x in (q, keys[:512], new)]
+        l0 = read_launches(k)
+        v, f = rlu.probe_sharded(mesh, hs, q, cfg2, cap=caps[0], shard_by=sb)
+        l1 = read_launches(k)
+        hs2, df = rlu.delete_sharded(mesh, hs, keys[:512], cfg2, cap=caps[1],
+                                     shard_by=sb)
+        l2 = read_launches(k)
+        hs3, iok = rlu.insert_mesh(mesh, hs2, new, new ^ 9, cfg2, cap=caps[2],
+                                   shard_by=sb)
+        runs[dev] = ([ok.cpu(), v.cpu(), f.cpu(), df.cpu(), iok.cpu()],
+                     hashmap.to_numpy(hs3), caps,
+                     [{n: b[n] - a[n] for n in a} for a, b in
+                      ((l0, l1), (l1, l2))])
+    (outs, leaves, caps, launched), cpu = runs["cuda"], runs["cpu"]
+    check(all(torch.equal(a, b) for a, b in zip(outs, cpu[0])),
+          "routed one-shard calls: card and CPU outputs differ")
+    check(all(np.array_equal(leaves[n], cpu[1][n]) for n in leaves),
+          "routed one-shard calls: card and CPU leaves differ")
+    check(caps == [len(q) // D, 128, 256],
+          f"routing_cap with every key on shard 0: {caps}")
+    ok, v, f, df, iok = outs
+    check(bool(ok.all()) and bool(f[:1024].all()) and not bool(f[1024:].any())
+          and bool(df.all()) and bool(iok.all()),
+          "routed one-shard calls: wrong results")
+    check(launched[0]["probe_perf"] == 1 and launched[1]["probe_perf"] == 1,
+          f"routed one-shard calls: launches {launched}")
+    print(f"routed_one_shard: every key on shard 0 of {D}: caps {caps} (= "
+          f"Q_local); probe_sharded, delete_sharded, insert_mesh on the card "
+          f"equal the CPU; launches: probe {launched[0]}, delete "
+          f"{launched[1]}")
+
+
+def mesh_path(serving, hashmap, k, data, smi, host_rate, host_results):
+    """Phase 9: the paper's 100M pairs in PAPER_HASHMEM cut four ways, 4
+    shards stacked on the card (``highbits``); the sharded probe of the 10M
+    paper probes, then the phase 8 stream through the mesh engine, fused at
+    depth 1 and 2 and unfused at depth 1.  Returns the launches of the
+    sharded probe and of the fused depth-1 run."""
+    import torch
+    from repro_torch.configs import PAPER_HASHMEM
+    from repro_torch.core import rlu
+    from repro_torch.core.hashing import as_u32
+    from repro_torch.launch.mesh import make_serving_mesh
+    probe_perf = k["probe_perf"]
+    D, sb = MESH_SHARDS, "highbits"
+    cfg = dataclasses.replace(PAPER_HASHMEM, num_buckets=MESH_BUCKETS,
+                              overflow_pages=MESH_OVERFLOW)
+    mesh = make_serving_mesh(D)
+    keys, vals, held_k = data["keys"], data["vals"], data["held_k"]
+    probes, pidx = data["probes"], data["pidx"]
+    t_phase = time.perf_counter()
+
+    # -- 1. the sharded probe ----------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    hs = hashmap.stack([hashmap.create(cfg) for _ in range(D)])
+    (hs, ok, cfg2), load_s = host_s(lambda: rlu.insert_sharded(
+        hs, keys, vals, cfg, D, shard_by=sb))
+    check(bool(ok.all()), f"insert_sharded refused {int((~ok).sum())} pairs")
+    check(cfg2 == cfg, "insert_sharded grew the shards")
+    st = [hashmap.stats(s) for s in hashmap.unstack(hs)]
+    check(sum(s["live_entries"] for s in st) == N_BUILD,
+          "the shards hold the wrong number of pairs")
+    print(f"mesh_load: {N_BUILD} pairs into {D} stacked shards through "
+          f"rlu.insert_sharded in {load_s:.3f} s; stacked pool "
+          f"{tuple(hs.store.pool.shape)} = "
+          f"{hs.store.pool.numel() * 4 / 1e9:.3f} GB; live a shard "
+          f"{[s['live_entries'] for s in st]}; max chain "
+          f"{max(s['max_chain'] for s in st)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    qd = as_u32(probes, "cuda")
+    cap = rlu.routing_cap(probes, cfg, D, sb)
+    reset_launches(k)
+    v, f = rlu.probe_sharded(mesh, hs, qd, cfg, cap=cap, shard_by=sb)
+    probe_launches = read_launches(k)
+    check(bool(f.all()), f"{int((~f).sum())} built keys not found")
+    check(np.array_equal(v.cpu().numpy().astype(np.uint32), vals[pidx]),
+          "sharded probe values differ from the dataset's")
+    check(probe_launches["probe_perf"] == 1,
+          f"the sharded probe launched {probe_launches}")
+    _, f = rlu.probe_sharded(mesh, hs, held_k, cfg, shard_by=sb)
+    check(not bool(f.any()), f"{int(f.sum())} never-inserted keys found")
+    ms = cuda_ms(lambda: rlu.probe_sharded(mesh, hs, qd, cfg, cap=cap,
+                                           shard_by=sb), TIMED_RUNS)
+    print(f"mesh_probe: {probes.size} probes through rlu.probe_sharded at cap "
+          f"{cap} (Q_local {probes.size // D}): all found with their values, "
+          f"{held_k.size} held-back keys none; launches {probe_launches}; "
+          f"{ms:.4f} ms = {probes.size / ms / 1e3:.1f} Mprobes/s (median of "
+          f"{TIMED_RUNS} after warm-up) against phase 4's hashmap.probe "
+          f"{host_rate:.1f} Mprobes/s; card: {smi}")
+    busy, wall, spans = profile_probe(
+        lambda: rlu.probe_sharded(mesh, hs, qd, cfg, cap=cap, shard_by=sb),
+        "rlu.probe_sharded", spans=MESH_SPANS)
+    rest = busy - sum(x for x in spans.values() if x is not None)
+    print("mesh_profile: device time by range "
+          + ", ".join(f"{n} {x:.4f} ms ({x / busy * 100:.1f}%)"
+                      if x is not None else f"{n} not in the trace"
+                      for n, x in spans.items())
+          + f", the rest {rest:.4f} ms; busy {busy:.4f} of wall "
+          f"{wall:.4f} ms")
+    del hs, qd, v, f, ok
+
+    # -- 2. the phase 8 stream through the mesh engine ----------------------
+    out_dir = ROOT / "build" / "serving"
+    pool_bytes = 2 * D * cfg.num_pages * cfg.slots_per_page * 8
+    runs = {}
+    for name, fused, depth in (("fused_d1", None, 1), ("fused_d2", None, 2),
+                               ("unfused_d1", False, 1)):
+        eng, reqs, load_s, svals = serving_engine(
+            serving, cfg, SERVE_WORKLOADS, SERVE_RECORDS, SERVE_REQUESTS, None,
+            mesh=mesh, max_slots=SERVE_SLOTS, pipeline_depth=depth,
+            fused_tick=fused, trace=serving.Tracer(capacity=1 << 19))
+        check(sum(hashmap.stats(s)["live_entries"] for s in eng.shards)
+              == len(SERVE_WORKLOADS) * SERVE_RECORDS, "mesh preload")
+        eng.profile_ticks(*SERVE_PROFILE, str(out_dir / f"mesh_{name}"))
+        reset_launches(k)
+        torch.cuda.reset_peak_memory_stats()
+        eng.submit_all(reqs)
+        snap, wall, per_tick, issue = drive_stream(eng, probe_perf)
+        launches = read_launches(k)
+        results = [r.results for r in reqs]
+        check(results == host_results, f"mesh {name}: a result differs from "
+              f"phase 8's host engine")
+        if name == "fused_d1":
+            dict_model_replay(eng.schedule, eng.tenants.space, svals)
+        path = out_dir / f"trace_mesh_{name}.json"
+        eng.export_trace(str(path), workloads=SERVE_WORKLOADS)
+        rep = subprocess.run(
+            [sys.executable, str(ROOT / "tools" / "trace_report.py"),
+             str(path), "--assert-spans", MESH_SERVE_SPANS[fused is None]],
+            capture_output=True, text=True, timeout=600)
+        check(rep.returncode == 0, f"trace_report refused the mesh {name} "
+              f"trace:\n{rep.stdout[-3000:]}{rep.stderr[-2000:]}")
+        for n_sync, launched, kinds in issue:
+            want = issue_launches_wanted(eng, kinds)
+            check(launched == want, f"mesh {name}: {launched} probe_perf "
+                  f"launches in an issue of {kinds}, want {want}")
+        runs[name] = dict(
+            results=results, schedule=eng.schedule, snap=snap, wall=wall,
+            per_tick=per_tick, issue=issue, launches=launches, load_s=load_s,
+            stats=eng.stats(), peak=torch.cuda.max_memory_allocated() / 2**30,
+            profile=device_profile(eng.profiler, eng.profile_seconds),
+            profile_ms=eng.profile_seconds * 1e3)
+        del eng, reqs, svals
+    first = runs["fused_d1"]
+    for name, r in runs.items():
+        check(r["results"] == first["results"]
+              and r["schedule"] == first["schedule"],
+              f"mesh {name}: results or schedule differ from fused_d1")
+    for name, r in runs.items():
+        snap, st = r["snap"], r["stats"]
+        ticks = len(r["per_tick"])
+        syncs = [s for _, _, s in r["per_tick"]]
+        n_issue = sum(i[0] for i in r["issue"])
+        if sum(syncs) == 0:
+            sync_note = "not measured (the debug mode reported none)"
+        else:
+            check(n_issue == 0, f"mesh {name}: the issue path synchronised "
+                  f"{n_issue} times")
+            sync_note = (f"{sum(syncs) / ticks:.3f} a tick, 0 in the issue "
+                         f"path")
+        ph = snap["phase_ms"]
+        print(f"mesh_serve_{name}: {snap['total_ops']} ops of "
+              f"{snap['requests_completed']} requests in {r['wall']:.3f} s = "
+              f"{snap['total_ops'] / r['wall']:.1f} ops/s (phase 8 host "
+              f"engine: see serve_depth1); preload {r['load_s']:.3f} s; "
+              f"{ticks} ticks; latency p50/p99 "
+              f"{snap['request_latency_ticks']['p50']:.0f}/"
+              f"{snap['request_latency_ticks']['p99']:.0f} ticks, "
+              f"{snap['request_latency_ms']['p50']:.3f}/"
+              f"{snap['request_latency_ms']['p99']:.3f} ms; stalls "
+              f"{st['pipeline']['stalls']}; batch calls {st['batch_calls']}; "
+              f"probe_perf launches {r['launches']['probe_perf']} = "
+              f"{r['launches']['probe_perf'] / ticks:.3f} a tick (in every "
+              f"issue one a probe phase and one a delete's find); "
+              f"synchronises "
+              f"{sync_note}; route_cap_totals {st['route_cap_totals']}; peak "
+              f"device memory {r['peak']:.2f} GiB")
+        print(f"mesh_phases_{name} (host ms mean/p50/p99 x count): "
+              + "; ".join(f"{n} {x['mean']:.3f}/{x['p50']:.3f}/"
+                          f"{x['p99']:.3f} x{x['count']}"
+                          for n, x in sorted(ph.items())))
+        busy, idle, rows, copies = r["profile"]
+        lo, hi = SERVE_PROFILE
+        writes = sum(kd in ("delete", "insert") for _, _, kinds in
+                     r["issue"][lo:hi] for kd in kinds)
+        check(copies, f"mesh {name}: the profile holds no pool copy")
+        print(f"mesh_profile_{name}: ticks [{lo}, {hi}): wall "
+              f"{r['profile_ms']:.3f} ms, device busy {busy:.3f} ms, idle "
+              f"share {idle * 100:.1f}%; {len(copies)} stacked-pool copies "
+              f"for {writes} write phases = "
+              f"{len(copies) / max(writes, 1):.3f} a write phase, "
+              f"{np.mean(copies):.4f} ms each ("
+              f"{pool_bytes / np.mean(copies) / 1e9:.2f} TB/s of "
+              f"{pool_bytes / 1e9:.3f} GB read and written; bound "
+              f"{pool_bytes / HBM_RATE * 1e3:.4f} ms)")
+        for ms_, count, key in rows:
+            print(f"  {ms_:9.3f} ms x{count:<5d} {key}")
+    print(f"mesh_time: phase 9 took {time.perf_counter() - t_phase:.3f} s; "
+          f"card: {smi}")
+    return probe_launches, first["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -1294,6 +1682,7 @@ def main() -> int:
     check_kernel_cases(k, ref, pack_bitplanes, load_width)
     check_small_tables_vs_cpu(hashmap, HashMemConfig)
     check_small_engines_vs_cpu(serving, hashmap, HashMemConfig, k)
+    check_small_mesh_vs_cpu(serving, hashmap, HashMemConfig, k)
 
     # -- 4. the perf path at PAPER_HASHMEM --------------------------------------
     cfg = PAPER_HASHMEM
@@ -1369,6 +1758,7 @@ def main() -> int:
                         TIMED_RUNS)
     perf_plain = cuda_ms(lambda: ref.probe_pages_ref(pool, qbits, pages), 3)
     e2e_ms = cuda_ms(lambda: hashmap.probe(hm, qd), TIMED_RUNS)
+    host_rate = probes.size / e2e_ms / 1e3
     print(f"timing: probe_perf {kernel_ms:.4f} ms for {probes.size} probes "
           f"(kernel equals plain, mismatches 0; needs {note}; "
           f"{nbytes / 1e9:.3f} GB in all, {nbytes / kernel_ms / 1e9:.2f} "
@@ -1542,10 +1932,15 @@ def main() -> int:
     data = dict(keys=keys, vals=vals, held_k=held_k, held_v=held_v,
                 probes=probes, pidx=pidx, qd=qd, qbits=qbits)
     d_path = displaced_path(hashmap, k, ref, data, smi)
-    del data, qd, qbits
+    del qd, qbits, data["qd"], data["qbits"]
 
     # -- 8. serving at paper scale ----------------------------------------------
-    s_path = serving_path(serving, hashmap, k, smi)
+    s_path, host_results = serving_path(serving, hashmap, k, smi)
+
+    # -- 9. the mesh path at paper scale -------------------------------------
+    m_probe, m_serve = mesh_path(serving, hashmap, k, data, smi, host_rate,
+                                 host_results)
+    del data, host_results
 
     replaces = {"probe_perf": "src/repro/kernels/probe_perf.py:34",
                 "probe_area": "src/repro/kernels/probe_area.py:32",
@@ -1554,6 +1949,8 @@ def main() -> int:
           "the displaced path never launched probe_perf")
     check(s_path["probe_perf"] > 0,
           "the serving path never launched probe_perf")
+    check(m_probe["probe_perf"] == 1 and m_serve["probe_perf"] > 0,
+          "the mesh path did not launch probe_perf")
     launches = {"probe_perf": perf_path["probe_perf"],
                 "probe_area": bs_path["probe_area"],
                 "probe_bitserial": bs_path["probe_bitserial"]}

@@ -31,13 +31,27 @@ it was.
 
 Entry points that make a table take ``device=None``, which means the card;
 only ``device="cpu"`` runs on the CPU.  Operations on a table run on the
-table's device.  The RLU layer's ``bucket_fn`` override is not ported yet
-(ROADMAP Queue 1 item 9).
+table's device.  The resize entry points take an optional ``bucket_fn(keys,
+cfg) -> bucket ids`` (``BucketFn``): keys are int64 tensors of uint32
+values, the ids an integer tensor on the keys' device.  The sharded RLU
+layer (``core/rlu.py``) passes the local bucket of its router there; None
+is ``hash_to_bucket``.
+
+A stacked table (``stack``) holds D shards of one config as one HashMem
+whose every leaf has a leading D axis, the form of the JAX package's
+stacked pytree.  ``insert_with_buckets``, ``delete_with_buckets`` and
+``probe_with_buckets`` take ``sh``, each entry's shard, for such a table:
+the pool is read as one ``(D * P, S, 2)`` pool, so a phase of all D shards
+launches each kernel once and its write makes one copy of the stacked
+pool.  A page id is clamped to its shard's ``[0, P - 1]`` before the
+shard's offset ``d * P`` is added.  The unstacked table runs the same code
+as a stack of one.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -56,6 +70,8 @@ I64 = torch.int64
 
 LEAVES = ("pool", "page_next", "page_fill", "free_top", "bucket_head")
 U32_LEAVES = ("pool", "planes", "fprints", "stash")
+
+BucketFn = Callable[[torch.Tensor, HashMemConfig], torch.Tensor]
 
 # (query, page) pairs the fingerprint pre-pass handles at a time: at the
 # paper's 12 planes of 16 words, 768 MB of gathered lane rows.
@@ -95,6 +111,72 @@ class HashMem:
     @property
     def free_top(self) -> torch.Tensor:    # () int32 pim_malloc bump pointer
         return self.store.free_top
+
+
+STORE_TENSORS = ("pool", "page_next", "page_fill", "free_top", "planes",
+                 "fprints", "stash", "stash_fill", "local_depth")
+
+
+def _map_leaves(hms: list, fn) -> HashMem:
+    """The HashMem whose every tensor leaf is ``fn`` of the same leaf of
+    each of ``hms`` (a list)."""
+    st0 = hms[0].store
+    kw = {n: fn([getattr(h.store, n) for h in hms]) for n in STORE_TENSORS
+          if getattr(st0, n) is not None}
+    return HashMem(store=dataclasses.replace(st0, **kw),
+                   bucket_head=fn([h.bucket_head for h in hms]),
+                   config=hms[0].config)
+
+
+def stack(shards: list) -> HashMem:
+    """D tables of one config -> one stacked table (a leading D axis on
+    every leaf, shard d at index d)."""
+    return _map_leaves(list(shards), torch.stack)
+
+
+def unstack(hm: HashMem) -> list:
+    """The shards of a stacked table, as views (no copy)."""
+    return [_map_leaves([hm], lambda ts, d=d: ts[0][d])
+            for d in range(hm.bucket_head.shape[0])]
+
+
+def _flat(st: layout.PageStore) -> layout.PageStore:
+    """A stacked store's pages as one store of D * P pages (views): pool,
+    planes, fingerprints, ``page_next`` and ``page_fill``; the per-shard
+    leaves keep their D axis."""
+    def flat(t):
+        return None if t is None else t.reshape((-1,) + tuple(t.shape[2:]))
+    return dataclasses.replace(
+        st, pool=flat(st.pool), planes=flat(st.planes),
+        fprints=flat(st.fprints), page_next=flat(st.page_next),
+        page_fill=flat(st.page_fill))
+
+
+def _unflat(st: layout.PageStore, D: int) -> layout.PageStore:
+    """Inverse of ``_flat``."""
+    def unflat(t):
+        return None if t is None else t.reshape((D, -1) + tuple(t.shape[1:]))
+    return dataclasses.replace(
+        st, pool=unflat(st.pool), planes=unflat(st.planes),
+        fprints=unflat(st.fprints), page_next=unflat(st.page_next),
+        page_fill=unflat(st.page_fill))
+
+
+def _global_pages(pages: torch.Tensor, sh: torch.Tensor, P: int):
+    """A stacked table's (N, C) schedule of shard-local page ids -> ids in
+    the ``(D * P)``-page pool: clamped to the shard's last page first, as
+    JAX's gathers clamp, then offset by ``sh * P``; -1 stays -1."""
+    off = (sh * P).to(I32)[:, None]
+    return torch.where(pages >= 0, pages.clamp(max=P - 1) + off, -1)
+
+
+def _stacked_call(fn, hm: HashMem, keys: torch.Tensor, *args):
+    """Run a stacked-table mutation ``fn(hm, keys, ..., sh=...)`` on an
+    unstacked table, as a stack of one (views, no copy)."""
+    one = _map_leaves([hm], lambda ts: ts[0].unsqueeze(0))
+    out, res = fn(one, keys, *args, sh=torch.zeros(
+        keys.numel(), dtype=I64, device=hm.device))
+    return _map_leaves([out], lambda ts: ts[0][0]), res
 
 
 def _check_resize(cfg: HashMemConfig):
@@ -180,10 +262,12 @@ def to_numpy(hm: HashMem) -> dict:
 
 
 def from_numpy(cfg: HashMemConfig, leaves: dict, device=None) -> HashMem:
-    """A HashMem from numpy leaves (e.g. ``np.asarray`` of a JAX table's)."""
+    """A HashMem from numpy leaves (e.g. ``np.asarray`` of a JAX table's),
+    or a stacked one from leaves with a leading shard axis."""
     check_config(cfg)
     dev = resolve_device(device)
     P, S = cfg.num_pages, cfg.slots_per_page
+    lead = np.shape(leaves["pool"])[:-3]
     want = {"pool": (P, S, 2), "page_next": (P,), "page_fill": (P,),
             "free_top": (), "bucket_head": (cfg.num_buckets,),
             "planes": (P, cfg.key_bits, S // 32),
@@ -193,9 +277,9 @@ def from_numpy(cfg: HashMemConfig, leaves: dict, device=None) -> HashMem:
     t = {}
     for name in leaf_names(cfg):
         a = np.asarray(leaves[name])
-        if a.shape != want[name]:
+        if a.shape != lead + want[name]:
             raise ValueError(f"leaf {name} has shape {a.shape}, the config "
-                             f"needs {want[name]}")
+                             f"needs {lead + want[name]}")
         a = a.astype(np.uint32).view(np.int32) if name in U32_LEAVES \
             else a.astype(np.int32)
         t[name] = torch.from_numpy(a).to(dev)
@@ -234,8 +318,8 @@ def build_with_buckets(cfg: HashMemConfig, keys, vals, b,
     k, v = as_u32(keys, dev), as_u32(vals, dev)
     b = torch.as_tensor(b, device=dev)
     if cfg.displacement:
-        hm, _ = _insert_displaced(create(cfg, dev), k, v, b,
-                                  valid=k != EMPTY_KEY)
+        hm, _ = insert_with_buckets(create(cfg, dev), k, v, b,
+                                    valid=k != EMPTY_KEY)
         return hm
     return _scatter_build(cfg, k, v, b, valid=None)
 
@@ -243,15 +327,16 @@ def build_with_buckets(cfg: HashMemConfig, keys, vals, b,
 def _segment_rank(bs: torch.Tensor, num_buckets: int):
     """Rank of each entry inside its run of equal ids in the sorted ``bs``
     (what ``searchsorted(bs, bs, side="left")`` gives), and the per-bucket
-    counts.  Ids >= num_buckets share one trailing run."""
-    bc = bs.clamp(max=num_buckets)
-    # scatter-add, not bincount, whose output size waits for the device
-    counts = torch.zeros(num_buckets + 1, dtype=I64,
-                         device=bs.device).scatter_add_(
-        0, bc, torch.ones_like(bc))
-    start = (torch.cumsum(counts, 0) - counts)[bc]
-    rank = torch.arange(bs.numel(), device=bs.device) - start
-    return rank, counts[:num_buckets]
+    counts.  Ids >= num_buckets share one trailing run.  The run starts
+    come from one ``searchsorted`` of the ids 0..num_buckets: no atomics
+    (a scatter-add into few runs serializes on them), and no output size
+    that waits for the device, as ``bincount``'s does."""
+    bc = bs.clamp(max=num_buckets).contiguous()
+    start = torch.searchsorted(bc, torch.arange(num_buckets + 2,
+                                                dtype=bc.dtype,
+                                                device=bs.device))
+    rank = torch.arange(bs.numel(), device=bs.device) - start[bc]
+    return rank, start[1:num_buckets + 1] - start[:num_buckets]
 
 
 def _scatter_build(cfg: HashMemConfig, keys: torch.Tensor, vals: torch.Tensor,
@@ -332,10 +417,16 @@ def build_check(cfg: HashMemConfig, keys) -> dict:
 # RLU command-stream resolution (paper §2.3: RLU locates subarray rows)
 # ---------------------------------------------------------------------------
 
-def _next(hm: HashMem, page: torch.Tensor) -> torch.Tensor:
+def _lane(t: torch.Tensor, idx: torch.Tensor, sh=None) -> torch.Tensor:
+    """``t[idx]``, or ``t[sh, idx]`` on a stacked table."""
+    return t[idx] if sh is None else t[sh, idx]
+
+
+def _next(hm: HashMem, page: torch.Tensor, sh=None) -> torch.Tensor:
     """page_next of each page, -1 for a -1 page.  A page id past the pool
     reads the last entry, as JAX's clamped gather does."""
-    nxt = hm.page_next[page.to(I64).clamp(0, hm.config.num_pages - 1)]
+    nxt = _lane(hm.page_next,
+                page.to(I64).clamp(0, hm.config.num_pages - 1), sh)
     return torch.where(page >= 0, nxt, -1)
 
 
@@ -347,11 +438,15 @@ def resolve_pages(hm: HashMem, queries) -> torch.Tensor:
     return resolve_pages_by_bucket(hm, b)
 
 
-def resolve_pages_by_bucket(hm: HashMem, b) -> torch.Tensor:
-    page = hm.bucket_head[torch.as_tensor(b, device=hm.device).to(I64)]
+def resolve_pages_by_bucket(hm: HashMem, b, sh=None) -> torch.Tensor:
+    """Bucket ids (Q,) -> (Q, max_chain) int32 page ids of their chains,
+    -1 padded; on a stacked table each on its shard ``sh``, in the
+    shard's own page ids."""
+    page = _lane(hm.bucket_head,
+                 torch.as_tensor(b, device=hm.device).to(I64), sh)
     cols = [page]
     for _ in range(hm.config.max_chain - 1):
-        page = _next(hm, page)
+        page = _next(hm, page, sh)
         cols.append(page)
     return torch.stack(cols, dim=1).to(I32)
 
@@ -377,7 +472,8 @@ def max_chain_len(hm: HashMem) -> int:
 # Probe / insert / delete
 # ---------------------------------------------------------------------------
 
-def resolve_pages_displaced(hm: HashMem, queries, b1=None) -> torch.Tensor:
+def resolve_pages_displaced(hm: HashMem, queries, b1=None,
+                            sh=None) -> torch.Tensor:
     """Displaced page schedule (Q, max_chain + 1) int32: [H1 direct page] +
     [H2 chain], -1 padded.
 
@@ -392,8 +488,8 @@ def resolve_pages_displaced(hm: HashMem, queries, b1=None) -> torch.Tensor:
         b1 = hash_to_bucket(q, cfg.num_buckets, cfg.hash_fn, cfg.salt)
     b2 = hash_to_bucket2(q, cfg.num_buckets, cfg.hash_fn, cfg.salt)
     b1 = torch.as_tensor(b1, device=hm.device).to(I64)
-    direct = hm.bucket_head[b1][:, None]                       # (Q, 1)
-    chain = resolve_pages_by_bucket(hm, b2)                    # (Q, C)
+    direct = _lane(hm.bucket_head, b1, sh)[:, None]            # (Q, 1)
+    chain = resolve_pages_by_bucket(hm, b2, sh)                # (Q, C)
     head = torch.where(chain[:, :1] == direct, -1, chain[:, :1])
     return torch.cat([direct, head, chain[:, 1:]], dim=1).to(I32)
 
@@ -451,21 +547,48 @@ def _stash_first(stash: torch.Tensor, qbits: torch.Tensor):
     return hit, torch.where(hit, order[pos], 0)
 
 
-def stash_probe(store: layout.PageStore, queries):
+def _stash_first_of(stash: torch.Tensor, qbits: torch.Tensor, sh=None):
+    """``_stash_first``; on a stacked table's (D, T, 2) stash each query
+    searches its shard's."""
+    if sh is None:
+        return _stash_first(stash, qbits)
+    hit = torch.zeros_like(qbits, dtype=torch.bool)
+    idx = torch.zeros_like(qbits, dtype=I64)
+    for d in range(stash.shape[0]):
+        h, i = _stash_first(stash[d], qbits)
+        mine = sh == d
+        hit = torch.where(mine, h, hit)
+        idx = torch.where(mine, i, idx)
+    return hit, idx
+
+
+def stash_probe(store: layout.PageStore, queries, sh=None):
     """(values (Q,) int64, found (Q,) bool) against the stash only: the
     whole stash is compared, with zero row activations (the stash is
     register-resident by design)."""
     q = to_bits(as_u32(queries, store.pool.device))
-    hit, idx = _stash_first(store.stash, q)
-    sv = from_bits(store.stash[idx, layout.VAL_LANE])
+    hit, idx = _stash_first_of(store.stash, q, sh)
+    sv = from_bits(_lane(store.stash[..., layout.VAL_LANE], idx, sh))
     return torch.where(hit, sv, 0), hit
 
 
-def _schedule(hm: HashMem, q: torch.Tensor, b) -> torch.Tensor:
+def _schedule(hm: HashMem, q: torch.Tensor, b, sh=None) -> torch.Tensor:
     """The probe's page schedule: displaced or chained."""
     if hm.config.displacement:
-        return resolve_pages_displaced(hm, q, b)
-    return resolve_pages_by_bucket(hm, b)
+        return resolve_pages_displaced(hm, q, b, sh)
+    return resolve_pages_by_bucket(hm, b, sh)
+
+
+def _pool_schedule(hm: HashMem, q: torch.Tensor, b, sh=None):
+    """(store, schedule, local schedule): the store the kernels read and
+    the schedule in its page ids.  On a stacked table that is the flat
+    ``(D * P)``-page store (``_flat``) and the schedule through
+    ``_global_pages``; the local schedule is in each shard's own ids."""
+    pages = _schedule(hm, q, b, sh)
+    if sh is None:
+        return hm.store, pages, pages
+    return (_flat(hm.store),
+            _global_pages(pages, sh, hm.config.num_pages), pages)
 
 
 def probe(hm: HashMem, queries, backend=None):
@@ -477,8 +600,9 @@ def probe(hm: HashMem, queries, backend=None):
     return probe_with_buckets(hm, q, b, backend)
 
 
-def probe_with_buckets(hm: HashMem, queries, b, backend=None):
-    """``probe`` with caller-supplied H1 bucket ids.
+def probe_with_buckets(hm: HashMem, queries, b, backend=None, sh=None):
+    """``probe`` with caller-supplied H1 bucket ids (on a stacked table,
+    each query's shard ``sh``: one kernel launch for all shards).
 
     Resolve the page schedule (displaced or chained), drop the pages the
     fingerprint lane rules out, hand the rest to the backend, then fold in
@@ -490,16 +614,16 @@ def probe_with_buckets(hm: HashMem, queries, b, backend=None):
     from repro_torch.core.probe import probe_pages
     q = as_u32(queries, hm.device)
     with record_function("probe.schedule"):
-        pages = _schedule(hm, q, b)
-    if hm.store.fprints is not None:
+        store, pages, _ = _pool_schedule(hm, q, b, sh)
+    if store.fprints is not None:
         with record_function("probe.fp_filter"):
-            pages = _fp_filter(hm.store, q, pages)
+            pages = _fp_filter(store, q, pages)
     with record_function("probe.kernel"):
-        vals, found = probe_pages(hm, to_bits(q), pages,
+        vals, found = probe_pages(store, to_bits(q), pages,
                                   backend or hm.config.backend)
     if hm.store.stash is not None:
         with record_function("probe.stash"):
-            sv, sf = stash_probe(hm.store, q)
+            sv, sf = stash_probe(hm.store, q, sh)
             vals = torch.where(found, vals, sv)
             found = found | sf
     return vals, found
@@ -538,22 +662,42 @@ def rows_activated_per_probe(hm: HashMem, queries,
 
 
 def _with_spare(lane: torch.Tensor) -> torch.Tensor:
-    """A copy of a (P,) page lane with one spare entry at P, for scatters
+    """A copy of a (P, ...) lane with one spare entry at P, for scatters
     whose dropped updates go there."""
-    return torch.cat([lane, lane.new_zeros(1)])
+    return torch.cat([lane, lane.new_zeros((1,) + tuple(lane.shape[1:]))])
 
 
-def _chain_tails(hm: HashMem, b: torch.Tensor):
-    """Per-key chain tail page, tail fill and chain length (bounded walk)."""
+def _at(sh: torch.Tensor, idx: torch.Tensor, n: int, D: int) -> torch.Tensor:
+    """Index ``sh * n + idx`` into a stacked lane of D blocks of ``n``
+    flattened with one spare entry at ``D * n``; ``idx`` outside [0, n)
+    goes to the spare entry (a dropped write)."""
+    ok = (idx >= 0) & (idx < n)
+    return torch.where(ok, sh * n + idx, D * n)
+
+
+def _segment_counts(sh: torch.Tensor, x: torch.Tensor, D: int):
+    """Per-shard sums of ``x`` over entries sorted by shard ``sh``, and
+    each entry's sum over earlier shards: an inclusive cumsum read at the
+    shard boundaries (``searchsorted``), without atomics."""
+    csum = torch.cumsum(torch.cat([x.new_zeros(1), x]).to(I64), 0)
+    ends = torch.searchsorted(sh.contiguous(), torch.arange(
+        D + 1, dtype=sh.dtype, device=sh.device))
+    at = csum[ends]                               # sum before shard d
+    return at[1:] - at[:-1], at[sh]
+
+
+def _chain_tails(hm: HashMem, b: torch.Tensor, sh: torch.Tensor):
+    """Per-key chain tail page, tail fill and chain length (bounded walk)
+    on a stacked table."""
     last = hm.config.num_pages - 1
-    tail = hm.bucket_head[b]
+    tail = hm.bucket_head[sh, b]
     clen = torch.ones_like(tail)
     for _ in range(hm.config.max_chain - 1):
-        nxt = hm.page_next[tail.to(I64).clamp(0, last)]
+        nxt = hm.page_next[sh, tail.to(I64).clamp(0, last)]
         has = nxt >= 0
         tail = torch.where(has, nxt, tail)
         clen = clen + has.to(I32)
-    return tail, hm.page_fill[tail.to(I64).clamp(0, last)], clen
+    return tail, hm.page_fill[sh, tail.to(I64).clamp(0, last)], clen
 
 
 def insert(hm: HashMem, keys, vals, valid=None):
@@ -572,24 +716,30 @@ def insert(hm: HashMem, keys, vals, valid=None):
     return insert_with_buckets(hm, k, vals, b, valid)
 
 
-def insert_with_buckets(hm: HashMem, keys, vals, b, valid=None):
+def insert_with_buckets(hm: HashMem, keys, vals, b, valid=None, sh=None):
     """``insert`` with caller-supplied bucket ids: the displaced path
     (H1 direct, H2 chain, stash) under ``config.displacement``, else the
-    chained append."""
+    chained append.  On a stacked table ``sh`` gives each element's shard:
+    each shard takes its elements in batch order, from its own arena."""
     dev = hm.device
     if valid is not None:
         valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
     run = _insert_displaced if hm.config.displacement else _insert_chained
-    return run(hm, as_u32(keys, dev), as_u32(vals, dev),
-               torch.as_tensor(b, device=dev), valid)
+    args = (as_u32(keys, dev), as_u32(vals, dev),
+            torch.as_tensor(b, device=dev), valid)
+    if sh is None:
+        return _stacked_call(run, hm, *args)
+    return run(hm, *args, sh=torch.as_tensor(sh, device=dev).to(I64))
 
 
 def _insert_chained(hm: HashMem, keys: torch.Tensor, vals: torch.Tensor,
-                    b: torch.Tensor, valid=None):
-    """Chain-append insert at the buckets' existing tails: one fused
-    key/value pool write, the fill high-water max and the chain-link set."""
+                    b: torch.Tensor, valid, sh: torch.Tensor):
+    """Chain-append insert at the buckets' existing tails of a stacked
+    table: one fused key/value pool write, the fill high-water max and the
+    chain-link set."""
     cfg = hm.config
     S, nb, P = cfg.slots_per_page, cfg.num_buckets, cfg.num_pages
+    D = hm.bucket_head.shape[0]
     b = b.to(I64)
     if valid is not None:
         b = torch.where(valid, b, nb)                # pads sort to the end
@@ -598,65 +748,68 @@ def _insert_chained(hm: HashMem, keys: torch.Tensor, vals: torch.Tensor,
         # the directory aliases of one group must form ONE sort segment
         # below, or two of them would append at the same tail slots.
         # Probe and delete need no fold: the aliases share the chain.
-        heads = hm.bucket_head[b.clamp(max=nb - 1)].to(I64)
-        mask = (1 << hm.store.local_depth[heads].to(I64)) - 1
+        heads = hm.bucket_head[sh, b.clamp(max=nb - 1)].to(I64)
+        mask = (1 << hm.store.local_depth[sh, heads].to(I64)) - 1
         b = torch.where(b < nb, b & mask, b)
 
     # clamped gather: dropped entries read bucket 0's tail, never used
-    tail, fill, clen = _chain_tails(hm, b.clamp(max=nb - 1))
+    tail, fill, clen = _chain_tails(hm, b.clamp(max=nb - 1), sh)
 
-    # stable sort by bucket keeps intra-bucket batch order (duplicate keys
-    # land in insertion order, matching sequential semantics)
-    order = torch.argsort(b, stable=True)
-    bs, ks, vs = b[order], to_bits(keys)[order], to_bits(vals)[order]
+    # stable sort by (shard, bucket) keeps intra-bucket batch order
+    # (duplicate keys land in insertion order, matching sequential
+    # semantics); each shard's pads sort to the end of its run
+    seg = sh * (nb + 1) + b
+    order = torch.argsort(seg, stable=True)
+    seg, bs, shs = seg[order], b[order], sh[order]
+    ks, vs = to_bits(keys)[order], to_bits(vals)[order]
     tails, fills, clens = (tail[order].to(I64), fill[order].to(I64),
                            clen[order].to(I64))
     dropped = bs >= nb
 
-    rank, _ = _segment_rank(bs, nb)
+    rank, _ = _segment_rank(seg, D * (nb + 1))
     pos = fills + rank                               # position past the tail start
     depth = pos // S                                 # 0 = existing tail page
     slot = pos % S
 
-    # pim_malloc: every chain-admissible page start claims the next arena
-    # page, in sorted (bucket) order -- one cumsum, no per-bucket arrays
+    # pim_malloc: every chain-admissible page start claims the next page of
+    # its shard's arena, in sorted (bucket) order -- one cumsum, no
+    # per-bucket arrays
     ok_chain = (clens + depth <= cfg.max_chain) & ~dropped    # RLU depth bound
     is_new_page = ok_chain & (depth >= 1) & (slot == 0)
-    page_idx = torch.cumsum(is_new_page.to(I64), 0) - 1       # shared along page
+    new_pages, before = _segment_counts(shs, is_new_page, D)
+    page_idx = torch.cumsum(is_new_page.to(I64), 0) - 1 - before
     free_top = hm.free_top.to(I64)
-    new_id = free_top + page_idx
-    n_fit = torch.minimum((P - free_top).clamp(min=0), is_new_page.sum())
+    new_id = free_top[shs] + page_idx
+    n_fit = torch.minimum((P - free_top).clamp(min=0), new_pages)
     ok = torch.where(depth == 0, ~dropped, ok_chain & (new_id < P))
     page = torch.where(depth == 0, tails, new_id)
-    wp = torch.where(ok, page, P)                    # OOB drop if !ok
+    wp = _at(shs, torch.where(ok, page, P), P, D)    # dropped if !ok
 
-    store = hm.store.write_slots(wp, slot, ks, vs)   # fused k+v scatter
-    # page_fill and page_next get one spare entry P that takes the dropped
+    # page_fill and page_next get one spare entry that takes the dropped
     # updates (and a tail past the pool, which an overflowed build links),
     # so no data-dependent mask waits for the device
-    fill = _with_spare(store.page_fill)
-    store.page_fill = fill.scatter_reduce_(
-        0, wp.clamp(max=P), (slot + 1).to(I32), reduce="amax")[:P]
+    store = _flat(hm.store).write_slots(wp, slot, ks, vs)  # fused k+v scatter
+    store.page_fill = _with_spare(store.page_fill).scatter_reduce_(
+        0, wp, (slot + 1).to(I32), reduce="amax")[:D * P]
 
     # chain links: first element on each newly allocated page links prev -> page
     is_link = ok & (depth >= 1) & (slot == 0)
     prev = torch.where(depth == 1, tails, page - 1)
-    link_idx = torch.where(is_link, prev, P)
-    lk = (link_idx >= 0) & (link_idx < P)
     nxt = _with_spare(store.page_next)
-    nxt[torch.where(lk, link_idx, P)] = page.to(I32)
-    store.page_next = nxt[:P]
+    nxt[_at(shs, torch.where(is_link, prev, P), P, D)] = page.to(I32)
+    store.page_next = nxt[:D * P]
     store.free_top = (free_top + n_fit).to(I32)
 
     ok_orig = torch.empty_like(ok)
     ok_orig[order] = ok                              # inverse permutation
-    return HashMem(store=store, bucket_head=hm.bucket_head,
+    return HashMem(store=_unflat(store, D), bucket_head=hm.bucket_head,
                    config=cfg), ok_orig
 
 
 def _insert_displaced(hm: HashMem, keys: torch.Tensor, vals: torch.Tensor,
-                      b1: torch.Tensor, valid=None):
-    """IcebergHT-style displaced insert, in three rounds:
+                      b1: torch.Tensor, valid, sh: torch.Tensor):
+    """IcebergHT-style displaced insert into a stacked table, in three
+    rounds:
 
       1. the H1 direct page only: a fill-ranked append into the bucket's
          own row while it has room (no allocation, no links);
@@ -670,55 +823,65 @@ def _insert_displaced(hm: HashMem, keys: torch.Tensor, vals: torch.Tensor,
     the oldest duplicate."""
     cfg = hm.config
     S, nb, P = cfg.slots_per_page, cfg.num_buckets, cfg.num_pages
+    D = hm.bucket_head.shape[0]
     valid_all = torch.ones_like(keys, dtype=torch.bool) if valid is None \
         else valid
 
     # -- round 1: H1 direct page, fill only --------------------------------
     b = torch.where(valid_all, b1.to(I64), nb)          # pads sort to the end
-    order = torch.argsort(b, stable=True)
-    bs = b[order]
+    seg = sh * (nb + 1) + b
+    order = torch.argsort(seg, stable=True)
+    seg, bs, shs = seg[order], b[order], sh[order]
     del b
-    head = hm.bucket_head[bs.clamp(max=nb - 1)].to(I64)
-    pos = hm.page_fill[head].to(I64) + _segment_rank(bs, nb)[0]
+    head = hm.bucket_head[shs, bs.clamp(max=nb - 1)].to(I64)
+    pos = hm.page_fill[shs, head].to(I64) \
+        + _segment_rank(seg, D * (nb + 1))[0]
     ok1s = (pos < S) & (bs < nb)
-    del bs
-    wp = torch.where(ok1s, head, P)                     # OOB drop if !ok
+    del bs, seg
+    wp = _at(shs, torch.where(ok1s, head, P), P, D)     # dropped if !ok
     slot = pos.clamp(max=S - 1)
-    del head, pos
-    store = hm.store.write_slots(wp, slot, to_bits(keys)[order],
-                                 to_bits(vals)[order])
-    keep = wp < P
-    store.page_fill = store.page_fill.clone().scatter_reduce_(
-        0, wp[keep], (slot + 1)[keep].to(I32), reduce="amax")
-    del wp, slot, keep
+    del head, pos, shs
+    store = _flat(hm.store).write_slots(wp, slot, to_bits(keys)[order],
+                                        to_bits(vals)[order])
+    store.page_fill = _with_spare(store.page_fill).scatter_reduce_(
+        0, wp, (slot + 1).to(I32), reduce="amax")[:D * P]
+    del wp, slot
     ok1 = torch.empty_like(ok1s)
     ok1[order] = ok1s                                   # inverse permutation
     del order, ok1s
-    hm1 = HashMem(store=store, bucket_head=hm.bucket_head, config=cfg)
+    hm1 = HashMem(store=_unflat(store, D), bucket_head=hm.bucket_head,
+                  config=cfg)
 
     # -- round 2: chain the residue at H2 ----------------------------------
     # only the residue goes in: the entries JAX passes with valid=False sort
     # after it, write nothing and claim no page, so the state is the same
     res = torch.nonzero(valid_all & ~ok1).squeeze(1)
     b2 = hash_to_bucket2(keys[res], nb, cfg.hash_fn, cfg.salt)
-    hm2, ok2_res = _insert_chained(hm1, keys[res], vals[res], b2)
+    hm2, ok2_res = _insert_chained(hm1, keys[res], vals[res], b2, None,
+                                   sh[res])
     ok2 = torch.zeros_like(ok1)
     ok2[res] = ok2_res
 
-    # -- round 3: the stash takes the rest, in batch (age) order -----------
+    # -- round 3: each shard's stash takes the rest, in batch (age) order --
     st = hm2.store
     if st.stash is None:
         return hm2, ok1 | ok2
-    T = st.stash.shape[0]
+    T = st.stash.shape[1]
     valid3 = valid_all & ~ok1 & ~ok2
-    pos3 = st.stash_fill.to(I64) + torch.cumsum(valid3.to(I64), 0) \
-        - valid3.to(I64)
+    by_shard = torch.argsort(sh, stable=True)
+    shs, v3 = sh[by_shard], valid3[by_shard].to(I64)
+    _, before = _segment_counts(shs, v3, D)
+    pos3 = torch.empty_like(v3)
+    pos3[by_shard] = st.stash_fill.to(I64)[shs] + torch.cumsum(v3, 0) - v3 \
+        - before
     ok3 = valid3 & (pos3 < T)
-    stash = st.stash.clone()
-    stash[pos3[ok3]] = torch.stack([to_bits(keys), to_bits(vals)],
-                                   dim=-1)[ok3]
+    stash = _with_spare(st.stash.reshape(D * T, 2))
+    stash[_at(sh, torch.where(ok3, pos3, T), T, D)] = torch.stack(
+        [to_bits(keys), to_bits(vals)], dim=-1)
+    placed, _ = _segment_counts(shs, ok3[by_shard], D)
     store = dataclasses.replace(
-        st, stash=stash, stash_fill=(st.stash_fill + ok3.sum()).to(I32))
+        st, stash=stash[:D * T].view(D, T, 2),
+        stash_fill=(st.stash_fill + placed).to(I32))
     return HashMem(store=store, bucket_head=hm2.bucket_head,
                    config=cfg), ok1 | ok2 | ok3
 
@@ -734,8 +897,10 @@ def delete(hm: HashMem, keys):
     return delete_with_buckets(hm, q, b)
 
 
-def delete_with_buckets(hm: HashMem, keys, b):
-    """``delete`` with caller-supplied (H1) bucket ids.
+def delete_with_buckets(hm: HashMem, keys, b, sh=None):
+    """``delete`` with caller-supplied (H1) bucket ids; on a stacked table
+    ``sh`` gives each query's shard, and the find is one kernel launch for
+    all shards.
 
     The JAX package finds the first match with a full 32-bit key compare
     over a (Q, C, S) gather of the schedule's rows, whatever the table's
@@ -745,44 +910,63 @@ def delete_with_buckets(hm: HashMem, keys, b):
     one JAX's argmax picks.  A displaced table searches its displaced
     schedule, then the stash for queries with no pool match; a stash hit
     rewrites that stash key to TOMBSTONE."""
+    dev = hm.device
+    q = as_u32(keys, dev)
+    b = torch.as_tensor(b, device=dev)
+    if sh is None:
+        return _stacked_call(_delete_stacked, hm, q, b)
+    return _delete_stacked(hm, q, b, sh=torch.as_tensor(sh, device=dev)
+                           .to(I64))
+
+
+def _delete_stacked(hm: HashMem, q: torch.Tensor, b: torch.Tensor,
+                    sh: torch.Tensor):
     from repro_torch.core.probe import probe_lanes
     cfg = hm.config
-    q = to_bits(as_u32(keys, hm.device))
-    pages = _schedule(hm, from_bits(q), b)
-    out = probe_lanes(hm.store, q, pages, _full_key_backend(cfg))
+    P, D = cfg.num_pages, hm.bucket_head.shape[0]
+    qb = to_bits(q)
+    flat, pages, local = _pool_schedule(hm, q, b, sh)
+    out = probe_lanes(flat, qb, pages, _full_key_backend(cfg))
     found = out[:, 1] != 0
-    pg, s = out[:, 2].to(I64), out[:, 3].to(I64)
-    wp = torch.where(found, pg, cfg.num_pages)                  # OOB drop
-    store = hm.store.write_keys(wp, s, torch.full_like(q, TOMBSTONE_BITS),
-                                plane_pages=_dedup_plane_pages(hm, found,
-                                                               pg, s))
+    # the matched page in the shard's own ids: a page id past the pool was
+    # read as the shard's last page, and JAX drops the write to it
+    col = ((pages == out[:, 2:3]) & (pages >= 0)).to(torch.uint8).argmax(1)
+    pg = local.gather(1, col[:, None])[:, 0].to(I64)
+    s = out[:, 3].to(I64)
+    wp = _at(sh, torch.where(found, pg, P), P, D)
+    store = flat.write_keys(wp, s, torch.full_like(qb, TOMBSTONE_BITS),
+                            plane_pages=_dedup_plane_pages(flat, found, wp,
+                                                           s))
     if cfg.displacement and store.stash is not None:
-        hit, idx = _stash_first(store.stash, q)
+        T = store.stash.shape[1]
+        hit, idx = _stash_first_of(store.stash, qb, sh)
         hit &= ~found
-        store.stash = store.stash.clone()
-        store.stash[idx[hit], layout.KEY_LANE] = TOMBSTONE_BITS
+        stash = _with_spare(store.stash[..., layout.KEY_LANE].reshape(-1))
+        stash[_at(sh, torch.where(hit, idx, T), T, D)] = TOMBSTONE_BITS
+        store.stash = torch.stack([stash[:D * T].view(D, T),
+                                   store.stash[..., layout.VAL_LANE]], -1)
         found = found | hit
-    return HashMem(store=store, bucket_head=hm.bucket_head,
+    return HashMem(store=_unflat(store, D), bucket_head=hm.bucket_head,
                    config=cfg), found
 
 
-def _dedup_plane_pages(hm: HashMem, found, pg, s):
+def _dedup_plane_pages(store: layout.PageStore, found, pg, s):
     """Page ids for the bit-plane and fingerprint updates of a tombstone
     batch: duplicate queries target one (page, slot), and only its first is
-    kept, so that the update sets each bit once; None when the table keeps
+    kept, so that the update sets each bit once; None when the store keeps
     neither packed lane."""
-    cfg = hm.config
-    if (hm.planes is None and hm.store.fprints is None) \
+    if (store.planes is None and store.fprints is None) \
             or found.numel() == 0:
         return None
-    flat = torch.where(found, pg * cfg.slots_per_page + s, -1)
+    P, S = store.pool.shape[:2]
+    flat = torch.where(found, pg * S + s, -1)
     o = torch.argsort(flat, stable=True)
     fs = flat[o]
     first = torch.ones_like(found)
     first[1:] = fs[1:] != fs[:-1]
     uniq = torch.empty_like(found)
     uniq[o] = first
-    return torch.where(found & uniq, pg, cfg.num_pages)
+    return torch.where(found & uniq, pg, P)
 
 
 def insert_scan(hm: HashMem, keys, vals):
@@ -854,7 +1038,17 @@ def _write_key_bits(planes: torch.Tensor, page: int, slot: int, key: int,
 # Dynamic resizing (grow / compact / auto-grow policy)
 # ---------------------------------------------------------------------------
 
-def _rebuild(hm: HashMem, new_cfg: HashMemConfig) -> HashMem:
+def _buckets(keys: torch.Tensor, cfg: HashMemConfig,
+             bucket_fn: Optional[BucketFn]) -> torch.Tensor:
+    """H1 bucket ids of ``keys`` under ``cfg``: ``bucket_fn`` when given,
+    else ``hash_to_bucket``."""
+    if bucket_fn is None:
+        return hash_to_bucket(keys, cfg.num_buckets, cfg.hash_fn, cfg.salt)
+    return bucket_fn(keys, cfg)
+
+
+def _rebuild(hm: HashMem, new_cfg: HashMemConfig,
+             bucket_fn: Optional[BucketFn] = None) -> HashMem:
     """Re-bucket every live entry into a fresh arena under ``new_cfg``.
 
     Flat (page-major) slot order IS chain order per bucket (page ids
@@ -862,18 +1056,18 @@ def _rebuild(hm: HashMem, new_cfg: HashMemConfig) -> HashMem:
     same-key duplicates keep their relative order: probe and delete
     semantics survive the rebuild."""
     if hm.config.displacement:
-        return _rebuild_displaced(hm, new_cfg)
+        return _rebuild_displaced(hm, new_cfg, bucket_fn)
     flat = hm.store.pool.reshape(-1, 2)
     kbits = flat[:, layout.KEY_LANE]
     live = (kbits != EMPTY_BITS) & (kbits != TOMBSTONE_BITS)
     keys = from_bits(kbits)
-    b = hash_to_bucket(keys, new_cfg.num_buckets, new_cfg.hash_fn,
-                       new_cfg.salt)
+    b = _buckets(keys, new_cfg, bucket_fn)
     return _scatter_build(new_cfg, keys, from_bits(flat[:, layout.VAL_LANE]),
                           b, valid=live)
 
 
-def _rebuild_displaced(hm: HashMem, new_cfg: HashMemConfig) -> HashMem:
+def _rebuild_displaced(hm: HashMem, new_cfg: HashMemConfig,
+                       bucket_fn: Optional[BucketFn] = None) -> HashMem:
     """Displaced rebuild: replay every live entry through the displaced
     insert, oldest placement class first.
 
@@ -888,8 +1082,7 @@ def _rebuild_displaced(hm: HashMem, new_cfg: HashMemConfig) -> HashMem:
     cfg = hm.config
     flat = hm.store.pool.reshape(-1, 2)
     idx = torch.nonzero(_live(flat[:, layout.KEY_LANE])).squeeze(1)
-    b_old = hash_to_bucket(from_bits(flat[idx, layout.KEY_LANE]),
-                           cfg.num_buckets, cfg.hash_fn, cfg.salt)
+    b_old = _buckets(from_bits(flat[idx, layout.KEY_LANE]), cfg, bucket_fn)
     was_chained = (idx // cfg.slots_per_page != b_old).to(torch.uint8)
     del b_old
     idx = idx[torch.argsort(was_chained, stable=True)]
@@ -901,13 +1094,13 @@ def _rebuild_displaced(hm: HashMem, new_cfg: HashMemConfig) -> HashMem:
         st = hm.store.stash[_live(hm.store.stash[:, layout.KEY_LANE])]
         ks = torch.cat([ks, from_bits(st[:, layout.KEY_LANE])])
         vs = torch.cat([vs, from_bits(st[:, layout.VAL_LANE])])
-    b1 = hash_to_bucket(ks, new_cfg.num_buckets, new_cfg.hash_fn,
-                        new_cfg.salt)
-    hm2, _ = _insert_displaced(create(new_cfg, hm.device), ks, vs, b1)
+    b1 = _buckets(ks, new_cfg, bucket_fn)
+    hm2, _ = insert_with_buckets(create(new_cfg, hm.device), ks, vs, b1)
     return hm2
 
 
-def grow(hm: HashMem, factor=None) -> HashMem:
+def grow(hm: HashMem, factor=None,
+         bucket_fn: Optional[BucketFn] = None) -> HashMem:
     """Rehash into a ``factor``x larger arena (default
     config.growth_factor): num_buckets and overflow_pages both scale, all
     live entries are re-bucketed, chains and bit-planes are rebuilt.
@@ -916,22 +1109,22 @@ def grow(hm: HashMem, factor=None) -> HashMem:
     f = factor or cfg.growth_factor
     new_cfg = dataclasses.replace(cfg, num_buckets=cfg.num_buckets * f,
                                   overflow_pages=cfg.overflow_pages * f)
-    return _rebuild(hm, new_cfg)
+    return _rebuild(hm, new_cfg, bucket_fn)
 
 
-def compact(hm: HashMem) -> HashMem:
+def compact(hm: HashMem, bucket_fn: Optional[BucketFn] = None) -> HashMem:
     """Reclaim tombstoned slots and overflow pages by rebuilding at the
     same config.  After compact: stats()['tombstones'] == 0 and every chain
     is the minimum length for its live population."""
-    return _rebuild(hm, hm.config)
+    return _rebuild(hm, hm.config, bucket_fn)
 
 
-def rebuild_check(hm: HashMem, new_cfg: HashMemConfig) -> dict:
+def rebuild_check(hm: HashMem, new_cfg: HashMemConfig,
+                  bucket_fn: Optional[BucketFn] = None) -> dict:
     """Host-side pre-flight: would the live entries fit under new_cfg?"""
     kp = hm.key_pages.reshape(-1)
     lk = from_bits(kp[(kp != EMPTY_BITS) & (kp != TOMBSTONE_BITS)])
-    b = hash_to_bucket(lk, new_cfg.num_buckets, new_cfg.hash_fn,
-                       new_cfg.salt)
+    b = _buckets(lk, new_cfg, bucket_fn)
     counts = torch.bincount(b, minlength=new_cfg.num_buckets).cpu().numpy()
     return _fit_report(counts, new_cfg)
 
@@ -952,7 +1145,8 @@ def compact_due(hm: HashMem, tombstones: int, *, fraction: bool = True,
         max_chain_len(hm) > cfg.compact_chain_len
 
 
-def insert_auto(hm: HashMem, keys, vals, max_grows: int = 8,
+def insert_auto(hm: HashMem, keys, vals,
+                bucket_fn: Optional[BucketFn] = None, max_grows: int = 8,
                 events=None):
     """Host-level insert with auto-grow.  Grows proactively while the batch
     would pass config.max_load_factor, and reactively while any element is
@@ -972,27 +1166,29 @@ def insert_auto(hm: HashMem, keys, vals, max_grows: int = 8,
         live = int(live_count(hm))
         while live + n > cfg.max_load_factor * \
                 cfg.num_pages * cfg.slots_per_page and proactive < max_grows:
-            hm = grow(hm)
+            hm = grow(hm, bucket_fn=bucket_fn)
             cfg = hm.config
             proactive += 1
             if events is not None:
                 events["rebuilds"] = events.get("rebuilds", 0) + 1
 
     if cfg.resize == "extendible" and cfg.auto_grow:
-        return insert_extendible(hm, k, v, max_grows=max_grows,
-                                 events=events)
+        return insert_extendible(hm, k, v, bucket_fn=bucket_fn,
+                                 max_grows=max_grows, events=events)
 
     ok = torch.zeros(n, dtype=torch.bool, device=hm.device)
     remaining = torch.arange(n, device=hm.device)
     reactive = 0
     while remaining.numel():
-        hm, ok_r = insert(hm, k[remaining], v[remaining])
+        kr, vr = k[remaining], v[remaining]
+        hm, ok_r = insert_with_buckets(hm, kr, vr,
+                                       _buckets(kr, hm.config, bucket_fn))
         ok[remaining[ok_r]] = True
         remaining = remaining[~ok_r]
         if remaining.numel() == 0 or not hm.config.auto_grow \
                 or reactive >= max_grows:
             break
-        hm = grow(hm)
+        hm = grow(hm, bucket_fn=bucket_fn)
         reactive += 1
         if events is not None:
             events["rebuilds"] = events.get("rebuilds", 0) + 1
@@ -1018,7 +1214,8 @@ def insert_auto(hm: HashMem, keys, vals, max_grows: int = 8,
 #   * grow()/compact() stay the fallback and reclaim path: a rebuild resets
 #     the directory flat and reclaims the pages splits leaked.
 
-def split_group(hm: HashMem, bucket: int):
+def split_group(hm: HashMem, bucket: int,
+                bucket_fn: Optional[BucketFn] = None):
     """Split the group owning ``bucket`` one level deeper (host level,
     shape-preserving).  Returns (hm, status):
 
@@ -1053,7 +1250,7 @@ def split_group(hm: HashMem, bucket: int):
     live = (k != np.uint32(EMPTY_KEY)) & (k != np.uint32(TOMBSTONE_KEY))
     lk = as_u32(k[live], hm.device)
     lv = as_u32(v[live], hm.device)
-    hb = hash_to_bucket(lk, cfg.num_buckets, cfg.hash_fn, cfg.salt)
+    hb = _buckets(lk, cfg, bucket_fn)
 
     # pre-flight: both children must fit before anything is written
     n_hi = int(((hb >> ld) & 1).sum())
@@ -1117,27 +1314,30 @@ def double_directory(hm: HashMem):
                    config=cfg2)
 
 
-def grow_extendible(hm: HashMem, bucket: int):
+def grow_extendible(hm: HashMem, bucket: int,
+                    bucket_fn: Optional[BucketFn] = None):
     """Make room in the group owning ``bucket``: split it, doubling the
     directory first when its local depth has reached the global depth, and
     fall back to a grow() rebuild only when the arena or the chain bound
     admits no split.  Returns (hm, how), how in {"split", "double",
     "rebuild"}; "double" means a split followed the doubling."""
-    hm2, status = split_group(hm, bucket)
+    hm2, status = split_group(hm, bucket, bucket_fn)
     if status == "ok":
         return hm2, "split"
     if status == "need_double":
         doubled = double_directory(hm)
         if doubled is not None:
-            hm2, status = split_group(doubled, bucket)
+            hm2, status = split_group(doubled, bucket, bucket_fn)
             if status == "ok":
                 return hm2, "double"
             hm = doubled                           # keep the wider directory
-    return grow(hm), "rebuild"
+    return grow(hm, bucket_fn=bucket_fn), "rebuild"
 
 
-def insert_extendible(hm: HashMem, keys, vals, max_splits: int = 256,
-                      max_grows: int = 8, events=None):
+def insert_extendible(hm: HashMem, keys, vals,
+                      bucket_fn: Optional[BucketFn] = None,
+                      max_splits: int = 256, max_grows: int = 8,
+                      events=None):
     """Host-level insert loop for resize="extendible": refused elements
     split their groups (and double the directory) instead of rebuilding the
     table; grow() stays the bounded fallback.  Returns (new_hm, ok (B,)
@@ -1151,8 +1351,7 @@ def insert_extendible(hm: HashMem, keys, vals, max_splits: int = 256,
     while remaining.size:
         rem = torch.as_tensor(remaining, device=hm.device)
         kr, vr = k[rem], v[rem]
-        cfg = hm.config
-        br = hash_to_bucket(kr, cfg.num_buckets, cfg.hash_fn, cfg.salt)
+        br = _buckets(kr, hm.config, bucket_fn)
         hm, ok_r = insert_with_buckets(hm, kr, vr, br)
         ok_np = ok_r.cpu().numpy()
         ok[remaining[ok_np]] = True
@@ -1164,7 +1363,7 @@ def insert_extendible(hm: HashMem, keys, vals, max_splits: int = 256,
         for b0 in np.unique(br.cpu().numpy()[~ok_np]):
             if splits >= max_splits or grows > max_grows:
                 break
-            hm, how = grow_extendible(hm, int(b0))
+            hm, how = grow_extendible(hm, int(b0), bucket_fn)
             splits += 1
             if how == "rebuild":
                 grows += 1

@@ -25,8 +25,10 @@ int32 words with uint32 bits.  The optional lanes of the JAX store follow:
 ``write_slots`` and ``write_keys`` keep ``planes`` and ``fprints`` in sync
 with the key lane.
 
-Writes follow JAX's ``.at[...].set(mode="drop")``: a write whose page id lies
-outside ``[0, num_pages)`` is dropped.  torch has no drop mode, so the copy a
+Writes follow JAX's ``.at[...].set(mode="drop")``, which indexes by NumPy's
+rule: a page id in ``[-num_pages, -1]`` wraps to ``num_pages + id``, a slot id
+in ``[-slots, -1]`` to ``slots + id``, and a write with any id outside its
+range is dropped (``wrap_index``).  torch has no drop mode, so the copy a
 write makes has one spare row past the pool, the dropped writes land there,
 and the new pool is the view of the first ``num_pages`` rows: no
 data-dependent mask, so a pool write never waits for the device.  Writes
@@ -55,8 +57,10 @@ PACK_BYTES = 1 << 30
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the card.  Naming ``"cpu"`` is the only way to run the
-    plain PyTorch versions; asking for CUDA where there is none raises."""
+    """``None`` means the card (the current one, with its index, so that it
+    compares equal to a tensor's device).  Naming ``"cpu"`` is the only way
+    to run the plain PyTorch versions; asking for CUDA where there is none
+    raises."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -64,6 +68,8 @@ def resolve_device(device=None) -> torch.device:
             "plain PyTorch version")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -110,9 +116,6 @@ class PageStore:
     def num_pages(self) -> int:
         return self.pool.shape[0]
 
-    def _in_range(self, pages: torch.Tensor) -> torch.Tensor:
-        return (pages >= 0) & (pages < self.num_pages)
-
     def _packed_lanes(self, pages, slots_idx, keys) -> dict:
         """``planes`` and ``fprints`` after writing ``keys`` at (``pages``,
         ``slots_idx``), for the lanes the store keeps."""
@@ -136,12 +139,14 @@ class PageStore:
         return ext
 
     def _drop_index(self, pages, slots_idx):
-        """Scatter indices of each (page, slot): a page outside the pool
-        writes slot 0 of the spare row, so the drop needs no data-dependent
-        mask (no wait for the device)."""
-        m = self._in_range(pages)
-        return (torch.where(m, pages, self.num_pages).long(),
-                torch.where(m, slots_idx, 0).long())
+        """Scatter indices of each (page, slot), wrapped as ``wrap_index``
+        does: a write with an id out of range writes slot 0 of the spare
+        row, so the drop needs no data-dependent mask (no wait for the
+        device)."""
+        P, S = self.pool.shape[:2]
+        p, s = wrap_index(pages, P), wrap_index(slots_idx, S)
+        m = (p < P) & (s < S)
+        return torch.where(m, p, P), torch.where(m, s, 0)
 
     def write_slots(self, pages, slots_idx, keys, vals) -> "PageStore":
         """ONE pool scatter writes key and value (int32 bits) into the same
@@ -166,6 +171,15 @@ class PageStore:
         pp = pages if plane_pages is None else plane_pages
         return dataclasses.replace(self, pool=ext[:self.num_pages],
                                    **self._packed_lanes(pp, slots_idx, keys))
+
+
+def wrap_index(ids, n: int) -> torch.Tensor:
+    """int64 ids under NumPy's indexing rule for an axis of length ``n``:
+    ``[-n, -1]`` wraps to ``id + n``; every id outside ``[-n, n)`` becomes
+    ``n``, the marker of a dropped write."""
+    ids = torch.as_tensor(ids).to(I64)
+    ids = torch.where(ids < 0, ids + n, ids)
+    return torch.where((ids >= 0) & (ids < n), ids, n)
 
 
 def empty_store(num_pages: int, slots: int, key_bits: int = 32,
@@ -288,7 +302,8 @@ def unpack_bitplanes(planes: torch.Tensor, key_bits: int) -> torch.Tensor:
 def update_bitplanes_batch(planes: torch.Tensor, pages, slots_idx, new_keys,
                            key_bits: int) -> torch.Tensor:
     """Bit-planes after writing ``new_keys`` (int32 bits or uint32 values)
-    at (``pages``, ``slots_idx``); a page outside the pool drops its update.
+    at (``pages``, ``slots_idx``); ids wrap as ``wrap_index`` does, and an
+    id out of range drops its update, as it drops the pool write.
 
     The JAX package merges each written (page, word) with scatter-adds over
     a full (P, b, W) temporary, which act as OR because every in-range
@@ -299,10 +314,11 @@ def update_bitplanes_batch(planes: torch.Tensor, pages, slots_idx, new_keys,
     P, b, W = planes.shape
     if b != key_bits:
         raise ValueError(f"planes hold {b} bits, key_bits is {key_bits}")
-    pages = torch.as_tensor(pages, device=planes.device).to(I64)
-    slots_idx = torch.as_tensor(slots_idx, device=planes.device).to(I64)
+    pages = wrap_index(torch.as_tensor(pages, device=planes.device), P)
+    slots_idx = wrap_index(torch.as_tensor(slots_idx, device=planes.device),
+                           32 * W)
     keys = torch.as_tensor(new_keys, device=planes.device).to(I64) & MASK32
-    m = (pages >= 0) & (pages < P)
+    m = (pages < P) & (slots_idx < 32 * W)
     pages, slots_idx, keys = pages[m], slots_idx[m], keys[m]
     flat = pages * W + slots_idx // 32
     bit = slots_idx % 32

@@ -39,9 +39,9 @@ def probe_lanes(store: PageStore, queries: torch.Tensor, pages: torch.Tensor,
     raise ValueError(f"unknown probe backend {backend!r}")
 
 
-def probe_pages(hm, queries: torch.Tensor, pages: torch.Tensor,
+def probe_pages(store: PageStore, queries: torch.Tensor, pages: torch.Tensor,
                 backend: str):
     """Dispatch a resolved probe (RLU command stream) to a compare backend.
     Returns (values (Q,) int64 uint32-values, found (Q,) bool)."""
-    out = probe_lanes(hm.store, queries, pages, backend)
+    out = probe_lanes(store, queries, pages, backend)
     return from_bits(out[:, 0]), out[:, 1] != 0

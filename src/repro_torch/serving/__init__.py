@@ -1,9 +1,10 @@
 """Multi-tenant continuous-batching serving layer over HashMem, in PyTorch
-(the JAX package's ``serving``, on host shards).
+(the JAX package's ``serving``).
 
   engine.py   — ServingEngine / SlotPool / Request: admission control,
                 slot lifecycle, step-level op coalescing (one vectorized
-                HashMem call per phase per shard per tick)
+                HashMem call per phase per host shard per tick, or one
+                routed call per phase, or per tick, on a mesh)
   tenancy.py  — tenant-folded key space, quotas, per-tenant stats
   metrics.py  — bounded log-bucketed histograms, hot-key sketch,
                 per-phase latency, Prometheus exposition

@@ -9,9 +9,20 @@ see loadgen.py) occupy slots of a fixed pool; every engine **tick**
      pool occupancy, global queue bound, per-tenant slot/pending quotas);
   2. takes the next op from every active slot and **coalesces** the whole
      tick into fixed op phases — probe, then delete, then insert — executed
-     on host shards: ``num_shards`` independent HashMems, one
-     ``hashmap`` call per phase per *touched* shard, keys partitioned on
-     the host with ONE vectorized ``rlu.owner_of_np`` call per phase;
+     by a pluggable shard backend:
+
+       * host shards (default): ``num_shards`` independent HashMems; one
+         ``hashmap`` call per phase per *touched* shard, keys partitioned
+         on the host with ONE vectorized ``rlu.owner_of_np`` call per
+         phase;
+       * mesh shards (``mesh=``): one stacked HashMem of
+         ``mesh.num_shards`` shards, ONE ``rlu.probe_sharded`` /
+         ``rlu.delete_sharded`` / ``rlu.insert_mesh`` call per phase per
+         tick no matter how many shards participate, or, by default, ONE
+         ``rlu.tick_mesh`` call for the whole tick (``fused_tick``) — the
+         paper's channel-level parallelism on the serving hot path.  Shard
+         routing (hash-high-bits fastrange, rlu.py) happens INSIDE the RLU
+         call, not in host dicts;
 
   3. scatters results back to the issuing requests, completes exhausted
      requests, frees their slots, and refills from the queue.
@@ -72,8 +83,9 @@ form only:
     host gathers tick N+1 while the card still runs tick N;
   * ``profile_ticks`` opens a ``torch.profiler`` window, and a window that
     does not start is an error;
-  * the mesh backend (``mesh=``, ``fused_tick=True``) is refused: it waits
-    for the sharded RLU (ROADMAP Queue 1 item 9).
+  * the mesh is one card (``launch/mesh.py``): its D shards are stacked
+    there, and each routed probe phase is one kernel launch for all of
+    them.
 """
 from __future__ import annotations
 
@@ -102,13 +114,10 @@ PAD_KEY = rlu.ROUTE_PAD
 
 OP_KINDS = ("read", "update", "insert", "delete", "scan", "rmw")
 
-# the mesh backend's two-pass routing telemetry, reported empty by stats()
-# until that backend is ported (ROADMAP Queue 1 item 9)
-_NO_ROUTE_CAPS = {"launches": 0, "cap_sum": 0, "q_local_sum": 0,
-                  "measured_sum": 0}
-
-MESH_REFUSAL = ("the mesh backend (mesh=, fused_tick) is not ported yet: it "
-                "waits for the sharded RLU, ROADMAP Queue 1 item 9")
+# ring bound for the two-pass routing telemetry log (exact totals live in
+# ``route_cap_totals``; the log keeps the most recent launches for stats()
+# without growing with run length)
+ROUTE_CAP_LOG_MAX = 1024
 
 
 @dataclass
@@ -377,6 +386,185 @@ class _HostShards:
         return self.shards
 
 
+class _MeshShards:
+    """Mesh shard backend: ONE stacked HashMem of ``mesh.num_shards``
+    shards on the engine's device, every coalesced phase ONE rlu call (and
+    one kernel launch per probe phase).  Routing lives in the RLU layer
+    (hash-high-bits fastrange); the host never partitions keys on the
+    request path."""
+
+    is_mesh = True
+
+    def __init__(self, eng: "ServingEngine", mesh, axis: str,
+                 cfg: HashMemConfig, tables: Optional[list] = None):
+        from repro_torch.distributed.sharding import shard_stacked_hashmem
+        self._place = lambda hm: shard_stacked_hashmem(mesh, hm, axis)
+        self.eng = eng
+        self.mesh = mesh
+        self.axis = axis
+        self.num_shards = mesh.shape[axis]
+        self.cfg = cfg
+        shards = list(tables) if tables is not None \
+            else [hashmap.create(cfg, device=eng.device)
+                  for _ in range(self.num_shards)]
+        if len(shards) != self.num_shards:
+            raise ValueError(f"{len(shards)} tables for a mesh of "
+                             f"{self.num_shards} shards")
+        self.hm_stacked = self._place(hashmap.stack(shards))
+
+    @property
+    def auto_grow(self) -> bool:
+        return self.cfg.auto_grow
+
+    def owners(self, keys: np.ndarray) -> np.ndarray:
+        """Host mirror of the router -- used only for per-shard ACCOUNTING
+        (tombstone attribution), never for request routing."""
+        return rlu.owner_of_np(keys, self.cfg, self.num_shards,
+                               self.eng.shard_by)
+
+    def _tombstones(self, owners: np.ndarray, found: np.ndarray) -> dict:
+        tombs: dict = {}
+        for s in np.unique(owners[found]):
+            tombs[int(s)] = int((owners[found] == s).sum())
+        return tombs
+
+    # -- phases ------------------------------------------------------------
+    def probe(self, keys: np.ndarray, pad: bool = True):
+        q = self.eng._padded(keys, PAD_KEY, pad)
+        v, f = rlu.probe_sharded(self.mesh, self.hm_stacked,
+                                 self.eng._on_device(q), self.cfg, self.axis,
+                                 shard_by=self.eng.shard_by)
+        self.eng._record_call("probe")
+
+        def finalize():
+            hv, hf = _to_host([v[:len(keys)], f[:len(keys)]])
+            return hv.astype(np.uint32), hf != 0
+        return finalize
+
+    def tick_fused(self, pk, dk, ik, iv):
+        """The whole tick's three phases in ONE rlu.tick_mesh call, routed
+        at two-pass skew-aware capacities.  Empty phases ride along as
+        (num_shards,) all-pad placeholders (their capacity is the quantum
+        floor); returns one finalize per phase with the same contracts as
+        probe/delete/insert, sharing ONE host copy at drain."""
+        def prep(arr, fill):
+            if len(arr) == 0:
+                return np.full(self.num_shards, fill, np.uint32)
+            return self.eng._padded(np.asarray(arr, np.uint32), fill)
+        q_p, q_d, q_k = prep(pk, PAD_KEY), prep(dk, PAD_KEY), prep(ik, PAD_KEY)
+        q_v = prep(iv, np.uint32(0)) if len(ik) else \
+            np.zeros(self.num_shards, np.uint32)
+        # pass 1 (host mirror of the count exchange): measured
+        # per-(src,dst) maxima set the routing capacities for pass 2
+        caps, meas = [], []
+        with self.eng._phase_span("route", self.eng._cur_lane):
+            for q in (q_p, q_d, q_k):
+                caps.append(rlu.routing_cap(q, self.cfg, self.num_shards,
+                                            self.eng.shard_by))
+                meas.append(rlu.routing_cap(q, self.cfg, self.num_shards,
+                                            self.eng.shard_by, quantum=1))
+        on = self.eng._on_device
+        self.hm_stacked, v, f, df, iok = rlu.tick_mesh(
+            self.mesh, self.hm_stacked, on(q_p), on(q_d), on(q_k), on(q_v),
+            self.cfg, self.axis, caps=tuple(caps),
+            shard_by=self.eng.shard_by)
+        self.eng._record_call("fused_tick")
+        self.eng._record_route_caps(
+            [len(q) // self.num_shards for q in (q_p, q_d, q_k)], caps, meas)
+        owners_d = self.owners(dk) if len(dk) else np.zeros(0, np.int32)
+        host: list = []
+
+        def fetch():
+            if not host:
+                host.extend(_to_host([v[:len(pk)], f[:len(pk)],
+                                      df[:len(dk)], iok[:len(ik)]]))
+            return host
+
+        def fin_probe():
+            hv, hf = fetch()[:2]
+            return hv.astype(np.uint32), hf != 0
+
+        def fin_delete():
+            found = fetch()[2] != 0
+            return found, self._tombstones(owners_d, found)
+
+        def fin_insert():
+            return fetch()[3] != 0
+        return fin_probe, fin_delete, fin_insert
+
+    def delete(self, keys: np.ndarray, pad: bool = True):
+        q = self.eng._padded(keys, PAD_KEY, pad)
+        self.hm_stacked, f = rlu.delete_sharded(
+            self.mesh, self.hm_stacked, self.eng._on_device(q), self.cfg,
+            self.axis, shard_by=self.eng.shard_by)
+        self.eng._record_call("delete")
+        owners = self.owners(keys)
+
+        def finalize():
+            found = _to_host([f[:len(keys)]])[0] != 0
+            return found, self._tombstones(owners, found)
+        return finalize
+
+    def insert(self, keys: np.ndarray, vals: np.ndarray, pad: bool = True):
+        on = self.eng._on_device
+        q = self.eng._padded(keys, PAD_KEY, pad)
+        v = self.eng._padded(vals, np.uint32(0), pad)
+        self.hm_stacked, ok = rlu.insert_mesh(
+            self.mesh, self.hm_stacked, on(q), on(v), self.cfg, self.axis,
+            shard_by=self.eng.shard_by)
+        self.eng._record_call("insert")
+
+        def finalize():
+            return _to_host([ok[:len(keys)]])[0] != 0
+        return finalize
+
+    @property
+    def resize_mode(self) -> str:
+        return self.cfg.resize
+
+    # -- slow paths --------------------------------------------------------
+    def grow_insert(self, keys: np.ndarray, vals: np.ndarray):
+        """Drain-time PR_ERROR fallback: the repair runs in
+        rlu.insert_sharded -- extendible splits are per-shard local
+        (shape-preserving) and directory doublings are synchronized pointer
+        copies; only a full grow() REBUILD (detected by num_pages, which
+        doubling preserves) rebuilds all shards and resets their tombstone
+        epochs.  Returns (ok, [rebuilt shard ids] -- all or none here,
+        events)."""
+        before = self.cfg.num_pages
+        events: dict = {}
+        hm, ok, cfg2 = rlu.insert_sharded(
+            self.hm_stacked, keys, vals, self.cfg, self.num_shards,
+            shard_by=self.eng.shard_by, events=events)
+        grew = cfg2.num_pages != before
+        self.cfg = cfg2
+        self.hm_stacked = self._place(hm)
+        return (ok.cpu().numpy(),
+                list(range(self.num_shards)) if grew else [], events)
+
+    def preload(self, keys: np.ndarray, vals: np.ndarray):
+        ok, grown, _ = self.grow_insert(keys, vals)
+        if not ok.all():
+            raise RuntimeError(f"preload overflowed: {int((~ok).sum())} "
+                               f"pairs refused")
+        return grown
+
+    def compact_shards(self, tombstones: list) -> list:
+        shards = self.shard_list()
+        bfn = rlu._local_bucket_fn(self.num_shards, self.eng.shard_by)
+        out = []
+        for s, hm in enumerate(shards):
+            if hashmap.compact_due(hm, tombstones[s]):
+                shards[s] = hashmap.compact(hm, bucket_fn=bfn)
+                out.append(s)
+        if out:
+            self.hm_stacked = self._place(hashmap.stack(shards))
+        return out
+
+    def shard_list(self) -> list:
+        return hashmap.unstack(self.hm_stacked)
+
+
 # ---------------------------------------------------------------------------
 # In-flight tick bookkeeping (pipelining)
 # ---------------------------------------------------------------------------
@@ -426,12 +614,16 @@ class _PhaseTimer:
 class ServingEngine:
     """Multi-tenant continuous-batching engine over HashMem shards.
 
-    ``num_shards`` host-routed independent tables on ``device`` (None: the
-    card; "cpu": the plain PyTorch versions).  Tables passed as ``tables``
-    must already be on that device.  Tables auto-grow independently and are
-    compacted by an engine-tick policy (tombstone fraction OR chain-length
-    trigger, checked every ``compact_every`` ticks).  ``mesh`` and
-    ``fused_tick=True`` raise NotImplementedError (ROADMAP Queue 1 item 9).
+    ``mesh=None`` (default): ``num_shards`` host-routed independent tables
+    on ``device`` (None: the card; "cpu": the plain PyTorch versions).
+    ``mesh=launch.mesh.make_serving_mesh(D)``: one stacked table of D
+    shards on the mesh's device, which must be the engine's; every
+    coalesced phase is ONE rlu call (``fused_tick``, the default on a
+    coalesced mesh: ONE call a tick), and ``num_shards`` is the mesh's.
+    Tables passed as ``tables`` must already be on the engine's device.
+    Tables auto-grow (host shards independently; mesh shards synchronized)
+    and are compacted by an engine-tick policy (tombstone fraction OR
+    chain-length trigger, checked every ``compact_every`` ticks).
 
     ``pipeline_depth`` > 1 enables multi-tick op pipelining (module
     docstring): requires ``coalesce=True``.
@@ -444,7 +636,7 @@ class ServingEngine:
                  metrics: Optional[MetricsCollector] = None,
                  coalesce: bool = True, pad_pow2: bool = True,
                  compact_every: int = 64,
-                 mesh=None,
+                 mesh=None, mesh_axis: str = "model",
                  shard_by: str = "highbits", pipeline_depth: int = 1,
                  record_schedule: bool = False,
                  fused_tick: Optional[bool] = None,
@@ -453,10 +645,19 @@ class ServingEngine:
         assert pipeline_depth >= 1
         assert pipeline_depth == 1 or coalesce, \
             "pipelining needs coalesced phases (coalesce=True)"
-        if mesh is not None or fused_tick:
-            raise NotImplementedError(MESH_REFUSAL)
-        self.fused_tick = False
+        # fused whole tick: the DEFAULT on a coalesced mesh (one
+        # rlu.tick_mesh call a tick, two-pass skew-aware routing);
+        # fused_tick=False keeps the three-call path
+        if fused_tick is None:
+            fused_tick = mesh is not None and coalesce
+        if fused_tick and (mesh is None or not coalesce):
+            raise ValueError("fused_tick needs a mesh backend and "
+                             "coalesce=True")
+        self.fused_tick = fused_tick
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh is on {mesh.device}, the engine on "
+                             f"{self.device}")
         # observability: ``trace=True`` (or a Tracer instance) turns on
         # tick-level span recording (tracing.py); the default NULL_TRACER
         # keeps every call site a single enabled-flag check
@@ -492,12 +693,17 @@ class ServingEngine:
                 if hm.device != self.device:
                     raise ValueError(f"table {i} is on {hm.device}, the "
                                      f"engine on {self.device}")
-            shards = list(tables)
+        if mesh is not None:
+            base = tables[0].config if tables else cfg
+            self.backend = _MeshShards(self, mesh, mesh_axis, base, tables)
         else:
-            shards = [hashmap.create(cfg, device=self.device)
-                      for _ in range(num_shards)]
-        self.backend = _HostShards(self, shards)
+            shards = list(tables) if tables is not None else \
+                [hashmap.create(cfg, device=self.device)
+                 for _ in range(num_shards)]
+            self.backend = _HostShards(self, shards)
         self.num_shards = self.backend.num_shards
+        # mesh phases must split evenly into the shards' source blocks
+        self._pad_multiple = self.num_shards if mesh is not None else 1
         self.pool = SlotPool(max_slots, max_pending, admit_ok=self._quota_ok,
                              on_admit=self._on_admit)
         self.ticks = 0
@@ -505,11 +711,19 @@ class ServingEngine:
         self._active_by_tenant: dict[int, int] = {}
         self._pending_by_tenant: dict[int, int] = {}
         # engine-level HashMem API calls, cumulative and per-tick (the
-        # coalescing tests assert calls_last_tick[kind] <= num_shards;
-        # "fused_tick" stays 0 until the mesh backend is ported)
+        # coalescing tests assert calls_last_tick[kind] <= num_shards on
+        # host shards and == 1 on a mesh; "fused_tick" counts whole-tick
+        # calls -- a fused tick is ONE call for all phases)
         self.batch_calls = {"probe": 0, "delete": 0, "insert": 0,
                             "fused_tick": 0}
         self.calls_last_tick = dict(self.batch_calls)
+        # two-pass routing telemetry: one record per fused call -- per-phase
+        # (q_local, cap, measured max), which shows the routed capacity
+        # tracking skew instead of the Q_local worst case.  The log is a
+        # bounded ring; exact lifetime sums live in the totals.
+        self.route_cap_log: deque = deque(maxlen=ROUTE_CAP_LOG_MAX)
+        self.route_cap_totals = {"launches": 0, "cap_sum": 0,
+                                 "q_local_sum": 0, "measured_sum": 0}
         self._tombstones = [0] * self.num_shards
         self.grow_events = 0
         # extendible-resize telemetry: group splits and directory doublings
@@ -538,7 +752,8 @@ class ServingEngine:
     # -- back-compat views -------------------------------------------------
     @property
     def shards(self) -> list:
-        """Per-shard HashMems (the live list)."""
+        """Per-shard HashMems (host: the live list; mesh: views of the
+        stacked table's shards)."""
         return self.backend.shard_list()
 
     # -- admission ---------------------------------------------------------
@@ -704,9 +919,15 @@ class ServingEngine:
         return (req.tenant.tid << sp.key_bits) | key
 
     def _padded(self, arr: np.ndarray, fill, pow2: bool = True) -> np.ndarray:
-        """Batch padding: pow2 floor (bounds the set of batch shapes)."""
-        return _pad_pow2(arr, fill, self.pad_min) \
+        """Batch padding: pow2 floor (bounds the set of batch shapes) and,
+        on a mesh, round up to a multiple of num_shards (the routed batch
+        splits into equal source blocks)."""
+        q = _pad_pow2(arr, fill, self.pad_min) \
             if (pow2 and self.pad_pow2) else arr
+        m = self._pad_multiple
+        if m > 1 and len(q) % m:
+            q = np.concatenate([q, np.full(m - len(q) % m, fill, arr.dtype)])
+        return q
 
     def _on_device(self, arr: np.ndarray) -> torch.Tensor:
         """A host batch (uint32 keys/values as int32 bits, or a bool mask)
@@ -730,6 +951,27 @@ class ServingEngine:
         sample, so the snapshot's per-phase latency blocks exist even when
         tracing is off."""
         return _PhaseTimer(self, name, lane, args)
+
+    def _record_route_caps(self, q_locals, caps, measured):
+        self.route_cap_log.append({
+            "tick": self.ticks,
+            "q_local": list(q_locals),     # worst-case (unfused) capacity
+            "cap": list(caps),             # two-pass routed capacity
+            "max": list(measured),         # exact measured per-(src,dst) max
+        })
+        tot = self.route_cap_totals
+        tot["launches"] += 1
+        tot["cap_sum"] += int(sum(caps))
+        tot["q_local_sum"] += int(sum(q_locals))
+        tot["measured_sum"] += int(sum(measured))
+        tr = self.tracer
+        if tr.enabled:
+            ql = sum(q_locals)
+            tr.counter("route_cap_fill", sum(caps) / ql if ql else 1.0)
+            # routed element volume of this call: each phase's receive
+            # buffer holds D * D * cap entries
+            tr.counter("routed_elems",
+                       self.num_shards ** 2 * int(sum(caps)))
 
     # -- the tick ----------------------------------------------------------
     def tick(self) -> int:
@@ -920,8 +1162,26 @@ class ServingEngine:
     def _issue(self, probes, deletes, inserts, claims) -> _TickRecord:
         """Issue the tick's phases in fixed order (probe -> delete ->
         insert).  Device calls are dispatched now; host materialization
-        waits for drain."""
+        waits for drain.  On a fused-tick mesh engine all three phases go
+        out in ONE rlu.tick_mesh call."""
         phases = []
+        if self.fused_tick and (probes or deletes or inserts):
+            pk = np.asarray([k for k, _ in probes], np.uint32)
+            dk = np.asarray([k for k, _ in deletes], np.uint32)
+            ik = np.asarray([k for k, _, _ in inserts], np.uint32)
+            iv = np.asarray([v for _, v, _ in inserts], np.uint32)
+            with self._phase_span("fused_tick", self._cur_lane,
+                                  probes=len(pk), deletes=len(dk),
+                                  inserts=len(ik)):
+                fp, fd, fi = self.backend.tick_fused(pk, dk, ik, iv)
+            if probes:
+                phases.append(_PhasePending("probe", probes, fp, pk))
+            if deletes:
+                phases.append(_PhasePending("delete", deletes, fd, dk))
+            if inserts:
+                phases.append(_PhasePending("insert", inserts, fi, ik, iv))
+            return _TickRecord(self.ticks, list(self._shard_epochs), phases,
+                               claims)
         if probes:
             phases.append(self._issue_phase("probe", probes))
         if deletes:
@@ -1055,8 +1315,8 @@ class ServingEngine:
         """Mean DRAM-row activations per probe for ``keys`` against the
         live table(s): ``hashmap.rows_activated_per_probe`` per owning
         shard with the SAME bucket routing as the serving probe path (host
-        shards hash the full key locally), weighted by per-shard key
-        count."""
+        shards hash the full key locally; the mesh path probes the rlu
+        local bucket), weighted by per-shard key count."""
         keys = np.asarray(keys, np.uint32)
         if not keys.size:
             return 0.0
@@ -1068,8 +1328,13 @@ class ServingEngine:
             mine = keys[owner == s]
             if not mine.size:
                 continue
+            b = None
+            if self.backend.is_mesh:
+                _, b = rlu.owner_and_local_bucket(
+                    self._on_device(mine), cfg, self.num_shards,
+                    self.shard_by)
             total += float(hashmap.rows_activated_per_probe(
-                shards[s], self._on_device(mine))) * int(mine.size)
+                shards[s], self._on_device(mine), b=b)) * int(mine.size)
             n += int(mine.size)
         return total / n if n else 0.0
 
@@ -1199,8 +1464,8 @@ class ServingEngine:
                          "stalls": self.stall_events},
             "mesh_backed": self.backend.is_mesh,
             "fused_tick": self.fused_tick,
-            "route_caps": [],
-            "route_cap_totals": dict(_NO_ROUTE_CAPS),
+            "route_caps": list(self.route_cap_log)[-8:],
+            "route_cap_totals": dict(self.route_cap_totals),
             "trace": {"enabled": self.tracer.enabled,
                       "recorded": self.tracer._recorded,
                       "dropped": self.tracer.dropped},

@@ -158,10 +158,12 @@ def build_ycsb_engine(workloads, *, slots=16, shards=1, record_count=1024,
     """One preloaded engine + one (tenant, LoadGen) per YCSB workload letter
     — the single assembly path of the serve.py kv CLI, so every run
     exercises identically-sized tables.  ``device``: None = the card,
-    "cpu" = the plain PyTorch versions.  ``mesh`` and ``fused_tick=True``
-    raise NotImplementedError (ROADMAP Queue 1 item 9).
-    ``pipeline_depth``: multi-tick op pipelining (engine.py).
-    Returns (engine, [LoadGen, ...])."""
+    "cpu" = the plain PyTorch versions.  ``mesh``: route the shards through
+    the RLU mesh path (one stacked table of ``mesh.num_shards`` shards on
+    the mesh's device; ``shards`` is ignored).  ``pipeline_depth``:
+    multi-tick op pipelining (engine.py).  ``fused_tick``: None = engine
+    default (one call a tick on a coalesced mesh), False = one call per
+    phase.  Returns (engine, [LoadGen, ...])."""
     from repro_torch.configs import HashMemConfig
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.tenancy import TenantRegistry

@@ -190,3 +190,34 @@ def test_plane_width_must_match_key_bits():
         tlayout.update_bitplanes_batch(planes, [0], [0], [1], key_bits=16)
     with pytest.raises(ValueError, match="planes hold 8 bits"):
         tlayout.unpack_bitplanes(planes, 32)
+
+
+@pytest.mark.parametrize("write", ["slots", "keys"])
+def test_wrapped_and_out_of_range_ids_match_jax(write):
+    """JAX's ``mode="drop"`` scatters index by NumPy's rule: a page in
+    [-P, -1] wraps to P + id, a slot in [-S, -1] to S + id, and any other
+    id out of range drops the write.  Pool, planes and fingerprints must
+    follow it, for ``write_slots`` and for ``write_keys``."""
+    P, S = 4, 64
+    pages = np.array([-1, 1, -4, -2, 2, 2, 4, -5, 2, 1, 9], np.int32)
+    slots = np.array([3, -2, -64, 10, 64, 200, 5, 5, -65, 40, 7], np.int32)
+    rng = np.random.default_rng(5)
+    keys = rng.integers(0, 2**31, pages.size).astype(np.uint32)
+    vals = rng.integers(0, 2**31, pages.size).astype(np.uint32)
+    t = tlayout.empty_store(P, S, 32, "cpu", with_planes=True, fp_bits=8)
+    j = jlayout.empty_store(P, S, 32, with_planes=True, fp_bits=8)
+    if write == "slots":
+        tout = t.write_slots(torch.from_numpy(pages), torch.from_numpy(slots),
+                             t32(keys), t32(vals))
+        jout = j.write_slots(*map(jnp.asarray, (pages, slots, keys, vals)))
+    else:
+        tout = t.write_keys(torch.from_numpy(pages), torch.from_numpy(slots),
+                            t32(keys))
+        jout = j.write_keys(*map(jnp.asarray, (pages, slots, keys)))
+    assert_same_store(tout, jout)
+    np.testing.assert_array_equal(u32(tout.fprints), np.asarray(jout.fprints))
+    kp = u32(tout.key_pages)
+    assert kp[3, 3] == keys[0] and kp[1, 62] == keys[1] \
+        and kp[0, 0] == keys[2] and kp[2, 10] == keys[3]
+    assert (kp != 0xFFFFFFFF).sum() == 5              # six writes dropped
+    assert torch.equal(tout.fprints, tlayout.pack_fprints(tout.key_pages, 8))

@@ -51,12 +51,16 @@ def test_importing_the_port_loads_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
+        "want = {'repro_torch.core.rlu', 'repro_torch.launch.mesh',\n"
+        "        'repro_torch.distributed.sharding',\n"
+        "        'repro_torch.channels_demo'}\n"
+        "assert want <= set(mods), want - set(mods)\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 12
+    assert int(proc.stdout.strip()) >= 16
 
 
 def _run_smoke(cwd: Path):

@@ -5,7 +5,8 @@ the engine-facing cases of ``tests/test_tenancy.py``,
 and ``tests/test_metrics.py``, the ``kv`` serve CLI, the multi-tenant
 example, and the port's own changes of form: one host copy per phase at
 drain, tables on the engine's device, the ``torch.profiler`` window that
-raises instead of failing quietly, and the refusals of what is not ported.
+raises instead of failing quietly, the mesh entry points, and the refusal of
+what is not ported (``--mode decode``).
 Every engine runs with ``device="cpu"``: the plain PyTorch versions."""
 import dataclasses
 import json
@@ -512,10 +513,22 @@ def test_profiler_failure_raises(tmp_path, monkeypatch):
         eng.run()
 
 
-def test_mesh_and_fused_tick_are_refused():
-    for kw in (dict(mesh=object()), dict(fused_tick=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            ServingEngine(device=CPU, **kw)
+@pytest.mark.parametrize("fused", [None, False])
+def test_mesh_engine_runs_fused_and_unfused(fused):
+    """``mesh=`` stacks the shards; a coalesced mesh engine fuses its tick
+    unless ``fused_tick=False``."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    eng = _engine(mesh=make_serving_mesh(2, device=CPU), fused_tick=fused)
+    assert eng.fused_tick == (fused is None) and eng.num_shards == 2
+    eng.submit_all([Request(ops=[("insert", k, k + 1), ("read", k)])
+                    for k in range(8)])
+    eng.run()
+    want = _calls(fused_tick=2) if fused is None \
+        else _calls(probe=1, insert=1)
+    assert eng.batch_calls == want
+    st = eng.stats()
+    assert st["mesh_backed"] and st["fused_tick"] == (fused is None)
+    assert st["route_cap_totals"]["launches"] == want["fused_tick"]
 
 
 # ---------------------------------------------------------------------------
@@ -840,8 +853,6 @@ def test_serve_kv_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--mode", "decode"], "Queue 1 item 12"),
-    (["--mode", "kv", "--mesh-shards", "2"], "Queue 1 item 9"),
-    (["--mode", "kv", "--no-fused-tick"], "Queue 1 item 9"),
 ])
 def test_serve_cli_refuses_what_is_not_ported(argv, match, capsys):
     from repro_torch.launch import serve
@@ -849,6 +860,21 @@ def test_serve_cli_refuses_what_is_not_ported(argv, match, capsys):
         serve.main(argv + ["--device", CPU])
     assert e.value.code != 0
     assert match in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [["--mesh-shards", "2"],
+                                  ["--no-fused-tick"]])
+def test_serve_cli_mesh_flags(argv, capsys):
+    """``--mesh-shards N`` serves from N stacked shards; ``--no-fused-tick``
+    alone keeps host shards (it selects the unfused mesh path)."""
+    from repro_torch.launch import serve
+    serve.main(["--mode", "kv", "--device", CPU, "--requests", "8",
+                "--slots", "4", "--record-count", "256"] + argv)
+    out = capsys.readouterr().out
+    st = json.loads(out[out.index("{"):])["engine"]
+    mesh = "--mesh-shards" in argv
+    assert st["mesh_backed"] == mesh and st["fused_tick"] == mesh
+    assert len(st["shards"]) == (2 if mesh else 1)
 
 
 def test_serve_cli_kv_main(capsys):

@@ -17,7 +17,7 @@ repair; (e) tenant slot and pending quotas and ``kill``; (f) the ``perf``,
 ``area`` and ``bitserial`` backends (the JAX kernels in interpret mode).
 Also: the host router against JAX's host and device routers, ``LoadGen``
 streams draw for draw, a JAX-preloaded engine carried into the port through
-``hashmap.from_numpy``, and the port's refusals of the mesh backend.
+``hashmap.from_numpy``, and the mesh engine's ``stats()`` keys.
 
 Each scenario runs the JAX engine once, in a module-scoped fixture shared by
 every assertion on it.  The JAX package's host-level loops run as they are,
@@ -371,15 +371,20 @@ def test_jax_preloaded_tables_carry_into_the_port():
     assert_same_tables(te, je)
 
 
-def test_mesh_and_fused_tick_are_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tserving.ServingEngine(mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tserving.ServingEngine(fused_tick=True, device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tserving.build_ycsb_engine(["A"], mesh=object(), device=CPU)
-    eng = tserving.ServingEngine(fused_tick=False, device=CPU)
+def test_mesh_engine_stats_have_the_jax_keys():
+    """``build_ycsb_engine(mesh=)`` serves from stacked shards, and the mesh
+    and host engines report the JAX engine's ``stats()`` keys."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    eng, gens = tserving.build_ycsb_engine(
+        ["A", "B"], mesh=make_serving_mesh(2, device=CPU), device=CPU)
+    eng.submit_all([r for g in gens for r in g.requests(8)])
+    snap = eng.run()
     st = eng.stats()
-    assert not st["mesh_backed"] and not st["fused_tick"]
-    assert st["route_caps"] == []
+    assert snap["requests_completed"] == 16
+    assert st["mesh_backed"] and st["fused_tick"] and st["route_caps"]
+    assert st["route_cap_totals"]["launches"] == st["batch_calls"][
+        "fused_tick"] > 0
     assert set(st) == set(jserving.ServingEngine().stats())
+    host = tserving.ServingEngine(fused_tick=False, device=CPU).stats()
+    assert not host["mesh_backed"] and not host["fused_tick"]
+    assert host["route_caps"] == [] and set(host) == set(st)
