@@ -73,9 +73,23 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      1 and 2, unfused at depth 1), every result against the DictModel
      replay and phase 8's, with ops/s, latency, host time a span, device
      idle share, pool copies a write phase, launches a tick, synchronises
-     in the issue path and the routing capacities; prints the ``kernels``
-     line;
- 10. prints the device line last.
+     in the issue path and the routing capacities;
+ 10. serves LM decode over the HashMem page table (``launch/serve.py``
+     ``serve``): the four dense archs at ``smoke_config`` in float32 on the
+     card against the CPU (32 teacher-forced ``decode_step`` logits and the
+     KV pools; a small ``serve()`` on a ``perf`` page table: its allocation
+     and free trace, steps, events and leaves); Qwen3-8B at its published
+     widths and depth (random init from a seed, drawn on the card): decode
+     against ``forward`` at every position of 2 x 64 tokens in float32 with
+     TF32 off, the block table probed through ``probe_perf``; then the
+     served run at the config's dtypes (batch 16, horizon 4096, 48 requests
+     of 8 + 32 tokens), once checked (every admission's probed table against
+     the allocator, ``probe_perf`` against plain on the table's keys), once
+     timed (tokens/s, step ms against its byte bound, page-table host ms,
+     ``probe_perf`` launches a step, peak memory) and once profiled (device
+     idle share); prints the ``kernels`` line (``probe_perf``'s launches
+     count the perf path's and the timed decode's);
+ 11. prints the device line last.
 
 Any failed check raises and the script exits non-zero.  Without a card, or
 without the rest of the repo beside it, it exits non-zero and prints no
@@ -1642,6 +1656,410 @@ def mesh_path(serving, hashmap, k, data, smi, host_rate, host_results):
 # Main paths at paper scale
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Decode serving over the HashMem page table
+# ---------------------------------------------------------------------------
+
+DECODE_ARCHS = ("llama3-8b", "qwen3-8b", "phi4-mini-3.8b", "h2o-danube-1.8b")
+DECODE_SMALL = (2, 32, 8)        # sequences, teacher-forced steps, page tokens
+# float32 on both sides, summation order apart: JAX's own tolerance for
+# decode against forward (tests/test_paged_kv.py)
+DECODE_TOL = 5e-4
+DECODE_SMALL_SERVE = dict(batch=4, requests=9, max_new=9, horizon=12,
+                          page_tokens=2, prompt_len=2, backend="perf")
+DECODE_ARCH = "qwen3-8b"         # published widths and depth, random init
+DECODE_TF = (2, 64, 16)          # teacher-forced: sequences, tokens, page
+# SHAPES["decode_32k"] (batch 128, horizon 32768) cut to one card: batch
+# 16, horizon 4096 (KV 19.3 GB in float32 beside 32.8 GB of weights)
+DECODE_SERVE = dict(batch=16, horizon=4096, page_tokens=32, requests=48,
+                    prompt_len=8, max_new=32, backend="perf")
+DECODE_CHECKED = dict(DECODE_SERVE, requests=32)   # two waves: pages recycle
+DECODE_PROFILE = dict(DECODE_SERVE, requests=16, max_new=8)
+BF16_RATE = 989e12               # dense bf16 tensor-core rate (data sheet)
+
+
+def teacher_forced(model, params, cfg, tokens, bt, ctx):
+    """Decode logits (S, B, V) for ``tokens`` (B, S), one step a token,
+    through ``model.decode_step`` on fresh float32 pools."""
+    import torch
+    B, S = tokens.shape
+    dev = params.embed.device
+    states = model.init_decode_states(params, cfg, B, ctx,
+                                      kv_dtype=torch.float32)
+    tok = torch.from_numpy(tokens).to(dev)
+    bt = torch.as_tensor(bt, device=dev)
+    out = []
+    for i in range(S):
+        lg, states = model.decode_step(
+            params, cfg, states, tok[:, i:i + 1],
+            torch.full((B,), i, dtype=torch.int32, device=dev), bt, ctx)
+        out.append(lg[:, 0])
+    return torch.stack(out), states
+
+
+def decode_ctx(model, configs, cfg, B, S, pt):
+    scfg = configs.ServeConfig(model=cfg, shape=configs.ShapeConfig(
+        "t", S, B, "decode"), kv_page_tokens=pt)
+    return model.make_decode_ctx(cfg, scfg, B)
+
+
+def traced_managers(paged_kv):
+    """Patch ``PageTableManager.alloc_seqs``/``free_seqs`` to log each call
+    (and the pages an allocation returned).  Returns (log, undo)."""
+    cls = paged_kv.PageTableManager
+    alloc, free = cls.alloc_seqs, cls.free_seqs
+    log = []
+
+    def alloc_seqs(self, reqs):
+        out = alloc(self, reqs)
+        log.append(("alloc", list(reqs),
+                    {s: np.asarray(v).tolist() for s, v in out.items()}))
+        return out
+
+    def free_seqs(self, seq_ids):
+        log.append(("free", list(seq_ids)))
+        return free(self, seq_ids)
+
+    cls.alloc_seqs, cls.free_seqs = alloc_seqs, free_seqs
+
+    def undo():
+        cls.alloc_seqs, cls.free_seqs = alloc, free
+    return log, undo
+
+
+def check_small_decode_vs_cpu(k):
+    """(a) The four dense archs at ``smoke_config`` in float32, the same
+    parameters on the card and the CPU: ``decode_step`` logits over 32
+    teacher-forced steps and the KV pools; then a small ``serve()`` (perf
+    page table) on both: the allocation and free trace, the steps, grow
+    and compact events and the page-table leaves.  Returns the card's
+    ``probe_perf`` launches in the serves."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import hashmap, paged_kv
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    B, S, pt = DECODE_SMALL
+    rng = np.random.default_rng(0)
+    for arch in DECODE_ARCHS:
+        cfg = configs.smoke_config(arch).replace(dtype="float32")
+        tree = model.params_to_numpy(model.init_params(cfg, 0, "cpu"))
+        tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+        ctx = decode_ctx(model, configs, cfg, B, S, pt)
+        bt = np.arange(B * ctx.n_pages, dtype=np.int32).reshape(B, -1)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            params = model.params_from_numpy(cfg, tree, dev)
+            lg, states = teacher_forced(model, params, cfg, tokens, bt, ctx)
+            got[dev] = (lg.cpu(), [s["k_pool"].cpu() for s in states])
+        err = float((got["cuda"][0] - got["cpu"][0]).abs().max())
+        kv_err = max(float((a - b).abs().max())
+                     for a, b in zip(got["cuda"][1], got["cpu"][1]))
+        check(err <= DECODE_TOL and kv_err <= DECODE_TOL,
+              f"small decode {arch}: card vs CPU logits {err}, KV {kv_err}")
+        print(f"small_decode {arch}: {S} steps x {B} sequences, card vs CPU "
+              f"max |logit diff| {err:.3e}, max |KV diff| {kv_err:.3e} "
+              f"(tolerance {DECODE_TOL})")
+
+    cfg = configs.smoke_config("llama3-8b").replace(dtype="float32")
+    card = model.init_params(cfg, 0, "cuda")
+    tree = model.params_to_numpy(card)
+    init = model.init_params
+    out = {}
+    reset_launches(k)
+    for dev in ("cuda", "cpu"):
+        log, undo = traced_managers(paged_kv)
+        if dev == "cpu":   # the card's parameters, not the CPU generator's
+            model.init_params = lambda c, seed, d: model.params_from_numpy(
+                c, tree, d)
+        try:
+            done, mgr, steps = serve.serve(cfg, seed=0, verbose=False,
+                                           device=dev, **DECODE_SMALL_SERVE)
+        finally:
+            undo()
+            model.init_params = init
+        out[dev] = (log, steps, mgr.grow_events, mgr.compact_events,
+                    hashmap.to_numpy(mgr.hm), [r["out"] for r in done])
+    launches = read_launches(k)["probe_perf"]
+    (log, steps, grows, compacts, leaves, outs), cpu = out["cuda"], out["cpu"]
+    check(log == cpu[0], "small serve: allocation/free traces differ")
+    check((steps, grows, compacts) == cpu[1:4],
+          "small serve: steps or grow/compact events differ")
+    check(leaves.keys() == cpu[4].keys() and all(
+        np.array_equal(leaves[n], cpu[4][n]) for n in leaves),
+        "small serve: page-table leaves differ")
+    check(launches > 0, "the small serve never launched probe_perf")
+    same = sum(a == b for x, y in zip(outs, cpu[5]) for a, b in zip(x, y))
+    print(f"small_serve llama3-8b smoke: {len(outs)} requests in {steps} "
+          f"steps, {sum(op == 'alloc' for op, *_ in log)} allocs and "
+          f"{sum(op == 'free' for op, *_ in log)} frees; card equals CPU "
+          f"(trace, steps, grows {grows}, compactions {compacts}, leaves); "
+          f"tokens equal {same}/{sum(map(len, outs))}; probe_perf launches "
+          f"{launches}")
+    return launches
+
+
+def check_decode_matches_forward(smi):
+    """(b) Qwen3-8B at its published widths and depth, float32, TF32 off:
+    two sequences of 64 tokens teacher-forced through ``decode_step`` on a
+    block table probed from a ``perf`` PageTableManager, every position's
+    logits against ``forward`` + ``logits_fn``.  Returns the parameters."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.paged_kv import PageTableManager
+    from repro_torch.models import model
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmuls are on: float32 decode would not be float32")
+    cfg = configs.get_config(DECODE_ARCH).replace(dtype="float32")
+    B, S, pt = DECODE_TF
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = host_s(lambda: model.init_params(cfg, 0, "cuda"))
+    n_params = sum(p.numel() for p in params.parameters())
+    ctx = decode_ctx(model, configs, cfg, B, S, pt)
+    mgr = PageTableManager(ctx.pool_pages, backend="perf", device="cuda")
+    phys = mgr.alloc_seqs([(s, ctx.n_pages, 0) for s in range(B)])
+    bt = mgr.block_table(list(range(B)), ctx.n_pages)
+    check(all(np.array_equal(bt[s], phys[s]) for s in range(B)),
+          "the probed block table differs from the allocation")
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    (dec, _), dec_s = host_s(lambda: teacher_forced(model, params, cfg,
+                                                    tokens, bt, ctx))
+    x, _ = model.forward(params, cfg, {"tokens": torch.from_numpy(
+        tokens).cuda()})
+    full = model.logits_fn(params, cfg, x).transpose(0, 1)
+    err = (dec - full).abs()
+    ok = torch.isclose(dec, full, rtol=DECODE_TOL, atol=DECODE_TOL)
+    check(bool(torch.isfinite(dec).all()), "decode logits not finite")
+    check(bool(ok.all()), f"decode != forward at {int((~ok).sum())} logits, "
+          f"max |diff| {float(err.max())}")
+    print(f"decode_vs_forward {DECODE_ARCH}: {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
+          f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+          f"(padded {cfg.padded_vocab}); {n_params} float32 params "
+          f"({n_params * 4 / 1e9:.3f} GB) drawn on the card in {init_s:.3f} "
+          f"s; {B} x {S} tokens teacher-forced in {dec_s:.3f} s; every "
+          f"position's logits within {DECODE_TOL} of forward: max |diff| "
+          f"{float(err.max()):.3e}, largest |logit| "
+          f"{float(full.abs().max()):.3f}; TF32 off; "
+          f"block table probed through probe_perf; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card: {smi}")
+    del params, dec, full, x
+    torch.cuda.empty_cache()
+
+
+class DecodeTimer:
+    """Host clocks around the serving loop's model step (ended by a
+    synchronise) and the page table's ``alloc_seqs``, ``free_seqs`` and
+    ``tick``, installed by patching ``steps.build_serve_step`` and the
+    manager's methods for the length of a ``with`` block.  With ``check``
+    every step's logits must be finite and every admission's probed block
+    table must equal its allocation, and ``probe_perf`` must equal its
+    plain version on every live key of the table."""
+
+    def __init__(self, k=None, ref=None, check_tables=False):
+        self.k, self.ref, self.check_tables = k, ref, check_tables
+        self.step_ms, self.table_ms, self.t_first = [], 0.0, None
+        self.admissions = self.keys_checked = 0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core.paged_kv import PageTableManager
+        from repro_torch.distributed import steps
+        self._build = steps.build_serve_step
+        cls = PageTableManager
+        self._orig = {n: getattr(cls, n) for n in ("alloc_seqs",
+                                                   "free_seqs", "tick")}
+        timer = self
+
+        def build_serve_step(*a, **kw):
+            step, ctx = timer._build(*a, **kw)
+
+            def timed(params, states, tokens, pos, bt):
+                t0 = time.perf_counter()
+                timer.t_first = timer.t_first or t0
+                out = step(params, states, tokens, pos, bt)
+                if timer.check_tables:
+                    check(bool(torch.isfinite(out[1]).all()),
+                          "decode logits not finite")
+                sync()
+                timer.step_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return timed, ctx
+
+        def timed_method(name):
+            orig = self._orig[name]
+
+            def method(mgr, *a):
+                t0 = time.perf_counter()
+                out = orig(mgr, *a)
+                timer.table_ms += (time.perf_counter() - t0) * 1e3
+                if name == "alloc_seqs" and timer.check_tables and a[0]:
+                    timer.check_admission(mgr, a[0], out)
+                return out
+            return method
+
+        steps.build_serve_step = build_serve_step
+        for n in self._orig:
+            setattr(cls, n, timed_method(n))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.paged_kv import PageTableManager
+        from repro_torch.distributed import steps
+        steps.build_serve_step = self._build
+        for n, f in self._orig.items():
+            setattr(PageTableManager, n, f)
+
+    def check_admission(self, mgr, reqs, phys):
+        """The probed table against the allocator, and ``probe_perf``
+        against its plain version on every live key of the table."""
+        from repro_torch.core import hashmap
+        from repro_torch.core.hashing import as_u32
+        from repro_torch.core.layout import to_bits
+        n = max(nb for _, nb, _ in reqs)
+        ids = [s for s, _, _ in reqs]
+        bt = mgr.block_table(ids, n)
+        check(all(np.array_equal(bt[i][:len(phys[s])], phys[s])
+                  for i, s in enumerate(ids)),
+              "a probed block table differs from its allocation")
+        keys = np.asarray([mgr._key(s, j) for s, own in mgr.owned.items()
+                           for j in range(len(own))], np.uint32)
+        q = as_u32(keys, mgr.hm.device)
+        pages = hashmap.resolve_pages(mgr.hm, q)
+        pool = mgr.hm.store.pool
+        out = self.k["probe_perf"](pool, to_bits(q), pages)
+        plain = self.ref.probe_pages_ref(pool, to_bits(q), pages)
+        mis, _ = mismatch(out, plain)
+        check(mis == 0, f"probe_perf != plain on {mis} page-table keys")
+        want = np.concatenate([np.asarray(mgr.owned[s]) for s in mgr.owned])
+        check(np.array_equal(out[:, 0].cpu().numpy(), want.astype(np.int32))
+              and bool((out[:, 1] != 0).all()),
+              "probe_perf does not resolve every live page")
+        self.admissions += 1
+        self.keys_checked += keys.size
+
+
+def served_run(serve, k, ref=None, check_tables=False, profile=False,
+               **kw):
+    """One ``serve()`` of Qwen3-8B at its published widths under a
+    ``DecodeTimer``; with ``profile`` inside a ``torch.profiler`` window.
+    Returns (done, mgr, steps, timer, probe_perf launches, wall s of the
+    loop, peak GiB, profiler or None)."""
+    import torch
+    from repro_torch import configs
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    cfg = configs.get_config(DECODE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(k)
+    prof = torch_profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) \
+        if profile else None
+    with DecodeTimer(k, ref, check_tables) as timer:
+        if prof is not None:
+            prof.__enter__()
+        try:
+            done, mgr, steps = serve.serve(cfg, seed=0, verbose=False,
+                                           device="cuda", **kw)
+            sync()
+            wall = time.perf_counter() - timer.t_first
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+    launches = read_launches(k)["probe_perf"]
+    return (done, mgr, steps, timer, launches, wall,
+            torch.cuda.max_memory_allocated() / 2**30, prof)
+
+
+def check_served(cfg, done, mgr, kw, what):
+    check(len(done) == kw["requests"], f"{what}: {len(done)} requests done")
+    check(all(len(r["out"]) == kw["max_new"] for r in done),
+          f"{what}: a request ended short of max_new")
+    check(all(0 <= t < cfg.padded_vocab for r in done for t in r["out"]),
+          f"{what}: a token past the padded vocabulary")
+    check(mgr.live_pages() == 0, f"{what}: live pages after the drain")
+    check(all(len(a) == mgr.pps for a in mgr.free),
+          f"{what}: an arena is not full after the drain")
+
+
+def decode_path(k, ref, smi):
+    """Phase 10: LM decode serving over the HashMem page table."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    small_launches = check_small_decode_vs_cpu(k)
+    t1 = time.perf_counter()
+    check_decode_matches_forward(smi)
+    t2 = time.perf_counter()
+    cfg = configs.get_config(DECODE_ARCH)
+
+    done, mgr, steps, timer, _, _, _, _ = served_run(
+        serve, k, ref, check_tables=True, **DECODE_CHECKED)
+    check_served(cfg, done, mgr, DECODE_CHECKED, "checked serve")
+    checked_out = {r["id"]: r["out"] for r in done}
+    print(f"decode_checked: {len(done)} requests, {steps} steps, every "
+          f"step's logits finite; at {timer.admissions} admissions the "
+          f"probed block tables equal the allocator's and probe_perf equals "
+          f"plain bit for bit on {timer.keys_checked} page-table keys; "
+          f"(a) {t1 - t0:.3f} s, (b) {t2 - t1:.3f} s, checked serve "
+          f"{time.perf_counter() - t2:.3f} s")
+
+    done, mgr, steps, timer, launches, wall, peak, _ = served_run(
+        serve, k, **DECODE_SERVE)
+    check_served(cfg, done, mgr, DECODE_SERVE, "timed serve")
+    check(all(r["out"] == checked_out[r["id"]] for r in done
+              if r["id"] in checked_out),
+          "the timed serve's tokens differ from the checked one's")
+    check(launches > 0, "the decode path never launched probe_perf")
+    gen = sum(len(r["out"]) for r in done)
+    st = [s for s in timer.step_ms]
+    # the step's least bytes: every weight once as stored, every KV pool
+    # once (the gather path reads whole block tables)
+    from repro_torch.models import model
+    meta = model.Model(cfg, "meta")
+    w_bytes = sum(p.numel() * p.element_size() for p in meta.parameters())
+    B, pt = DECODE_SERVE["batch"], DECODE_SERVE["page_tokens"]
+    n_pages = DECODE_SERVE["horizon"] // pt
+    kv_bytes = 2 * cfg.num_layers * B * n_pages * pt * cfg.num_kv_heads \
+        * cfg.head_dim * 4
+    ops = 2 * B * sum(p.numel() for p in meta.parameters())
+    bound_ms = max((w_bytes + kv_bytes) / HBM_RATE, ops / BF16_RATE) * 1e3
+    med = float(np.median(st))
+    print(f"decode_serve {DECODE_ARCH} (params float32, activations bfloat16,"
+          f" KV float32): batch {B}, horizon {DECODE_SERVE['horizon']}, "
+          f"page_tokens {pt} ({n_pages} pages a sequence, pool {B * n_pages} "
+          f"pages, KV {kv_bytes / 1e9:.3f} GB), {len(done)} requests of "
+          f"prompt {DECODE_SERVE['prompt_len']} + {DECODE_SERVE['max_new']} "
+          f"new, backend perf; {steps} decode steps, {gen} tokens in "
+          f"{wall:.3f} s = {gen / wall:.1f} generated tokens/s; step ms "
+          f"median {med:.3f} (min {min(st):.3f}, max {max(st):.3f}) against "
+          f"a bound of {bound_ms:.3f} ms (weights {w_bytes / 1e9:.3f} GB + "
+          f"KV {kv_bytes / 1e9:.3f} GB at {HBM_RATE / 1e12:.2f} TB/s; "
+          f"{bound_ms / med * 100:.1f}% of bound); page-table host ms a step "
+          f"{timer.table_ms / steps:.4f} (alloc_seqs + free_seqs + tick, "
+          f"{timer.table_ms:.3f} ms in all); probe_perf launches {launches} "
+          f"= {launches / steps:.4f} a step; grows {mgr.grow_events}, "
+          f"compactions {mgr.compact_events}; peak {peak:.2f} GiB; "
+          f"card: {smi}")
+
+    done, mgr, psteps, _, _, pwall, _, prof = served_run(
+        serve, k, profile=True, **DECODE_PROFILE)
+    check_served(cfg, done, mgr, DECODE_PROFILE, "profiled serve")
+    busy, idle, rows, _ = device_profile(prof, pwall)
+    check(busy > 0, "the profiled serve shows no device time")
+    print(f"decode_profile: {psteps} steps under torch.profiler, wall "
+          f"{pwall * 1e3:.3f} ms, device busy {busy:.3f} ms, idle "
+          f"{idle * 100:.1f}%; top kernels:")
+    for ms, n, name in rows:
+        print(f"  {ms:10.3f} ms x{n:<6d} {name}")
+    del prof
+    print(f"decode_path: {time.perf_counter() - t0:.3f} s; card: {smi}")
+    return launches, small_launches, dict(steps=steps, median_ms=med,
+                                          bound_ms=bound_ms)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1942,6 +2360,9 @@ def main() -> int:
                                  host_results)
     del data, host_results
 
+    # -- 10. decode serving over the HashMem page table -------------------------
+    decode_launches, _, _ = decode_path(k, ref, smi)
+
     replaces = {"probe_perf": "src/repro/kernels/probe_perf.py:34",
                 "probe_area": "src/repro/kernels/probe_area.py:32",
                 "probe_bitserial": "src/repro/kernels/probe_bitserial.py:36"}
@@ -1951,7 +2372,7 @@ def main() -> int:
           "the serving path never launched probe_perf")
     check(m_probe["probe_perf"] == 1 and m_serve["probe_perf"] > 0,
           "the mesh path did not launch probe_perf")
-    launches = {"probe_perf": perf_path["probe_perf"],
+    launches = {"probe_perf": perf_path["probe_perf"] + decode_launches,
                 "probe_area": bs_path["probe_area"],
                 "probe_bitserial": bs_path["probe_bitserial"]}
     print(json.dumps({"kernels": [{

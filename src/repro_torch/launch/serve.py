@@ -1,30 +1,153 @@
-"""Serving CLI of the port: the ``kv`` mode of the JAX package's
-``launch/serve.py`` over ``repro_torch.serving``.
+"""Serving CLI of the port: the JAX package's ``launch/serve.py`` over
+``repro_torch``, with its two modes.
 
-``kv`` runs the multi-tenant continuous-batching KV engine under a
-YCSB-style load: one tenant per workload letter (A-F), the YCSB load phase,
-admission quotas, step-level op coalescing, JSON metrics.
+  * ``decode`` (default): batched LM decode with the HashMem-managed paged
+    KV cache.  Slot lifecycle and admission come from the serving engine's
+    ``SlotPool``; all page-table traffic in a step is COALESCED -- one
+    batched HashMem delete for every sequence finishing in the step
+    (``free_seqs``) and one batched insert for every sequence admitted in
+    it (``alloc_seqs``) -- and ``PageTableManager.tick()`` runs the
+    compaction triggers on the step clock.  The dense family only (ROADMAP
+    Queue 1 item 12 lists the rest).
 
+  * ``kv``: the multi-tenant continuous-batching KV engine under a
+    YCSB-style load: one tenant per workload letter (A-F), the YCSB load
+    phase, admission quotas, step-level op coalescing, JSON metrics.
+
+    python -m repro_torch.launch.serve --arch llama3-8b --smoke \\
+        --requests 12 --batch 4 --max-new 16        # on the card
+    python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu
     python -m repro_torch.launch.serve --mode kv --workloads A,B,E \\
-        --requests 64 --slots 16                    # on the card
-    python -m repro_torch.launch.serve --mode kv --device cpu ...
-
-    python -m repro_torch.launch.serve --mode kv --device cpu \
+        --requests 64 --slots 16 [--device cpu]
+    python -m repro_torch.launch.serve --mode kv --device cpu \\
         --mesh-shards 4 [--no-fused-tick]           # 4 stacked shards
 
-The flags are the JAX CLI's, plus ``--device``.  ``--backend`` defaults to
-``perf`` here (``ref`` in the JAX CLI): on the card ``ref`` is the plain
-PyTorch compare and launches no kernel.  ``--mesh-shards N`` stacks N
-shards on the one device (``launch/mesh.py``) instead of the JAX CLI's one
-shard a device.  ``--mode decode`` waits for the model zoo (ROADMAP Queue
-1 item 12).
+The flags are the JAX CLI's, plus ``--device``, less ``--mesh``: decode
+runs on one card, with the geometry of JAX's default ``(1, 1)`` mesh.
+``--backend`` defaults to ``perf`` here (``ref`` in the JAX CLI): on the
+card ``ref`` is the plain PyTorch compare and launches no kernel.
+``--mesh-shards N`` stacks N shards on the one device (``launch/mesh.py``)
+instead of the JAX CLI's one shard a device.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import time
 
-from repro_torch.serving import build_ycsb_engine
+import numpy as np
+import torch
+
+from repro_torch.configs import ServeConfig, ShapeConfig, get_config, \
+    smoke_config
+from repro_torch.core.layout import resolve_device
+from repro_torch.core.paged_kv import PageTableManager
+from repro_torch.distributed import steps as dsteps
+from repro_torch.models import model, transformer
+from repro_torch.serving import SlotPool, build_ycsb_engine
+
+# JAX's serving CLI decodes on a (1, 1) ("data", "model") mesh; the port
+# takes its geometry (one batch group, one channel) on one card.
+DECODE_MESH = {"data": 1, "model": 1}
+
+
+def _host_buffer(shape, dev):
+    """An int32 host array for the step's inputs, and the tensor behind it:
+    pinned when the step runs on the card, so each step's copy goes with
+    ``non_blocking`` (the step's one host sync, the next tokens, comes
+    after it, so the host never rewrites a buffer still being copied)."""
+    t = torch.zeros(shape, dtype=torch.int32)
+    if dev.type == "cuda":
+        t = t.pin_memory()
+    return t, t.numpy()
+
+
+def serve(cfg, *, batch=4, horizon=256, page_tokens=32, requests=8,
+          max_new=16, prompt_len=8, seed=0, backend="perf", verbose=True,
+          compact_chain_len=None, device=None):
+    """Continuous-batching greedy decode of ``requests`` random prompts on
+    ``device`` (None: the card), step for step as the JAX package's
+    ``serve``: a model drawn from ``seed``, float32 KV pools, a page table
+    on a ``backend`` HashMem.  Each step runs the model on every slot
+    (idle ones too), then frees the finished sequences in one batched
+    delete, refills the slots with one batched insert and ticks the page
+    table.  Returns (done requests, the PageTableManager, steps run)."""
+    dev = resolve_device(device)
+    shape = ShapeConfig("serve", horizon, batch, "decode")
+    scfg = ServeConfig(model=cfg, shape=shape, kv_page_tokens=page_tokens)
+    serve_step, ctx = dsteps.build_serve_step(cfg, scfg, mesh=DECODE_MESH)
+
+    params = model.init_params(cfg, seed, dev)
+    states = model.init_decode_states(params, cfg, batch, ctx,
+                                      kv_dtype=torch.float32)
+    mgr = PageTableManager(ctx.pool_pages, backend=backend,
+                           compact_chain_len=compact_chain_len, device=dev)
+    rng = np.random.default_rng(seed)
+
+    pool = SlotPool(batch)
+    bt_t, block_tables = _host_buffer((batch, ctx.n_pages), dev)
+    pos_t, pos = _host_buffer((batch,), dev)
+    tok_t, tokens = _host_buffer((batch, 1), dev)
+    done = []
+    t0 = time.time()
+    steps_run = 0
+
+    def place(newly):
+        """Coalesced admission: ONE page-table insert for every sequence
+        admitted this step, then per-slot decode-state reset."""
+        if not newly:
+            return
+        phys = mgr.alloc_seqs([(req["id"], ctx.n_pages, 0)
+                               for _, req in newly])
+        for slot, req in newly:
+            block_tables[slot] = phys[req["id"]]
+            pos[slot] = 0
+            tokens[slot, 0] = req["prompt"][0]
+            req["fed"] = 1
+
+    for i in range(requests):
+        pool.submit({"id": i,
+                     "prompt": rng.integers(0, cfg.vocab_size,
+                                            prompt_len).tolist(),
+                     "out": []})
+    place(pool.active())
+
+    while not pool.idle():
+        nt, _, states = serve_step(
+            params, states, tok_t.to(dev, non_blocking=True),
+            pos_t.to(dev, non_blocking=True),
+            bt_t.to(dev, non_blocking=True))
+        nt = nt.cpu().numpy()
+        steps_run += 1
+        finished = []
+        for b, req in pool.active():
+            pos[b] += 1
+            if req["fed"] < len(req["prompt"]):
+                tokens[b, 0] = req["prompt"][req["fed"]]   # prompt feeding
+                req["fed"] += 1
+            else:
+                req["out"].append(int(nt[b]))
+                tokens[b, 0] = int(nt[b])
+                if len(req["out"]) >= max_new or pos[b] >= horizon - 1:
+                    finished.append((b, req))
+        # tombstone + recycle: ONE batched delete for the whole step
+        mgr.free_seqs([req["id"] for _, req in finished])
+        for b, req in finished:
+            pool.release(b)
+            done.append(req)
+        place(pool.refill())
+        mgr.tick()             # step-clock compaction (not only on frees)
+
+    dt_val = time.time() - t0
+    if verbose:
+        print(f"served {len(done)} requests in {steps_run} decode steps, "
+              f"{dt_val:.1f}s; live pages after drain: {mgr.live_pages()}; "
+              f"page-table grows={mgr.grow_events} "
+              f"compactions={mgr.compact_events}")
+        for req in done[:4]:
+            print(f"  req {req['id']}: prompt {req['prompt'][:4]}... -> "
+                  f"out {req['out'][:8]}")
+    return done, mgr, steps_run
 
 
 def serve_kv(*, workloads="A", tenants=None, requests=64, slots=16,
@@ -77,7 +200,7 @@ def serve_kv(*, workloads="A", tenants=None, requests=64, slots=16,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", default="kv", choices=["decode", "kv"])
+    ap.add_argument("--mode", default="decode", choices=["decode", "kv"])
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain PyTorch versions; the card by "
                          "default")
@@ -86,6 +209,19 @@ def main(argv=None):
                     help="probe backend of the tables (default perf: on the "
                          "card ref runs no kernel)")
     ap.add_argument("--requests", type=int, default=8)
+    # decode-mode knobs
+    ap.add_argument("--arch", default=None, help="(decode mode) model arch")
+    ap.add_argument("--smoke", action="store_true",
+                    help="(decode mode) the arch's reduced smoke config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--horizon", type=int, default=256)
+    ap.add_argument("--page-tokens", type=int, default=32)
+    ap.add_argument("--compact-chain-len", type=int, default=None,
+                    help="page-table compaction when any bucket chain "
+                         "exceeds this many pages (skewed frees); default: "
+                         "tombstone-fraction trigger only")
+    # kv-mode knobs
     ap.add_argument("--workloads", default="A",
                     help="comma-separated YCSB letters, one tenant per "
                          "entry, e.g. A,B,E")
@@ -112,8 +248,18 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.mode == "decode":
-        ap.error("--mode decode is not ported yet: it needs the model zoo "
-                 "(ROADMAP Queue 1 item 12)")
+        if args.arch is None:
+            ap.error("--arch is required in decode mode")
+        cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+        try:
+            transformer.require_dense(cfg)
+        except NotImplementedError as e:
+            ap.error(str(e))
+        serve(cfg, batch=args.batch, requests=args.requests,
+              max_new=args.max_new, horizon=args.horizon,
+              page_tokens=args.page_tokens, backend=args.backend,
+              compact_chain_len=args.compact_chain_len, device=args.device)
+        return
     serve_kv(workloads=args.workloads, requests=args.requests,
              slots=args.slots, shards=args.shards,
              record_count=args.record_count,

@@ -53,7 +53,12 @@ def test_importing_the_port_loads_no_jax():
         "assert not bad, bad\n"
         "want = {'repro_torch.core.rlu', 'repro_torch.launch.mesh',\n"
         "        'repro_torch.distributed.sharding',\n"
-        "        'repro_torch.channels_demo'}\n"
+        "        'repro_torch.channels_demo', 'repro_torch.configs.base',\n"
+        "        'repro_torch.configs.qwen3_8b', 'repro_torch.models.layers',\n"
+        "        'repro_torch.models.mlp', 'repro_torch.models.attention',\n"
+        "        'repro_torch.models.transformer', 'repro_torch.models.model',\n"
+        "        'repro_torch.core.paged_kv', 'repro_torch.core.pim_embedding',\n"
+        "        'repro_torch.distributed.steps', 'repro_torch.serve_paged'}\n"
         "assert want <= set(mods), want - set(mods)\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
