@@ -87,9 +87,28 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      the allocator, ``probe_perf`` against plain on the table's keys), once
      timed (tokens/s, step ms against its byte bound, page-table host ms,
      ``probe_perf`` launches a step, peak memory) and once profiled (device
-     idle share); prints the ``kernels`` line (``probe_perf``'s launches
-     count the perf path's and the timed decode's);
- 11. prints the device line last.
+     idle share), all under ``torch.no_grad()``;
+ 11. trains and checkpoints (``launch/train.py`` ``train``,
+     ``checkpoint/checkpointer.py``): (a) llama3-8b, qwen3-8b and
+     h2o-danube-1.8b at ``smoke_config`` in float32 with TF32 off, 4 train
+     steps on the card against the CPU from the same parameters and batches
+     (losses, grad norms, parameters); (b) the restart of
+     ``tests/test_train_integration.py`` on the card: a failure injected at
+     step 10 with a checkpoint every 4 steps gives losses, parameters and
+     moments bit-equal to an uninterrupted run's; (c) the phase 4 ``perf``
+     table (100M pairs) saved by the ``Checkpointer`` and restored to the
+     card, its leaves equal and the 10M paper probes through ``probe_perf``
+     equal before and after (save and restore seconds and GB/s); (d)
+     h2o-danube-1.8b at its published widths and depth (random init on the
+     card, params float32, activations bfloat16, AdamW float32, remat) for 8
+     steps at batch 4 x 4096 with a checkpoint at step 6, and a second run
+     resumed from it whose steps 6-7 and final checkpoint equal the first
+     run's bit for bit: losses, ms a step, tokens/s, FLOP share of the bf16
+     peak, peak memory, checkpoint seconds, and the device idle share over
+     a profiled step; prints the ``kernels`` line (``probe_perf``'s
+     launches count the perf path's, the timed decode's and the
+     checkpointed table's probes);
+ 12. prints the device line last.
 
 Any failed check raises and the script exits non-zero.  Without a card, or
 without the rest of the repo beside it, it exits non-zero and prints no
@@ -2060,6 +2079,407 @@ def decode_path(k, ref, smi):
                                           bound_ms=bound_ms)
 
 
+# ---------------------------------------------------------------------------
+# Training and checkpoint
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCHS = ("llama3-8b", "qwen3-8b", "h2o-danube-1.8b")
+TRAIN_SMALL = (4, 64, 4)         # batch, sequence, steps (smoke, float32)
+TRAIN_WINDOW = 12                # h2o's smoke window, which 64 tokens pass
+TRAIN_OC = dict(lr=1e-3, warmup_steps=2, total_steps=16)
+# card vs CPU, both float32 with TF32 off, summation order apart: losses and
+# grad norms within 1e-5 relative; parameters within 1e-3 (one AdamW step
+# at the peak rate moves an element by at most lr) and at most 1e-4 of them
+# beyond 1e-5 (AdamW's normalisation magnifies gradient noise on elements
+# whose gradient is near eps; the port against JAX on the CPU: 3-5 of 788k
+# elements beyond 1e-5 after 4 steps, none beyond 1e-4)
+TRAIN_TOL = dict(loss=1e-5, params=1e-3, params_fine=1e-5, share=1e-4)
+TRAIN_RESTART = dict(arch="qwen3-8b", seq=64, batch=4, steps=16, every=4,
+                     inject=10)
+TRAIN_ARCH = "h2o-danube-1.8b"   # published widths and depth, random init
+# SHAPES["train_4k"] (seq 4096, batch 256) cut to batch 4 for one card
+TRAIN_FULL = dict(seq=4096, batch=4, steps=8, ckpt_at=6, profile_steps=1)
+CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
+
+
+def small_train_run(cfg, tree, dev):
+    """4 train steps of ``cfg`` from the parameter tree ``tree`` on
+    ``dev``: (losses, grad norms, final parameter tree)."""
+    import torch
+    from repro_torch.configs import OptimConfig, ShapeConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed import steps
+    from repro_torch.models import model
+    from repro_torch.optim import init_opt_state
+    B, S, n = TRAIN_SMALL
+    oc = OptimConfig(**TRAIN_OC)
+    params = model.params_from_numpy(cfg, tree, dev)
+    opt = init_opt_state(params, oc)
+    step = steps.build_train_step(cfg, oc)
+    data = SyntheticLMData(cfg, ShapeConfig("t", S, B, "train"))
+    losses, norms = [], []
+    for s in range(n):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch_at(s).items()}
+        params, opt, m = step(params, opt, batch)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+    return losses, norms, model.params_to_numpy(params)
+
+
+def check_small_train_vs_cpu(smi):
+    """(a) Three dense archs at ``smoke_config`` in float32, TF32 off: the
+    same parameters (drawn on the CPU, carried by ``params_to_numpy``) and
+    the same batches, 4 train steps on the card and on the CPU."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import model
+    from repro_torch.models.layers import flatten_tree
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmuls are on: float32 training would not be float32")
+    for arch in TRAIN_ARCHS:
+        cfg = configs.smoke_config(arch).replace(dtype="float32")
+        if cfg.sliding_window:
+            cfg = cfg.replace(sliding_window=TRAIN_WINDOW)
+        tree = model.params_to_numpy(model.init_params(cfg, 0, "cpu"))
+        (cl, cn, cp), (hl, hn, hp) = (small_train_run(cfg, tree, d)
+                                      for d in ("cuda", "cpu"))
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(cl + cn, hl + hn))
+        cp, hp = flatten_tree(cp), flatten_tree(hp)
+        d = np.concatenate([np.abs(cp[k] - hp[k]).ravel() for k in hp])
+        beyond = int((d > TRAIN_TOL["params_fine"]).sum())
+        check(all(np.isfinite(cl)), f"small train {arch}: a loss not finite")
+        check(loss_err <= TRAIN_TOL["loss"],
+              f"small train {arch}: card vs CPU loss/grad norm {loss_err}")
+        check(d.max() <= TRAIN_TOL["params"]
+              and beyond <= TRAIN_TOL["share"] * d.size,
+              f"small train {arch}: card vs CPU params max {d.max()}, "
+              f"{beyond} of {d.size} beyond {TRAIN_TOL['params_fine']}")
+        print(f"small_train {arch}: {TRAIN_SMALL[2]} steps of {TRAIN_SMALL[0]}"
+              f" x {TRAIN_SMALL[1]} tokens, float32, TF32 off; card losses "
+              f"{[round(v, 6) for v in cl]}; card vs CPU: max relative "
+              f"loss/grad-norm diff {loss_err:.3e} (tolerance "
+              f"{TRAIN_TOL['loss']}), params max |diff| {d.max():.3e} "
+              f"(tolerance {TRAIN_TOL['params']}), {beyond} of {d.size} "
+              f"beyond {TRAIN_TOL['params_fine']}; card: {smi}")
+
+
+def check_restart_on_card(smi):
+    """(b) ``tests/test_train_integration.py``'s restart on the card: an
+    uninterrupted run and one with a failure injected at step 10 (a
+    checkpoint every 4 steps) give bit-equal losses, parameters and
+    moments."""
+    import shutil
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.train import train
+    r = TRAIN_RESTART
+    cfg = configs.smoke_config(r["arch"])
+    shape = configs.ShapeConfig("t", r["seq"], r["batch"], "train")
+    oc = configs.OptimConfig(**TRAIN_OC)
+    runs = {}
+    t0 = time.perf_counter()
+    for name, inject in (("plain", None), ("failed", [r["inject"]])):
+        d = CKPT_ROOT / f"restart_{name}"
+        shutil.rmtree(d, ignore_errors=True)
+        runs[name] = train(cfg, shape, oc, num_steps=r["steps"],
+                           ckpt_dir=str(d), ckpt_every=r["every"],
+                           inject=inject, verbose=False, device="cuda")
+    (p0, o0, l0, _, _), (p1, o1, l1, _, pol) = runs["plain"], runs["failed"]
+    check(pol.restarts == 1, "the injected failure did not restart")
+    check(l0 == l1, "the restarted run's losses differ from the plain run's")
+    check(all(torch.equal(a, b) for a, b in zip(p0.parameters(),
+                                                p1.parameters())),
+          "the restarted run's parameters differ")
+    check(all(torch.equal(o0[m][n], o1[m][n]) for m in ("m", "v")
+              for n in o0[m]), "the restarted run's moments differ")
+    print(f"restart {r['arch']} smoke ({cfg.dtype} activations): "
+          f"{r['steps']} steps, failure injected at step {r['inject']}, "
+          f"checkpoint every {r['every']}: losses, parameters and moments "
+          f"bit-equal to the uninterrupted run's (losses "
+          f"{[round(l0[s], 5) for s in (0, 8, 15)]} at steps 0/8/15); "
+          f"{time.perf_counter() - t0:.3f} s; card: {smi}")
+
+
+def table_leaves(hashmap, hm):
+    return {n: (hm.bucket_head if n == "bucket_head" else
+                getattr(hm.store, n))
+            for n in hashmap.leaf_names(hm.config)}
+
+
+def checkpoint_paper_table(hashmap, cfg, keys, vals, probes, pidx, k, smi):
+    """(c) The phase 4 ``perf`` table at PAPER_HASHMEM (100M pairs) through
+    the port's ``Checkpointer``: saved, restored to the card, leaves equal,
+    and the 10M paper probes through ``probe_perf`` equal before and after.
+    Returns the ``probe_perf`` launches of the two probes."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    hm = hashmap.build(cfg, keys, vals)
+    reset_launches(k)
+    v0, f0 = hashmap.probe(hm, probes)
+    d = CKPT_ROOT / "table"
+    shutil.rmtree(d, ignore_errors=True)
+    ck = Checkpointer(str(d), async_save=False)
+    _, save_s = host_s(lambda: ck.save(1, hm))
+    target = hashmap.create(cfg)
+    got, restore_s = host_s(lambda: ck.restore(1, target, device="cuda"))
+    del target
+    have, want = table_leaves(hashmap, got), table_leaves(hashmap, hm)
+    check(have.keys() == want.keys() and all(
+        torch.equal(have[n], want[n]) for n in want),
+        "the restored table's leaves differ from the saved table's")
+    v1, f1 = hashmap.probe(got, probes)
+    launches = read_launches(k)["probe_perf"]
+    check(torch.equal(v0, v1) and torch.equal(f0, f1),
+          "probes of the restored table differ from those before the save")
+    check(bool(f1.all()) and np.array_equal(
+        v1.cpu().numpy().astype(np.uint32), vals[pidx]),
+        "the restored table lost built keys")
+    check(launches >= 2, "the table's probes did not launch probe_perf")
+    nbytes = sum(t.numel() * t.element_size() for t in want.values())
+    files = sum(f.stat().st_size for f in (d / "step_00000001").iterdir())
+    print(f"ckpt_table: PAPER_HASHMEM perf table ({N_BUILD} pairs, "
+          f"{nbytes / 1e9:.3f} GB of leaves, {files / 1e9:.3f} GB of files) "
+          f"saved in {save_s:.3f} s ({nbytes / save_s / 1e9:.2f} GB/s: copy "
+          f"to host, .npy, sha256, fsync, rename) and restored to the card in "
+          f"{restore_s:.3f} s ({nbytes / restore_s / 1e9:.2f} GB/s: read, "
+          f"sha256, copy to the card); leaves equal; {probes.size} paper "
+          f"probes through probe_perf equal before and after, every built "
+          f"key found with its value; probe_perf launches {launches}; "
+          f"card: {smi}")
+    del hm, got, v0, f0, v1, f1
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+class CkptTimer:
+    """Host clocks around ``Checkpointer.save`` (for an asynchronous save,
+    the snapshot to host memory), ``_write`` (files, sha256, fsync, rename:
+    the writer thread's work) and ``restore``, installed by patching the
+    class for the length of a ``with`` block."""
+
+    NAMES = ("save", "_write", "restore")
+
+    def __enter__(self):
+        from repro_torch.checkpoint import Checkpointer
+        self._orig = {n: getattr(Checkpointer, n) for n in self.NAMES}
+        self.seconds = {n: [] for n in self.NAMES}
+        for n, f in self._orig.items():
+            setattr(Checkpointer, n, self._timed(n, f))
+        return self
+
+    def _timed(self, name, f):
+        def method(ck, *a, **kw):
+            t0 = time.perf_counter()
+            out = f(ck, *a, **kw)
+            self.seconds[name].append(time.perf_counter() - t0)
+            return out
+        return method
+
+    def __exit__(self, *exc):
+        from repro_torch.checkpoint import Checkpointer
+        for n, f in self._orig.items():
+            setattr(Checkpointer, n, f)
+
+
+def kernel_groups(prof) -> dict:
+    """Device ms of a profile's kernels in three groups: float32 matmuls
+    (FFMA GEMMs and GEMVs: no tensor cores without TF32), the other
+    matmuls (tensor-core GEMMs, bfloat16 here), and the rest (elementwise
+    ops, reductions, copies, gathers)."""
+    from torch.autograd import DeviceType
+    out = {"float32 matmul": 0.0, "bf16 matmul": 0.0, "elementwise/other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        if any(t in e.key for t in ("f32f32", "sgemm", "gemmSN", "Gemv")):
+            group = "float32 matmul"
+        elif "gemm" in e.key or "nvjet" in e.key:
+            group = "bf16 matmul"
+        else:
+            group = "elementwise/other"
+        out[group] += e.self_device_time_total / 1e3
+    return out
+
+
+def train_flops(cfg, B, S):
+    """(matmul FLOPs of one remat train step, attention FLOPs, parameters):
+    8 x the parameters of every matmul (not the embedding, a gather) x the
+    tokens (forward, its recompute, and a backward of twice the forward),
+    plus 4 passes of the causal QK^T and PV (the scores at or below the
+    diagonal, inside the window)."""
+    from repro_torch.models import model
+    meta = model.Model(cfg, "meta")
+    n_params = sum(p.numel() for p in meta.parameters())
+    n_mm = sum(p.numel() for n, p in meta.named_parameters()
+               if p.dim() >= 2 and n != "embed")
+    w = min(cfg.sliding_window or S, S)
+    pairs = sum(min(i + 1, w) for i in range(S))
+    attn = 4 * (2 * 2 * B * cfg.num_heads * cfg.head_dim * pairs) \
+        * cfg.num_layers
+    return 8 * n_mm * B * S, attn, n_params
+
+
+def train_full_width(smi):
+    """(d) h2o-danube-1.8b at its published widths and depth (random init
+    from seed 0 on the card; params float32, activations bfloat16, AdamW
+    states float32, remat on) trains 8 steps at batch 4 x 4096 through
+    ``launch.train.train`` with a checkpoint at step 6; a second ``train``
+    resumes from it and its steps 6-7 and its final state must equal the
+    first run's bit for bit; then one profiled step."""
+    import json
+    import os
+    import shutil
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed import steps
+    from repro_torch.launch.train import train
+    f = TRAIN_FULL
+    cfg = configs.get_config(TRAIN_ARCH)
+    B, S = f["batch"], f["seq"]
+    shape = configs.ShapeConfig("train_4k_cut", S, B, "train")
+    # the CLI's schedule for an 8-step run (warmup steps // 5 + 1)
+    oc = configs.OptimConfig(lr=3e-4, warmup_steps=f["steps"] // 5 + 1,
+                             total_steps=f["steps"])
+    mm, attn, n_params = train_flops(cfg, B, S)
+    state_gb = n_params * 12 / 1e9
+    a, b = CKPT_ROOT / "full_a", CKPT_ROOT / "full_b"
+    for d in (a, b):
+        shutil.rmtree(d, ignore_errors=True)
+    CKPT_ROOT.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(CKPT_ROOT).free
+    mem = {ln.split(":")[0]: int(ln.split()[1]) * 1024 for ln in
+           Path("/proc/meminfo").read_text().splitlines()}
+    print(f"train_full: {TRAIN_ARCH} {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+          f"{cfg.padded_vocab}), window {cfg.sliding_window}; {n_params} "
+          f"params, {state_gb:.3f} GB of params and moments a checkpoint; "
+          f"free disk {free / 1e9:.1f} GB, host memory available "
+          f"{mem.get('MemAvailable', 0) / 1e9:.1f} GB")
+    check(free > 2.2 * state_gb * 1e9, "too little disk for two checkpoints")
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with CkptTimer() as ta:
+        pa, oa, la, mon, _ = train(cfg, shape, oc, num_steps=f["steps"],
+                                   ckpt_dir=str(a), ckpt_every=f["ckpt_at"],
+                                   log_every=1, device="cuda")
+    run_a = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [la[s] for s in range(f["steps"])]
+    check(all(np.isfinite(losses)), f"a full-width loss is not finite: "
+          f"{losses}")
+    check(losses[-1] < losses[0], f"the full-width loss did not fall: "
+          f"{losses}")
+    final = f"step_{f['steps']:08d}"
+    want = json.loads((a / final / "manifest.json").read_text())
+    shutil.rmtree(a / final)
+    b.mkdir(parents=True)
+    os.rename(a / f"step_{f['ckpt_at']:08d}", b / f"step_{f['ckpt_at']:08d}")
+    del pa, oa
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    with CkptTimer() as tb:
+        pb, ob, lb, _, _ = train(cfg, shape, oc, num_steps=f["steps"],
+                                 ckpt_dir=str(b), ckpt_every=f["ckpt_at"],
+                                 log_every=1, device="cuda")
+    run_b = time.perf_counter() - t1
+    got = json.loads((b / final / "manifest.json").read_text())
+    check(sorted(lb) == list(range(f["ckpt_at"], f["steps"])),
+          f"the resumed run ran steps {sorted(lb)}")
+    check(all(lb[s] == la[s] for s in lb),
+          "the resumed steps' losses differ from the uninterrupted run's")
+    check(got == want, "the resumed run's final checkpoint (params, moments, "
+          "step) differs from the uninterrupted run's")
+
+    step_fn = steps.build_train_step(cfg, oc)
+    data = SyntheticLMData(cfg, shape)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                data.batch_at(f["steps"] + i).items()}
+               for i in range(f["profile_steps"])]
+    sync()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        tp = time.perf_counter()
+        for batch in batches:
+            pb, ob, _ = step_fn(pb, ob, batch)
+        sync()
+        pwall = time.perf_counter() - tp
+    busy, idle, rows, _ = device_profile(prof, pwall, top=12)
+    groups = kernel_groups(prof)
+    check(busy > 0, "the profiled train step shows no device time")
+    del pb, ob, prof, batches
+    torch.cuda.empty_cache()
+    shutil.rmtree(a, ignore_errors=True)
+    shutil.rmtree(b, ignore_errors=True)
+
+    step_ms = [t * 1e3 for t in mon.times]
+    med = float(np.median(step_ms))
+    tokens = B * S
+    flops = mm + attn
+    share = flops / (med / 1e3) / BF16_RATE
+    snap = ta.seconds["save"][0]          # the async step-6 save: snapshot
+    writes = ta.seconds["_write"] + tb.seconds["_write"]
+    restore = tb.seconds["restore"][0]
+    print(f"train_full: batch {B} x seq {S} ({tokens} tokens a step; "
+          f"SHAPES['train_4k'] is batch 256), params float32, activations "
+          f"{cfg.dtype}, AdamW float32, remat {cfg.remat}; losses "
+          f"{[round(v, 4) for v in losses]}; step ms "
+          f"{[round(v, 1) for v in step_ms]}; median {med:.1f} ms = "
+          f"{tokens / med * 1e3:.1f} tokens/s; {flops / 1e12:.2f} TFLOP a "
+          f"step ({mm / 1e12:.2f} matmul + {attn / 1e12:.2f} causal "
+          f"attention) = {flops / (med / 1e3) / 1e12:.1f} TFLOP/s, "
+          f"{share * 100:.2f}% of the {BF16_RATE / 1e12:.0f} TFLOP/s bf16 "
+          f"dense peak; peak memory {peak:.2f} GiB; run {run_a:.1f} s; "
+          f"card: {smi}")
+    print(f"train_ckpt: {state_gb:.3f} GB a checkpoint; snapshot to host "
+          f"{snap:.3f} s ({state_gb / snap:.2f} GB/s); writes (.npy, sha256, "
+          f"fsync, rename; {len(writes)} of them) "
+          f"{', '.join(f'{w:.3f}' for w in writes)} s "
+          f"({state_gb / max(writes):.2f}-{state_gb / min(writes):.2f} GB/s); "
+          f"restore (read, sha256, to the card) {restore:.3f} s "
+          f"({state_gb / restore:.2f} GB/s); resumed run {run_b:.1f} s: steps "
+          f"{f['ckpt_at']}-{f['steps'] - 1} losses and the final checkpoint's "
+          f"{len(got['arrays'])} sha256 equal the uninterrupted run's; card: "
+          f"{smi}")
+    print(f"train_profile: {f['profile_steps']} step(s) under torch.profiler, "
+          f"wall {pwall * 1e3:.1f} ms, device busy {busy:.1f} ms, idle "
+          f"{idle * 100:.1f}%; by group: " + ", ".join(
+              f"{g} {ms:.1f} ms ({ms / busy * 100:.1f}%)"
+              for g, ms in groups.items()) + f"; card: {smi}; top kernels:")
+    for ms, n, name in rows:
+        print(f"  {ms:10.3f} ms x{n:<6d} {name}")
+    return dict(median_ms=med, share=share, peak=peak, idle=idle)
+
+
+def training_path(hashmap, cfg, keys, vals, probes, pidx, k, smi):
+    """Phase 11: training and the checkpoint."""
+    import shutil
+    t0 = time.perf_counter()
+    try:
+        check_small_train_vs_cpu(smi)
+        t1 = time.perf_counter()
+        check_restart_on_card(smi)
+        t2 = time.perf_counter()
+        launches = checkpoint_paper_table(hashmap, cfg, keys, vals, probes,
+                                          pidx, k, smi)
+        t3 = time.perf_counter()
+        full = train_full_width(smi)
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    print(f"training_path: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+          f"{t3 - t2:.1f} s, (d) {time.perf_counter() - t3:.1f} s; card: {smi}")
+    return launches, full
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2361,7 +2781,12 @@ def main() -> int:
     del data, host_results
 
     # -- 10. decode serving over the HashMem page table -------------------------
-    decode_launches, _, _ = decode_path(k, ref, smi)
+    with torch.no_grad():
+        decode_launches, _, _ = decode_path(k, ref, smi)
+
+    # -- 11. training and the checkpoint -------------------------------------
+    ckpt_launches, _ = training_path(hashmap, PAPER_HASHMEM, keys, vals,
+                                     probes, pidx, k, smi)
 
     replaces = {"probe_perf": "src/repro/kernels/probe_perf.py:34",
                 "probe_area": "src/repro/kernels/probe_area.py:32",
@@ -2372,7 +2797,8 @@ def main() -> int:
           "the serving path never launched probe_perf")
     check(m_probe["probe_perf"] == 1 and m_serve["probe_perf"] > 0,
           "the mesh path did not launch probe_perf")
-    launches = {"probe_perf": perf_path["probe_perf"] + decode_launches,
+    launches = {"probe_perf": perf_path["probe_perf"] + decode_launches
+                + ckpt_launches,
                 "probe_area": bs_path["probe_area"],
                 "probe_bitserial": bs_path["probe_bitserial"]}
     print(json.dumps({"kernels": [{

@@ -3,21 +3,22 @@
 ``HashMemConfig`` and the paper's tables (``PAPER_HASHMEM``,
 ``SCALED_HASHMEM``, ``PAPER_WORKLOAD``); the model zoo's ``ModelConfig``s
 with the ``--arch`` registry (``get_config``, ``smoke_config``); the shape
-regimes ``SHAPES`` and ``ServeConfig``.  The port keeps its own copy so it
-never imports the JAX package.
+regimes ``SHAPES``, ``OptimConfig``, ``TrainConfig`` and ``ServeConfig``.
+The port keeps its own copy so it never imports the JAX package.
 """
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import (PAPER_WORKLOAD, SHAPES, HashMemConfig,
-                                      MeshConfig, ModelConfig, ServeConfig,
-                                      ShapeConfig)
+                                      MeshConfig, ModelConfig, OptimConfig,
+                                      ServeConfig, ShapeConfig, TrainConfig)
 from repro_torch.configs.hashmem_paper import PAPER_HASHMEM, SCALED_HASHMEM
 
 __all__ = ["ARCHS", "HashMemConfig", "MeshConfig", "ModelConfig",
-           "PAPER_HASHMEM", "PAPER_WORKLOAD", "SCALED_HASHMEM", "SHAPES",
-           "ServeConfig", "ShapeConfig", "get_config", "smoke_config"]
+           "OptimConfig", "PAPER_HASHMEM", "PAPER_WORKLOAD", "SCALED_HASHMEM",
+           "SHAPES", "ServeConfig", "ShapeConfig", "TrainConfig",
+           "get_config", "smoke_config"]
 
 _ARCH_MODULES = {
     "jamba-v0.1-52b": "jamba_v0_1_52b",

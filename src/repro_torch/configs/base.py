@@ -4,8 +4,8 @@
 Every architecture gets a ``ModelConfig`` in its own module under
 ``repro_torch.configs``; the registry in ``repro_torch.configs.__init__``
 maps ``--arch`` ids to them.  Shapes (the 4 input-shape regimes) are global
-and live in ``SHAPES`` below.  The training configs (``OptimConfig``,
-``TrainConfig``) wait for the training stack (ROADMAP Queue 1 item 13).
+and live in ``SHAPES`` below, with the training (``OptimConfig``,
+``TrainConfig``) and serving (``ServeConfig``) configs.
 """
 from __future__ import annotations
 
@@ -148,7 +148,7 @@ SHAPES = {
 
 
 # ---------------------------------------------------------------------------
-# Mesh / serving
+# Mesh
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -165,6 +165,39 @@ class MeshConfig:
         if self.multi_pod:
             return (2, 16, 16), ("pod", "data", "model")
         return (16, 16), ("data", "model")
+
+
+# ---------------------------------------------------------------------------
+# Training / serving
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OptimConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    state_dtype: str = "float32"     # "bfloat16" halves optimizer memory (400B configs)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    seed: int = 0
+    ckpt_dir: str = "/tmp/repro_ckpt"
+    ckpt_every: int = 50
+    log_every: int = 10
+    # fault tolerance knobs
+    max_restarts: int = 3
+    straggler_deadline_s: float = 0.0   # 0 = disabled
+    grad_compression: str = "none"      # none | bf16 | int8_ef
 
 
 @dataclass(frozen=True)

@@ -77,8 +77,10 @@ def _write_rows(rows: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
 # Local (single-device) paths
 # ---------------------------------------------------------------------------
 
+@torch.no_grad()
 def append(k_pool, v_pool, block_table, pos, k_new, v_new):
-    """Write one new token per sequence into its tail page, in place.
+    """Write one new token per sequence into its tail page, in place (a
+    cache write: no autograd graph).
     block_table (B, n_pages), pos (B,), k_new/v_new (B, 1, K, hd).  A
     ``pos`` past the table (a sliding-window arch, whose table spans window
     + one page, decoding beyond it) writes nothing, as in JAX."""
@@ -133,8 +135,10 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos, cfg):
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
+@torch.no_grad()
 def prefill_pages(k_pool, v_pool, block_table, k, v):
-    """Scatter prefill KV (B,S,K,hd) into pages, in place.  S must be a
+    """Scatter prefill KV (B,S,K,hd) into pages, in place (no autograd
+    graph).  S must be a
     multiple of page_tokens; block_table (B, >=S/pt)."""
     B, S, K, hd = k.shape
     pt = k_pool.shape[1]

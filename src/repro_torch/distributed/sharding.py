@@ -4,8 +4,9 @@ part of the JAX package's ``distributed/sharding.py``).
 JAX shards every leaf of the stacked pytree over the mesh axis, one shard a
 device.  On one card the D shards stay stacked: placement puts every leaf
 on the mesh's device, contiguous, so a routed phase reads the pool as one
-``(D * P, S, 2)`` tensor.  The model-sharding rules wait for the model zoo
-(ROADMAP Queue 1 items 12-13).
+``(D * P, S, 2)`` tensor.  The model-sharding rules (``param_specs``,
+``batch_spec``) are not ported: the port trains and decodes on one card
+(a multi-card backend is ROADMAP Queue 1 item 16).
 """
 from __future__ import annotations
 

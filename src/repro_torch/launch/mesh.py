@@ -4,8 +4,9 @@
 JAX lays a sharded table over a 1-D device mesh, one shard per device on
 the channel ('model') axis.  The port runs on one card: its mesh is the
 number of shards stacked on that card, the axis name, and the card.  The
-model meshes of ``make_mesh`` wait for the model zoo (ROADMAP Queue 1 items
-12-13).
+model meshes of ``make_mesh`` are not ported: the training and decode steps
+take a mesh as its shape, {axis name: size}, and refuse more than one
+shard (ROADMAP Queue 1 item 16).
 """
 from __future__ import annotations
 

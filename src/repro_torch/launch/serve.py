@@ -62,6 +62,7 @@ def _host_buffer(shape, dev):
     return t, t.numpy()
 
 
+@torch.no_grad()
 def serve(cfg, *, batch=4, horizon=256, page_tokens=32, requests=8,
           max_new=16, prompt_len=8, seed=0, backend="perf", verbose=True,
           compact_chain_len=None, device=None):
@@ -71,7 +72,8 @@ def serve(cfg, *, batch=4, horizon=256, page_tokens=32, requests=8,
     on a ``backend`` HashMem.  Each step runs the model on every slot
     (idle ones too), then frees the finished sequences in one batched
     delete, refills the slots with one batched insert and ticks the page
-    table.  Returns (done requests, the PageTableManager, steps run)."""
+    table.  Builds no autograd graph.  Returns (done requests, the
+    PageTableManager, steps run)."""
     dev = resolve_device(device)
     shape = ShapeConfig("serve", horizon, batch, "decode")
     scfg = ServeConfig(model=cfg, shape=shape, kv_page_tokens=page_tokens)

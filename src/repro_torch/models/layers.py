@@ -19,11 +19,10 @@ F32 = torch.float32
 
 
 def param(shape, device, dtype=F32) -> nn.Parameter:
-    """An uninitialised parameter.  The port serves and does not train yet
-    (ROADMAP Queue 1 item 13), so parameters carry no gradient and no op
-    builds an autograd graph."""
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                        requires_grad=False)
+    """An uninitialised parameter, which carries a gradient (the training
+    stack differentiates the loss).  The decode entry points run under
+    ``torch.no_grad()``, so serving builds no autograd graph."""
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
 
 
 def dense_init_(p: torch.Tensor, fan_in: int, generator: torch.Generator):
@@ -38,7 +37,7 @@ def embed_init_(p: torch.Tensor, generator: torch.Generator):
 
 
 def norm_init_(p: torch.Tensor):
-    """JAX's ``norm_init``: a scale of ones."""
+    """JAX's ``norm_init``: a scale of ones, in place."""
     with torch.no_grad():
         p.fill_(1.0)
 

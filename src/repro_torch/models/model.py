@@ -5,15 +5,21 @@ carries a JAX parameter tree across (``params_from_numpy``).
 ``Model`` is an ``nn.Module`` tree with the JAX tree's names and layouts:
 ``embed``, ``head`` (absent when the embeddings are tied), ``final_norm``
 and one ``DenseLayer`` a layer, which JAX stacks under ``stacks/j0`` with a
-leading layer axis.  The loss (``chunked_cross_entropy``, ``loss_fn``) and
-``input_specs`` wait for the training stack (ROADMAP Queue 1 item 13); the
-other families for item 12.
+leading layer axis.  ``jax_leaves`` groups a model's tensors (or a
+``ParamDict`` of tensors keyed like its parameters, the optimizer's moments)
+by JAX leaf, which the optimizer, gradient compression and the checkpoint
+read.  The loss is JAX's sequence-chunked cross-entropy
+(``chunked_cross_entropy``, ``loss_fn``); ``input_specs`` gives the inputs
+of each shape kind as meta tensors.  The other families wait for ROADMAP
+Queue 1 item 12.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.layout import resolve_device
 from repro_torch.models import transformer
@@ -71,6 +77,32 @@ def _jax_path(name: str):
     return "/".join(parts), None
 
 
+class ParamDict(dict):
+    """Tensors keyed by a ``Model``'s parameter names (``"embed"``,
+    ``"layers.3.attn.wq"``): the optimizer's moments and a step's
+    gradients.  ``jax_leaves`` groups them as the JAX tree does."""
+
+
+def named_tensors(tree) -> dict:
+    """A ``Model``'s parameters or a ``ParamDict``, by parameter name."""
+    return dict(tree.named_parameters()) if isinstance(tree, nn.Module) \
+        else dict(tree)
+
+
+def jax_leaves(tree) -> dict:
+    """{JAX tree path ("stacks/j0/attn/wq"): (parameter names, stacked)} in
+    the order JAX flattens the tree (dict keys sorted at every level).  A
+    layer leaf names one parameter a layer, in layer order, which JAX stacks
+    on a leading axis (``stacked``); any other leaf one parameter."""
+    groups: dict = {}
+    for name in named_tensors(tree):
+        path, i = _jax_path(name)
+        groups.setdefault(path, ([], i is not None))[0].append((i or 0, name))
+    return {path: ([n for _, n in sorted(names)], stacked)
+            for path, (names, stacked) in sorted(
+                groups.items(), key=lambda kv: kv[0].split("/"))}
+
+
 def params_from_numpy(cfg, tree: dict, device=None) -> Model:
     """Load a JAX parameter tree (nested dicts of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``: ``embed``, ``head``,
@@ -100,16 +132,14 @@ def params_from_numpy(cfg, tree: dict, device=None) -> Model:
 
 def params_to_numpy(params: Model) -> dict:
     """The inverse of ``params_from_numpy``: the JAX tree, float32 numpy
-    leaves, layer leaves stacked on a leading layer axis."""
-    flat, stacks = {}, {}
-    for name, p in params.named_parameters():
-        path, i = _jax_path(name)
-        a = p.detach().to(F32).cpu().numpy()
-        if i is None:
-            flat[path] = a
-        else:
-            stacks.setdefault(path, []).append(a)
-    flat.update({k: np.stack(v) for k, v in stacks.items()})
+    leaves (copies, never views of the parameters), layer leaves stacked on
+    a leading layer axis."""
+    named = dict(params.named_parameters())
+    flat = {}
+    for path, (names, stacked) in jax_leaves(params).items():
+        arrs = [named[n].detach().to("cpu", F32, copy=True).numpy()
+                for n in names]
+        flat[path] = np.stack(arrs) if stacked else arrs[0]
     return unflatten_tree(flat)
 
 
@@ -118,7 +148,12 @@ def params_to_numpy(params: Model) -> dict:
 # ---------------------------------------------------------------------------
 
 def _embed(params: Model, cfg, tokens):
-    return params.embed[tokens.to(torch.int64)].to(DTYPES[cfg.dtype])
+    """The token rows of the embedding.  ``F.embedding``, whose backward on
+    the card sums each row's gradients in a fixed order (an indexed gather's
+    backward accumulates them with atomics), so training is bit for bit
+    repeatable."""
+    return F.embedding(tokens.to(torch.int64), params.embed).to(
+        DTYPES[cfg.dtype])
 
 
 def forward(params: Model, cfg, batch):
@@ -138,6 +173,53 @@ def logits_fn(params: Model, cfg, x):
     """Full float32 logits over the padded vocabulary."""
     h = rms_norm(x, params.final_norm.scale, cfg.norm_eps)
     return h.to(F32) @ _head(params, cfg).to(F32).T
+
+
+def _ce_chunk(hx, lx, head):
+    """One chunk's (loss sum, token count).  hx (B,c,d) float32, lx (B,c)
+    labels, -100 = pad."""
+    logits = hx @ head.T                                       # (B,c,V)
+    lse = torch.logsumexp(logits, dim=-1)
+    mask = lx >= 0
+    lbl = torch.clamp(lx, min=0).to(torch.int64)
+    gold = torch.gather(logits, -1, lbl[..., None])[..., 0]
+    loss = torch.where(mask, lse - gold, 0.0)
+    return loss.sum(), mask.sum().to(F32)
+
+
+def chunked_cross_entropy(params: Model, cfg, x, labels, chunk: int = 512):
+    """Sequence-chunked CE: never materialises (B,S,V).  labels -100 = pad.
+    Chunks of ``chunk`` tokens, each recomputed in the backward pass from
+    its hidden states (JAX's ``jax.checkpoint`` of the scan body)."""
+    B, S, d = x.shape
+    h = rms_norm(x, params.final_norm.scale, cfg.norm_eps).to(F32)
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the "
+                         f"{chunk}-token loss chunk")
+    head = _head(params, cfg).to(F32)
+    remat = torch.is_grad_enabled()
+    loss_sum = torch.zeros((), dtype=F32, device=x.device)
+    tok_sum = torch.zeros((), dtype=F32, device=x.device)
+    for c0 in range(0, S, chunk):
+        hx, lx = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        if remat:
+            ls, ts = checkpoint(_ce_chunk, hx, lx, head, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            ls, ts = _ce_chunk(hx, lx, head)
+        loss_sum = loss_sum + ls
+        tok_sum = tok_sum + ts
+    return loss_sum / torch.clamp(tok_sum, min=1.0)
+
+
+def loss_fn(params: Model, cfg, batch):
+    """Scalar LM loss.  batch['labels'] -100 = ignored.  Returns (loss,
+    {"ce_loss": ...}): the dense family adds no MoE aux terms."""
+    x, aux = forward(params, cfg, batch)
+    loss = chunked_cross_entropy(params, cfg, x, batch["labels"])
+    extra = sum(v for k_, v in aux.items() if k_ in ("moe_aux", "moe_z"))
+    return loss + extra, {"ce_loss": loss, **aux}
 
 
 # ---------------------------------------------------------------------------
@@ -197,3 +279,25 @@ def decode_step(params: Model, cfg, states, tokens, pos, block_table, ctx):
     x, new_states = transformer.decode_stack(
         params.layers, cfg, x, states, block_table, pos, ctx)
     return logits_fn(params, cfg, x), new_states
+
+
+# ---------------------------------------------------------------------------
+# input_specs: meta-tensor stand-ins for every (arch x shape) cell
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg, shape_cfg, ctx=None):
+    """The inputs of a shape kind as meta tensors (shapes and dtypes, no
+    memory): tokens and labels (B, S) int32 for ``train`` and ``prefill``;
+    for ``decode`` one token against the KV horizon: tokens (B, 1), pos
+    (B,) and the block table (B, ctx.n_pages)."""
+    transformer.require_dense(cfg)
+    B, S = shape_cfg.global_batch, shape_cfg.seq_len
+
+    def sd(shape):
+        return torch.empty(shape, dtype=torch.int32, device="meta")
+    if shape_cfg.kind in ("train", "prefill"):
+        return {"tokens": sd((B, S)), "labels": sd((B, S))}
+    if ctx is None:
+        raise ValueError("decode input specs need the decode context")
+    return {"tokens": sd((B, 1)), "pos": sd((B,)),
+            "block_table": sd((B, ctx.n_pages))}

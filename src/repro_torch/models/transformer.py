@@ -21,10 +21,12 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import paged_kv
 from repro_torch.models import attention, mlp
 from repro_torch.models.layers import F32, RMSNorm, rms_norm
+
 
 def require_dense(cfg):
     """Raise for every family but ``dense``, naming what it waits for."""
@@ -87,10 +89,17 @@ def _apply_layer(p: DenseLayer, cfg, x, positions, *, causal=True):
 
 def apply_stack(layers, cfg, x, positions, *, causal=True):
     """x (B,S,d) -> (x, aux sums): a loop over the layers where JAX
-    scans.  The dense family has no auxiliary losses."""
+    scans.  With ``cfg.remat`` and autograd on, each layer is recomputed in
+    the backward pass from its input alone, as JAX's ``jax.checkpoint`` of
+    the unit body does.  The dense family has no auxiliary losses."""
     require_dense(cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
     for p in layers:
-        x = _apply_layer(p, cfg, x, positions, causal=causal)
+        if remat:
+            x = checkpoint(_apply_layer, p, cfg, x, positions, causal=causal,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _apply_layer(p, cfg, x, positions, causal=causal)
     return x, {}
 
 

@@ -58,7 +58,11 @@ def test_importing_the_port_loads_no_jax():
         "        'repro_torch.models.mlp', 'repro_torch.models.attention',\n"
         "        'repro_torch.models.transformer', 'repro_torch.models.model',\n"
         "        'repro_torch.core.paged_kv', 'repro_torch.core.pim_embedding',\n"
-        "        'repro_torch.distributed.steps', 'repro_torch.serve_paged'}\n"
+        "        'repro_torch.distributed.steps', 'repro_torch.serve_paged',\n"
+        "        'repro_torch.optim.adamw', 'repro_torch.checkpoint.checkpointer',\n"
+        "        'repro_torch.data.pipeline', 'repro_torch.distributed.compression',\n"
+        "        'repro_torch.distributed.fault_tolerance',\n"
+        "        'repro_torch.launch.train', 'repro_torch.train_lm'}\n"
         "assert want <= set(mods), want - set(mods)\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -42,6 +42,14 @@ DENSE = ["llama3-8b", "qwen3-8b", "phi4-mini-3.8b", "h2o-danube-1.8b"]
 B, S, PT = 2, 32, 8
 
 
+@pytest.fixture(scope="module", autouse=True)
+def no_grad():
+    """The models' parameters carry gradients (the training stack); these
+    tests compare values, so they build no autograd graph."""
+    with torch.no_grad():
+        yield
+
+
 def t(a):
     return torch.from_numpy(np.asarray(a).copy())
 
@@ -220,7 +228,7 @@ def test_init_params_is_seeded_and_shaped():
     assert abs(float(ta["embed"].std()) - 0.02) < 1e-3
     wq = ta["stacks/j0/attn/wq"]
     assert abs(float(wq.std()) - cfg.d_model ** -0.5) < 5e-3
-    assert not any(p.requires_grad for p in a.parameters())
+    assert all(p.requires_grad for p in a.parameters())   # trainable
 
 
 # ---------------------------------------------------------------------------

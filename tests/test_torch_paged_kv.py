@@ -98,6 +98,14 @@ def _jitted_page_table():
     mp.undo()
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_grad():
+    """The models' parameters carry gradients (the training stack); these
+    tests compare values, so they build no autograd graph."""
+    with torch.no_grad():
+        yield
+
+
 def pools(rng, P=12, pt=4, K=2, hd=8):
     k = rng.standard_normal((P, pt, K, hd)).astype(np.float32)
     v = rng.standard_normal((P, pt, K, hd)).astype(np.float32)

@@ -1,0 +1,273 @@
+"""Parity of the port's training stack (``repro_torch.models.model.loss_fn``,
+``distributed.steps.build_train_step``, ``launch.train``) with the JAX
+package's, at ``smoke_config`` of llama3-8b, qwen3-8b and h2o-danube-1.8b
+(window 12, which the 64-token sequences pass) in float32, and llama3-8b in
+bfloat16.  Parameters cross from JAX by ``params_from_numpy`` or through a
+step-0 checkpoint JAX wrote; every JAX function runs jitted, once a case.
+
+Tolerances, each from what float32 summation order can do:
+  * loss and cross-entropy (``loss_fn``, ``chunked_cross_entropy``, pads of
+    -100 included): 1e-6 relative; observed <= 2.3e-7.
+  * one ``train_step``: loss, ``grad_norm`` and ``lr`` within 1e-5
+    relative (observed <= 2.3e-7); every gradient within 1e-5 of its
+    leaf's largest magnitude (observed <= 2.5e-6); the new parameters within
+    1e-5 absolute wherever JAX's gradient is at least 1e-6.  AdamW's first
+    step moves an element by lr * g / (|g| + eps), eps = 1e-8, so where |g|
+    is within a few eps of zero a float32 difference of 1e-9 in g moves the
+    element by up to 0.07 lr (3.4e-5 at lr 5e-4, observed on 1-3 elements
+    of 600k, all with |g| <= 1.2e-7); there the bound is the step's own
+    size, 2 lr.
+  * bfloat16 (activations and per-einsum weight casts): the loss within
+    1e-4 relative (observed 3.1e-6) and ``grad_norm`` within 1e-3 (observed
+    1.3e-4).  bfloat16 keeps 8 bits and the frameworks round at different
+    points, so gradients differ by up to 2.5% of their leaf's scale and the
+    first AdamW step (a sign, nearly) flips on small elements: the new
+    parameters are held to the 2 lr bound only.
+  * 8 steps of ``train`` resumed from the same JAX step-0 checkpoint: every
+    loss within 1e-5 relative of JAX's (observed <= 3.9e-7).
+"""
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint import Checkpointer as JCheckpointer
+from repro.configs import smoke_config as j_smoke_config
+from repro.configs.base import OptimConfig as JOptimConfig
+from repro.configs.base import ServeConfig as JServeConfig
+from repro.configs.base import ShapeConfig as JShapeConfig
+from repro.distributed import steps as jsteps
+from repro.launch.mesh import make_mesh
+from repro.launch.train import train as j_train
+from repro.models import model as jmodel
+
+from repro_torch.configs import (OptimConfig, ServeConfig, ShapeConfig,
+                                 smoke_config)
+from repro_torch.data import SyntheticLMData
+from repro_torch.distributed import steps
+from repro_torch.launch import serve as tserve
+from repro_torch.launch import train as ttrain
+from repro_torch.models import model
+from repro_torch.models.layers import flatten_tree
+from repro_torch.optim import init_opt_state
+
+CPU = "cpu"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs several workers on a few cores,
+    and PyTorch's thread pool in each would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+OC = dict(lr=1e-3, warmup_steps=2, total_steps=16)
+B, S = 4, 64
+CASES = [("llama3-8b", "float32"), ("qwen3-8b", "float32"),
+         ("h2o-danube-1.8b", "float32"), ("llama3-8b", "bfloat16")]
+
+
+def configs(arch, dtype):
+    kw = dict(dtype=dtype)
+    if arch == "h2o-danube-1.8b":
+        kw["sliding_window"] = 12
+    return j_smoke_config(arch).replace(**kw), smoke_config(arch).replace(**kw)
+
+
+def case_id(c):
+    return f"{c[0]}-{c[1]}"
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    return make_mesh((1, 1), ("data", "model"))
+
+
+def batch_np(cfg, step=0):
+    b = SyntheticLMData(cfg, ShapeConfig("t", S, B, "train")).batch_at(step)
+    b["labels"][0, :10] = -100          # pads
+    b["labels"][2, -5:] = -100
+    return b
+
+
+def rel(a, b):
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+# ---------------------------------------------------------------------------
+# The loss
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("c", CASES[:3], ids=case_id)
+def test_loss_matches_jax(c):
+    jcfg, cfg = configs(*c)
+    p = jmodel.init_params(jcfg, jax.random.PRNGKey(1))
+    b = batch_np(cfg)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+
+    @jax.jit
+    def jax_side(p):
+        loss, aux = jmodel.loss_fn(p, jcfg, jb)
+        x, _ = jmodel.forward(p, jcfg, jb)
+        return loss, aux["ce_loss"], jmodel.chunked_cross_entropy(
+            p, jcfg, x, jb["labels"], chunk=16)
+    want = [float(v) for v in jax_side(p)]
+
+    tp = model.params_from_numpy(cfg, jax.tree.map(np.asarray, p), CPU)
+    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    with torch.no_grad():
+        loss, aux = model.loss_fn(tp, cfg, tb)
+        x, _ = model.forward(tp, cfg, tb)
+        chunked = model.chunked_cross_entropy(tp, cfg, x, tb["labels"],
+                                              chunk=16)
+    for got, w in zip((loss, aux["ce_loss"], chunked), want):
+        assert rel(got, w) <= 1e-6, (float(got), w)
+    with pytest.raises(ValueError, match="multiple"):
+        model.chunked_cross_entropy(tp, cfg, x, tb["labels"], chunk=24)
+
+
+def test_input_specs_match_jax():
+    jcfg, cfg = configs("h2o-danube-1.8b", "float32")
+    for kind in ("train", "prefill"):
+        want = jmodel.input_specs(jcfg, JShapeConfig("t", 128, 4, kind))
+        got = model.input_specs(cfg, ShapeConfig("t", 128, 4, kind))
+        assert want.keys() == got.keys()
+        for k in want:
+            assert got[k].device.type == "meta"
+            assert tuple(got[k].shape) == want[k].shape
+            assert got[k].dtype == torch.int32 and want[k].dtype == jnp.int32
+    jshape, shape = JShapeConfig("d", 256, 4, "decode"), \
+        ShapeConfig("d", 256, 4, "decode")
+    jctx = jmodel.make_decode_ctx(jcfg, JServeConfig(jcfg, jshape,
+                                                     kv_page_tokens=32), 4)
+    ctx = model.make_decode_ctx(cfg, ServeConfig(cfg, shape,
+                                                 kv_page_tokens=32), 4)
+    want = jmodel.input_specs(jcfg, jshape, ctx=jctx)
+    got = model.input_specs(cfg, shape, ctx=ctx)
+    assert {k: tuple(v.shape) for k, v in got.items()} == \
+        {k: v.shape for k, v in want.items()}
+
+
+# ---------------------------------------------------------------------------
+# One train step from carried parameters
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("c", CASES, ids=case_id)
+def test_train_step_matches_jax(c, mesh):
+    jcfg, cfg = configs(*c)
+    joc, oc = JOptimConfig(**OC), OptimConfig(**OC)
+    p = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
+    p_np = jax.tree.map(np.asarray, p)
+    b = batch_np(cfg)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    jgrads = flatten_tree(jax.tree.map(np.asarray, jax.jit(jax.grad(
+        lambda q: jmodel.loss_fn(q, jcfg, jb)[0]))(p)))
+    _, jitted, _, _ = jsteps.build_train_step(jcfg, joc, mesh,
+                                              seq_shard=False)
+    jp, _, jm = jitted(b)(p, jsteps.init_opt_state(p, joc), jb)
+    want = flatten_tree(jax.tree.map(np.asarray, jp))
+
+    tp = model.params_from_numpy(cfg, p_np, CPU)
+    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    names, tensors = zip(*tp.named_parameters())
+    tgrads = torch.autograd.grad(model.loss_fn(tp, cfg, tb)[0], tensors)
+    step = steps.build_train_step(cfg, oc)
+    tp, opt, tm = step(tp, init_opt_state(tp, oc), tb)
+    got = flatten_tree(model.params_to_numpy(tp))
+    assert int(opt["step"]) == 1
+    lr = float(jm["lr"])
+    assert rel(tm["lr"], jm["lr"]) <= 1e-5
+
+    if c[1] == "bfloat16":
+        assert rel(tm["loss"], jm["loss"]) <= 1e-4
+        assert rel(tm["grad_norm"], jm["grad_norm"]) <= 1e-3
+        for k in want:
+            assert np.abs(got[k] - want[k]).max() <= 2 * lr, k
+        return
+    for k in ("loss", "ce_loss", "grad_norm"):
+        assert rel(tm[k], jm[k]) <= 1e-5, k
+    stacked = {}
+    for n, g in zip(names, tgrads):
+        path, i = model._jax_path(n)
+        stacked.setdefault(path, []).append(g.numpy())
+    for path, gs in stacked.items():
+        g = np.stack(gs) if path.startswith("stacks") else gs[0]
+        wg = jgrads[path]
+        assert np.abs(g - wg).max() <= 1e-5 * np.abs(wg).max(), path
+        d = np.abs(got[path] - want[path])
+        sure = np.abs(wg) >= 1e-6
+        assert d[sure].max(initial=0) <= 1e-5, path
+        assert d.max() <= 2 * lr, path
+
+
+def test_train_step_refuses_a_mesh_of_more_than_one_shard():
+    _, cfg = configs("llama3-8b", "float32")
+    steps.build_train_step(cfg, OptimConfig(), {"data": 1, "model": 1})
+    with pytest.raises(NotImplementedError, match="item 16"):
+        steps.build_train_step(cfg, OptimConfig(), {"data": 2, "model": 1})
+    with pytest.raises(NotImplementedError, match="item 16"):
+        steps.init_train_state(cfg, OptimConfig(), {"model": 4}, 0, CPU)
+
+
+# ---------------------------------------------------------------------------
+# train() resumes from JAX's step-0 checkpoint and follows JAX's losses
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("c", CASES[:3], ids=case_id)
+def test_train_from_jax_checkpoint_follows_jax(c, mesh, tmp_path):
+    jcfg, cfg = configs(*c)
+    joc, oc = JOptimConfig(**OC), OptimConfig(**OC)
+    params, opt = jsteps.init_train_state(jcfg, joc, mesh,
+                                          jax.random.PRNGKey(0))
+    JCheckpointer(str(tmp_path / "j"), async_save=False).save(
+        0, {"params": params, "opt": opt})
+    shutil.copytree(tmp_path / "j", tmp_path / "p")
+    _, _, want, _, _ = j_train(jcfg, JShapeConfig("t", S, B, "train"), joc,
+                               mesh, num_steps=8, ckpt_dir=str(tmp_path / "j"),
+                               ckpt_every=0, verbose=False)
+    _, _, got, _, pol = ttrain.train(
+        cfg, ShapeConfig("t", S, B, "train"), oc, num_steps=8,
+        ckpt_dir=str(tmp_path / "p"), ckpt_every=0, verbose=False,
+        device=CPU)
+    assert sorted(got) == list(range(8)) and pol.restarts == 0
+    for s in range(8):
+        assert rel(got[s], want[s]) <= 1e-5, (s, got[s], want[s])
+
+
+# ---------------------------------------------------------------------------
+# Serving builds no autograd graph
+# ---------------------------------------------------------------------------
+
+def test_serving_builds_no_autograd_graph(monkeypatch):
+    cfg = smoke_config("llama3-8b").replace(dtype="float32")
+    seen, outs = [], []
+    decode = model.decode_step
+
+    def spy(*a, **kw):
+        seen.append(torch.is_grad_enabled())
+        out = decode(*a, **kw)
+        outs.append(out[0].requires_grad)
+        return out
+    monkeypatch.setattr(model, "decode_step", spy)
+    params = model.init_params(cfg, 0, CPU)
+    assert params.embed.requires_grad       # the model is trainable
+    done, _, _ = tserve.serve(cfg, batch=2, requests=3, max_new=3,
+                              horizon=16, page_tokens=4, verbose=False,
+                              device=CPU)
+    assert len(done) == 3 and seen and not any(seen) and not any(outs)
+    seen.clear()
+    scfg = ServeConfig(cfg, ShapeConfig("s", 16, 2, "decode"),
+                       kv_page_tokens=4)
+    serve_step, ctx = steps.build_serve_step(cfg, scfg)
+    states = model.init_decode_states(params, cfg, 2, ctx,
+                                      kv_dtype=torch.float32)
+    bt = torch.arange(2 * ctx.n_pages, dtype=torch.int32).reshape(2, -1)
+    nt, logits, states = serve_step(
+        params, states, torch.zeros((2, 1), dtype=torch.int32),
+        torch.zeros(2, dtype=torch.int32), bt)
+    assert seen == [False]
+    assert not logits.requires_grad and not states[0]["k_pool"].requires_grad
