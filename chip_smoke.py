@@ -105,10 +105,26 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      resumed from it whose steps 6-7 and final checkpoint equal the first
      run's bit for bit: losses, ms a step, tokens/s, FLOP share of the bf16
      peak, peak memory, checkpoint seconds, and the device idle share over
-     a profiled step; prints the ``kernels`` line (``probe_perf``'s
-     launches count the perf path's, the timed decode's and the
-     checkpointed table's probes);
- 12. prints the device line last.
+     a profiled step;
+ 12. runs the moe and hybrid families: (a) ``moe.apply`` of olmoe-1b-7b,
+     jamba-v0.1-52b and llama4-maverick-400b-a17b at ``smoke_config``
+     (learned and hash routing, capacity_factor 0.25 with drops) and jamba's
+     mamba ``apply``/``decode_step`` on the card against the CPU (outputs,
+     routing indices, keep masks, ``moe_dropped``), 4 train steps of olmoe
+     and jamba smoke on the card against the CPU, and an olmoe smoke
+     restart on the card, bit-equal to an uninterrupted run; (b)
+     jamba-v0.1-52b at its published widths, 8 of 32 layers (one unit),
+     float32, decode against ``forward`` at every position of 2 x 64
+     tokens, then served through ``serve()`` at batch 16; (c)
+     olmoe-1b-7b at its published widths and depth served at batch 16,
+     horizon 4096 (checked, timed and profiled as in phase 10, with
+     ``moe_dropped`` over the run); (d) olmoe-1b-7b at its published widths
+     and 6 of 16 layers training 8 steps at batch 4 x 4096 (ms a step,
+     tokens/s, FLOP share with the experts counted at capacity, the aux
+     terms by step, a device-time split and the idle share of a profiled
+     step); prints the ``kernels`` line (``probe_perf``'s launches count the
+     perf path's, the timed decodes' and the checkpointed table's probes);
+ 13. prints the device line last.
 
 Any failed check raises and the script exits non-zero.  Without a card, or
 without the rest of the repo beside it, it exits non-zero and prints no
@@ -1960,16 +1976,16 @@ class DecodeTimer:
 
 
 def served_run(serve, k, ref=None, check_tables=False, profile=False,
-               **kw):
-    """One ``serve()`` of Qwen3-8B at its published widths under a
-    ``DecodeTimer``; with ``profile`` inside a ``torch.profiler`` window.
-    Returns (done, mgr, steps, timer, probe_perf launches, wall s of the
-    loop, peak GiB, profiler or None)."""
+               cfg=None, **kw):
+    """One ``serve()`` of ``cfg`` (None: Qwen3-8B at its published widths)
+    under a ``DecodeTimer``; with ``profile`` inside a ``torch.profiler``
+    window.  Returns (done, mgr, steps, timer, probe_perf launches, wall s
+    of the loop, peak GiB, profiler or None)."""
     import torch
     from repro_torch import configs
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
-    cfg = configs.get_config(DECODE_ARCH)
+    cfg = cfg or configs.get_config(DECODE_ARCH)
     torch.cuda.reset_peak_memory_stats()
     reset_launches(k)
     prof = torch_profile(activities=[ProfilerActivity.CPU,
@@ -2000,6 +2016,30 @@ def check_served(cfg, done, mgr, kw, what):
     check(mgr.live_pages() == 0, f"{what}: live pages after the drain")
     check(all(len(a) == mgr.pps for a in mgr.free),
           f"{what}: an arena is not full after the drain")
+
+
+def decode_bound(cfg, kw):
+    """(bound ms, weight bytes, KV bytes, SSM state bytes) of one decode
+    step of ``serve(cfg, **kw)``: every weight read once as stored, every
+    attention layer's KV pools once (the gather path reads whole block
+    tables), every mamba layer's conv and SSM states read and written once;
+    against the operations of 2 x batch x the parameters at the bf16
+    rate."""
+    from repro_torch.models import model, transformer
+    meta = model.Model(cfg, "meta")
+    n_params = sum(p.numel() for p in meta.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in meta.parameters())
+    B, pt = kw["batch"], kw["page_tokens"]
+    n_pages = kw["horizon"] // pt
+    kinds = [transformer.layer_kind(cfg, i) for i in range(cfg.num_layers)]
+    kv_bytes = 2 * kinds.count("attn") * B * n_pages * pt \
+        * cfg.num_kv_heads * cfg.head_dim * 4
+    ssm_bytes = 2 * kinds.count("mamba") * B * cfg.d_inner * (
+        cfg.ssm_state_dim * 4 + (cfg.ssm_conv_width - 1) * 2)
+    ops = 2 * B * n_params
+    bound_ms = max((w_bytes + kv_bytes + ssm_bytes) / HBM_RATE,
+                   ops / BF16_RATE) * 1e3
+    return bound_ms, w_bytes, kv_bytes, ssm_bytes
 
 
 def decode_path(k, ref, smi):
@@ -2034,17 +2074,9 @@ def decode_path(k, ref, smi):
     check(launches > 0, "the decode path never launched probe_perf")
     gen = sum(len(r["out"]) for r in done)
     st = [s for s in timer.step_ms]
-    # the step's least bytes: every weight once as stored, every KV pool
-    # once (the gather path reads whole block tables)
-    from repro_torch.models import model
-    meta = model.Model(cfg, "meta")
-    w_bytes = sum(p.numel() * p.element_size() for p in meta.parameters())
     B, pt = DECODE_SERVE["batch"], DECODE_SERVE["page_tokens"]
     n_pages = DECODE_SERVE["horizon"] // pt
-    kv_bytes = 2 * cfg.num_layers * B * n_pages * pt * cfg.num_kv_heads \
-        * cfg.head_dim * 4
-    ops = 2 * B * sum(p.numel() for p in meta.parameters())
-    bound_ms = max((w_bytes + kv_bytes) / HBM_RATE, ops / BF16_RATE) * 1e3
+    bound_ms, w_bytes, kv_bytes, _ = decode_bound(cfg, DECODE_SERVE)
     med = float(np.median(st))
     print(f"decode_serve {DECODE_ARCH} (params float32, activations bfloat16,"
           f" KV float32): batch {B}, horizon {DECODE_SERVE['horizon']}, "
@@ -2127,17 +2159,17 @@ def small_train_run(cfg, tree, dev):
     return losses, norms, model.params_to_numpy(params)
 
 
-def check_small_train_vs_cpu(smi):
-    """(a) Three dense archs at ``smoke_config`` in float32, TF32 off: the
-    same parameters (drawn on the CPU, carried by ``params_to_numpy``) and
-    the same batches, 4 train steps on the card and on the CPU."""
+def check_small_train_vs_cpu(smi, archs=TRAIN_ARCHS):
+    """(a) ``archs`` at ``smoke_config`` in float32, TF32 off: the same
+    parameters (drawn on the CPU, carried by ``params_to_numpy``) and the
+    same batches, 4 train steps on the card and on the CPU."""
     import torch
     from repro_torch import configs
     from repro_torch.models import model
     from repro_torch.models.layers import flatten_tree
     check(torch.backends.cuda.matmul.allow_tf32 is False,
           "TF32 matmuls are on: float32 training would not be float32")
-    for arch in TRAIN_ARCHS:
+    for arch in archs:
         cfg = configs.smoke_config(arch).replace(dtype="float32")
         if cfg.sliding_window:
             cfg = cfg.replace(sliding_window=TRAIN_WINDOW)
@@ -2164,7 +2196,7 @@ def check_small_train_vs_cpu(smi):
               f"beyond {TRAIN_TOL['params_fine']}; card: {smi}")
 
 
-def check_restart_on_card(smi):
+def check_restart_on_card(smi, r=TRAIN_RESTART):
     """(b) ``tests/test_train_integration.py``'s restart on the card: an
     uninterrupted run and one with a failure injected at step 10 (a
     checkpoint every 4 steps) give bit-equal losses, parameters and
@@ -2173,7 +2205,6 @@ def check_restart_on_card(smi):
     import torch
     from repro_torch import configs
     from repro_torch.launch.train import train
-    r = TRAIN_RESTART
     cfg = configs.smoke_config(r["arch"])
     shape = configs.ShapeConfig("t", r["seq"], r["batch"], "train")
     oc = configs.OptimConfig(**TRAIN_OC)
@@ -2306,21 +2337,35 @@ def kernel_groups(prof) -> dict:
 
 
 def train_flops(cfg, B, S):
-    """(matmul FLOPs of one remat train step, attention FLOPs, parameters):
-    8 x the parameters of every matmul (not the embedding, a gather) x the
-    tokens (forward, its recompute, and a backward of twice the forward),
-    plus 4 passes of the causal QK^T and PV (the scores at or below the
-    diagonal, inside the window)."""
-    from repro_torch.models import model
+    """(matmul FLOPs of one remat train step, attention FLOPs, parameters,
+    active parameters): 8 x the parameters of every matmul (forward, its
+    recompute, and a backward of twice the forward) x the tokens it takes,
+    plus 4 passes of the causal QK^T and PV on each attention layer (the
+    scores at or below the diagonal, inside the window).  A dense matmul,
+    the router and a shared expert take every token; a routed expert's
+    weights take the C capacity-padded rows of its buffer (T k cf / E
+    tokens), which it computes whether a pair fills them or not.  The
+    embedding (a gather) and mamba's depthwise conv and A_log are not
+    matmuls."""
+    from repro_torch.models import model, moe, transformer
     meta = model.Model(cfg, "meta")
     n_params = sum(p.numel() for p in meta.parameters())
-    n_mm = sum(p.numel() for n, p in meta.named_parameters()
-               if p.dim() >= 2 and n != "embed")
+    T = B * S
+    C = moe._capacity(cfg, T) if cfg.num_experts else 0
+    mm = 0
+    for n, p in meta.named_parameters():
+        leaf = n.split(".")[-1]
+        if p.dim() < 2 or n == "embed" or leaf in ("conv_w", "A_log"):
+            continue
+        routed = ".ffn_moe." in n and ".shared." not in n and \
+            leaf != "router"
+        mm += 8 * p.numel() * (C if routed else T)
+    n_attn = sum(transformer.layer_kind(cfg, i) == "attn"
+                 for i in range(cfg.num_layers))
     w = min(cfg.sliding_window or S, S)
     pairs = sum(min(i + 1, w) for i in range(S))
-    attn = 4 * (2 * 2 * B * cfg.num_heads * cfg.head_dim * pairs) \
-        * cfg.num_layers
-    return 8 * n_mm * B * S, attn, n_params
+    attn = 4 * (2 * 2 * B * cfg.num_heads * cfg.head_dim * pairs) * n_attn
+    return mm, attn, n_params, model.count_params(cfg, active_only=True)
 
 
 def train_full_width(smi):
@@ -2347,7 +2392,7 @@ def train_full_width(smi):
     # the CLI's schedule for an 8-step run (warmup steps // 5 + 1)
     oc = configs.OptimConfig(lr=3e-4, warmup_steps=f["steps"] // 5 + 1,
                              total_steps=f["steps"])
-    mm, attn, n_params = train_flops(cfg, B, S)
+    mm, attn, n_params, _ = train_flops(cfg, B, S)
     state_gb = n_params * 12 / 1e9
     a, b = CKPT_ROOT / "full_a", CKPT_ROOT / "full_b"
     for d in (a, b):
@@ -2478,6 +2523,467 @@ def training_path(hashmap, cfg, keys, vals, probes, pidx, k, smi):
     print(f"training_path: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
           f"{t3 - t2:.1f} s, (d) {time.perf_counter() - t3:.1f} s; card: {smi}")
     return launches, full
+
+
+# ---------------------------------------------------------------------------
+# The moe and hybrid families
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("olmoe-1b-7b", "jamba-v0.1-52b", "llama4-maverick-400b-a17b")
+FAMILY_TRAIN_ARCHS = ("olmoe-1b-7b", "jamba-v0.1-52b")
+FAMILY_SMALL = (2, 64)           # sequences, tokens of the module checks
+# card vs CPU, float32 with TF32 off, summation order apart: the port
+# against JAX on the CPU gives <= 1.4e-6 (MoE) and <= 6.8e-8 (mamba), so
+# 1e-5 absolute on outputs, 1e-5 relative on the aux terms; routing
+# indices, keep masks and moe_dropped exact
+FAMILY_TOL = 1e-5
+MOE_MODES = (("learned", "learned", {}), ("hash", "hash", {}),
+             ("drop", "learned", dict(capacity_factor=0.25)))
+FAMILY_RESTART = dict(TRAIN_RESTART, arch="olmoe-1b-7b")
+HYBRID_ARCH = "jamba-v0.1-52b"   # published widths, random init
+HYBRID_DEPTH = 8                 # of 32: one unit, 13.3B params, 53.2 GB
+HYBRID_TF = (2, 64, 16)          # teacher-forced: sequences, tokens, page
+HYBRID_SERVE = dict(batch=16, horizon=4096, page_tokens=32, requests=32,
+                    prompt_len=8, max_new=16, backend="perf")
+MOE_ARCH = "olmoe-1b-7b"         # published widths and depth, random init
+# SHAPES["decode_32k"] (batch 128, horizon 32768) cut to one card as phase
+# 10 cuts it: batch 16, horizon 4096 (KV 17.2 GB beside 27.7 GB of weights)
+MOE_SERVE = dict(batch=16, horizon=4096, page_tokens=32, requests=48,
+                 prompt_len=8, max_new=32, backend="perf")
+MOE_CHECKED = dict(MOE_SERVE, requests=32)
+MOE_PROFILE = dict(MOE_SERVE, requests=16, max_new=8)
+# SHAPES["train_4k"] cut to batch 4 and 6 of 16 layers (2.72B params: 43.6
+# GB of params, grads and moments; 4 layers peaked at 47.56 GiB, and each
+# 2 more add 13.4 GB, so 8 would pass 72 GiB; 16 would need 111 GB)
+MOE_TRAIN = dict(depth=6, seq=4096, batch=4, steps=8)
+
+
+def check_family_modules_vs_cpu(smi):
+    """(a) ``moe.apply`` (learned, hash, and capacity_factor 0.25 with
+    drops) of the three MoE archs and jamba's ``mamba.apply`` and
+    ``decode_step`` at ``smoke_config`` in float32 on the card against the
+    CPU, the same parameters and inputs."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import mamba, moe
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmuls are on: float32 would not be float32")
+    B, S = FAMILY_SMALL
+    rng = np.random.default_rng(2)
+    for arch in FAMILY_ARCHS:
+        base = configs.smoke_config(arch).replace(dtype="float32")
+        cpu = moe.init(base, torch.Generator().manual_seed(0), device="cpu")
+        card = moe.MoE(base, device="cuda")
+        card.load_state_dict(cpu.state_dict())
+        x = torch.from_numpy(rng.standard_normal(
+            (B, S, base.d_model)).astype(np.float32))
+        for mode, rm, kw in MOE_MODES:
+            cfg = base.replace(**kw)
+            C = moe._capacity(cfg, B * S)
+            out = {}
+            for dev, m in (("cuda", card), ("cpu", cpu)):
+                xd = x.to(dev)
+                y, aux = moe.apply(m, cfg, xd, router_mode=rm)
+                idx = moe.route(m, cfg, xd.reshape(B * S, -1), rm)[3]
+                keep = moe.dispatch(cfg, idx, C)[2]
+                out[dev] = (y.cpu(), {k: float(v) for k, v in aux.items()},
+                            idx.cpu(), keep.cpu())
+            (y, aux, idx, keep), (hy, haux, hidx, hkeep) = out["cuda"], \
+                out["cpu"]
+            err = float((y - hy).abs().max())
+            aux_err = max(abs(aux[k] - haux[k]) / abs(haux[k])
+                          for k in ("moe_aux", "moe_z"))
+            check(torch.equal(idx, hidx) and torch.equal(keep, hkeep),
+                  f"moe {arch} {mode}: routing or keep masks differ")
+            check(aux["moe_dropped"] == haux["moe_dropped"],
+                  f"moe {arch} {mode}: moe_dropped differs")
+            check(err <= FAMILY_TOL and aux_err <= FAMILY_TOL,
+                  f"moe {arch} {mode}: card vs CPU y {err}, aux {aux_err}")
+            print(f"family_moe {arch} {mode}: {B * S} tokens, {cfg.num_experts}"
+                  f" experts top-{cfg.top_k}, capacity {C}; card vs CPU max "
+                  f"|y diff| {err:.3e}, aux/z relative {aux_err:.3e} "
+                  f"(tolerance {FAMILY_TOL}); routing indices, keep masks "
+                  f"and moe_dropped ({aux['moe_dropped']:.6f}) equal")
+    cfg = configs.smoke_config(HYBRID_ARCH).replace(dtype="float32")
+    cpu = mamba.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = mamba.Mamba(cfg, "cuda")
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy((rng.standard_normal((B, S, cfg.d_model)) * 0.5)
+                         .astype(np.float32))
+    out = {}
+    for dev, m in (("cuda", card), ("cpu", cpu)):
+        y = mamba.apply(m, cfg, x.to(dev)).cpu()
+        st = mamba.init_state(cfg, B, device=dev)
+        ys = []
+        for i in range(S):
+            yi, st = mamba.decode_step(m, cfg, st, x[:, i:i + 1].to(dev))
+            ys.append(yi.cpu())
+        out[dev] = (y, torch.cat(ys, 1), st["ssm"].cpu())
+    errs = [float((a - b).abs().max()) for a, b in zip(out["cuda"],
+                                                       out["cpu"])]
+    check(max(errs) <= FAMILY_TOL,
+          f"mamba: card vs CPU apply/decode/state {errs}")
+    print(f"family_mamba {HYBRID_ARCH} smoke: chunked apply (chunk "
+          f"{cfg.mamba_chunk}) and {S} decode steps x {B}, card vs CPU max "
+          f"|diff| apply {errs[0]:.3e}, decode {errs[1]:.3e}, SSM state "
+          f"{errs[2]:.3e} (tolerance {FAMILY_TOL}); card: {smi}")
+
+
+def check_hybrid_decode_matches_forward(smi):
+    """(b) jamba-v0.1-52b at its published widths, 8 of 32 layers (one
+    unit: 7 mamba + 1 attention; MoE on 1, 3, 5, 7), float32, TF32 off,
+    capacity_factor raised to E so neither side drops a token: two
+    sequences of 64 tokens teacher-forced through ``decode_step`` on a block
+    table probed from a ``perf`` PageTableManager, every position's logits
+    against ``forward`` + ``logits_fn``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.paged_kv import PageTableManager
+    from repro_torch.models import model, transformer
+    cfg = configs.get_config(HYBRID_ARCH)
+    cfg = cfg.replace(num_layers=HYBRID_DEPTH, dtype="float32",
+                      capacity_factor=float(cfg.num_experts))
+    B, S, pt = HYBRID_TF
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = host_s(lambda: model.init_params(cfg, 0, "cuda"))
+    n_params = sum(p.numel() for p in params.parameters())
+    ctx = decode_ctx(model, configs, cfg, B, S, pt)
+    mgr = PageTableManager(ctx.pool_pages, backend="perf", device="cuda")
+    mgr.alloc_seqs([(s, ctx.n_pages, 0) for s in range(B)])
+    bt = mgr.block_table(list(range(B)), ctx.n_pages)
+    tokens = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    (dec, states), dec_s = host_s(lambda: teacher_forced(
+        model, params, cfg, tokens, bt, ctx))
+    (x, aux), fwd_s = host_s(lambda: model.forward(
+        params, cfg, {"tokens": torch.from_numpy(tokens).cuda()}))
+    full = model.logits_fn(params, cfg, x).transpose(0, 1)
+    err = (dec - full).abs()
+    ok = torch.isclose(dec, full, rtol=DECODE_TOL, atol=DECODE_TOL)
+    kinds = [transformer.layer_kind(cfg, i) for i in range(cfg.num_layers)]
+    moe_layers = [i for i in range(cfg.num_layers) if cfg.is_moe_layer(i)]
+    check(float(aux["moe_dropped"]) == 0.0, "forward dropped tokens")
+    check(bool(torch.isfinite(dec).all()), "decode logits not finite")
+    check(bool(ok.all()), f"hybrid decode != forward at {int((~ok).sum())} "
+          f"logits, max |diff| {float(err.max())}")
+    print(f"hybrid_decode_vs_forward {HYBRID_ARCH}: {cfg.num_layers} of 32 "
+          f"layers ({kinds.count('mamba')} mamba + {kinds.count('attn')} "
+          f"attention; MoE on layers {moe_layers}), "
+          f"d_model {cfg.d_model}, d_inner {cfg.d_inner}, N "
+          f"{cfg.ssm_state_dim}, {cfg.num_experts} experts top-{cfg.top_k} of "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; {n_params} float32 "
+          f"params ({n_params * 4 / 1e9:.3f} GB) drawn on the card in "
+          f"{init_s:.3f} s; {B} x {S} tokens teacher-forced in {dec_s:.3f} s "
+          f"(the recurrence), forward (the chunked scan, chunk "
+          f"{cfg.mamba_chunk}) {fwd_s:.3f} s; every position's logits within "
+          f"{DECODE_TOL} of forward: max |diff| {float(err.max()):.3e}, "
+          f"largest |logit| {float(full.abs().max()):.3f}; TF32 off; "
+          f"capacity_factor {cfg.capacity_factor} (no drops); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card: {smi}")
+    del params, dec, full, x, states
+    torch.cuda.empty_cache()
+
+
+class DropMeter:
+    """``moe.apply`` wrapped for the length of a ``with`` block: each call's
+    ``moe_dropped`` kept on the card (no synchronise), read at the end."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._apply, self.dropped = moe.apply, []
+        meter = self
+
+        def apply(*a, **kw):
+            y, aux = meter._apply(*a, **kw)
+            meter.dropped.append(aux["moe_dropped"].detach())
+            return y, aux
+        moe.apply = apply
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.apply = self._apply
+
+    def mean(self, cfg, steps: int) -> float:
+        """The mean over the run's MoE layer-steps; fails unless every MoE
+        layer of every decode step went through ``moe.apply``."""
+        import torch
+        from repro_torch.models import transformer
+        n_moe = sum(transformer.ffn_kind(cfg, i) == "moe"
+                    for i in range(cfg.num_layers))
+        check(n_moe > 0 and len(self.dropped) == steps * n_moe,
+              f"moe.apply ran {len(self.dropped)} times over {steps} steps "
+              f"of {n_moe} MoE layers")
+        return float(torch.stack(self.dropped).mean())
+
+
+class StepMetrics:
+    """``steps.build_train_step`` wrapped for the length of a ``with``
+    block: the step functions it builds keep each step's metrics ``keys``
+    on the card (no synchronise), read at the end."""
+
+    def __init__(self, keys):
+        self.keys, self.metrics = keys, []
+
+    def __enter__(self):
+        from repro_torch.distributed import steps
+        self._build = steps.build_train_step
+        meter = self
+
+        def build(*a, **kw):
+            fn = meter._build(*a, **kw)
+
+            def step(*sa, **skw):
+                out = fn(*sa, **skw)
+                meter.metrics.append({k: out[2][k].detach()
+                                      for k in meter.keys})
+                return out
+            return step
+        steps.build_train_step = build
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed import steps
+        steps.build_train_step = self._build
+
+    def read(self, losses: dict) -> dict:
+        """{key: [value a step]}; fails unless it saw every step whose loss
+        ``train`` returned, with the same loss."""
+        rec = {k: [float(m[k]) for m in self.metrics] for k in self.keys}
+        check(rec["loss"] == [losses[s] for s in sorted(losses)],
+              f"the recorded losses {rec['loss']} are not train's "
+              f"{losses}")
+        return rec
+
+
+def family_serve_line(name, cfg, kw, done, steps, timer, launches, wall,
+                      peak, dropped, smi):
+    """Print one served run's numbers; return (median ms, bound ms)."""
+    gen = sum(len(r["out"]) for r in done)
+    from repro_torch.models import transformer
+    bound_ms, w_bytes, kv_bytes, ssm_bytes = decode_bound(cfg, kw)
+    st = timer.step_ms
+    med = float(np.median(st))
+    kinds = [transformer.layer_kind(cfg, i) for i in range(cfg.num_layers)]
+    print(f"{name} {cfg.name} ({cfg.num_layers} layers, params float32, "
+          f"activations {cfg.dtype}, KV float32; decode states: "
+          f"{kinds.count('attn')} attention layers' paged KV pools, "
+          f"{kinds.count('mamba')} mamba layers' conv (B, "
+          f"{cfg.ssm_conv_width - 1}, d_inner) and float32 SSM (B, d_inner, "
+          f"{cfg.ssm_state_dim}) states, carried over when a slot is "
+          f"reused): batch {kw['batch']}, "
+          f"horizon {kw['horizon']}, page_tokens {kw['page_tokens']}, "
+          f"{len(done)} requests of prompt {kw['prompt_len']} + "
+          f"{kw['max_new']} new, backend perf; {steps} decode steps, {gen} "
+          f"tokens in {wall:.3f} s = {gen / wall:.1f} generated tokens/s; "
+          f"step ms median {med:.3f} (min {min(st):.3f}, max {max(st):.3f}) "
+          f"against a bound of {bound_ms:.3f} ms (weights "
+          f"{w_bytes / 1e9:.3f} GB + KV {kv_bytes / 1e9:.3f} GB + SSM states "
+          f"{ssm_bytes / 1e9:.3f} GB at {HBM_RATE / 1e12:.2f} TB/s; "
+          f"{bound_ms / med * 100:.1f}% of bound); page-table host ms a step "
+          f"{timer.table_ms / steps:.4f}; probe_perf launches {launches} = "
+          f"{launches / steps:.4f} a step; moe_dropped mean over the run's "
+          f"MoE layer-steps {dropped:.6f}; peak {peak:.2f} GiB; card: {smi}")
+    return med, bound_ms
+
+
+def family_serving(k, ref, smi):
+    """(b) jamba at 8 layers and (c) olmoe-1b-7b at its published widths
+    and depth served through ``launch/serve.serve``.  Returns the timed
+    runs' probe_perf launches."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    cfg = configs.get_config(HYBRID_ARCH).replace(num_layers=HYBRID_DEPTH)
+    with DropMeter() as dm:
+        done, mgr, steps, timer, h_launches, wall, peak, _ = served_run(
+            serve, k, cfg=cfg, **HYBRID_SERVE)
+    check_served(cfg, done, mgr, HYBRID_SERVE, "hybrid serve")
+    check(h_launches > 0, "the hybrid serve never launched probe_perf")
+    family_serve_line("hybrid_serve", cfg, HYBRID_SERVE, done, steps, timer,
+                      h_launches, wall, peak, dm.mean(cfg, steps), smi)
+    torch.cuda.empty_cache()
+
+    cfg = configs.get_config(MOE_ARCH)
+    done, mgr, steps, timer, _, _, _, _ = served_run(
+        serve, k, ref, check_tables=True, cfg=cfg, **MOE_CHECKED)
+    check_served(cfg, done, mgr, MOE_CHECKED, "moe checked serve")
+    checked_out = {r["id"]: r["out"] for r in done}
+    print(f"moe_checked: {len(done)} requests, {steps} steps, every step's "
+          f"logits finite; at {timer.admissions} admissions the probed block "
+          f"tables equal the allocator's and probe_perf equals plain bit for "
+          f"bit on {timer.keys_checked} page-table keys")
+    with DropMeter() as dm:
+        done, mgr, steps, timer, m_launches, wall, peak, _ = served_run(
+            serve, k, cfg=cfg, **MOE_SERVE)
+    check_served(cfg, done, mgr, MOE_SERVE, "moe timed serve")
+    check(all(r["out"] == checked_out[r["id"]] for r in done
+              if r["id"] in checked_out),
+          "the timed moe serve's tokens differ from the checked one's")
+    check(m_launches > 0, "the moe serve never launched probe_perf")
+    med, bound_ms = family_serve_line("moe_serve", cfg, MOE_SERVE, done,
+                                      steps, timer, m_launches, wall, peak,
+                                      dm.mean(cfg, steps), smi)
+    done, mgr, psteps, _, _, pwall, ppeak, prof = served_run(
+        serve, k, profile=True, cfg=cfg, **MOE_PROFILE)
+    check_served(cfg, done, mgr, MOE_PROFILE, "moe profiled serve")
+    busy, idle, rows, _ = device_profile(prof, pwall)
+    check(busy > 0, "the profiled moe serve shows no device time")
+    print(f"moe_profile: {psteps} steps under torch.profiler, wall "
+          f"{pwall * 1e3:.3f} ms, device busy {busy:.3f} ms, idle "
+          f"{idle * 100:.1f}%, peak {ppeak:.2f} GiB; top kernels:")
+    for ms, n, name in rows:
+        print(f"  {ms:10.3f} ms x{n:<6d} {name}")
+    del prof
+    torch.cuda.empty_cache()
+    return h_launches + m_launches, dict(median_ms=med, bound_ms=bound_ms,
+                                         idle=idle)
+
+
+def moe_train_full_width(smi):
+    """(d) olmoe-1b-7b at its published widths, 6 of 16 layers (random init
+    on the card; params float32, activations bfloat16, AdamW float32,
+    remat per unit), 8 steps at batch 4 x 4096 with the CLI's schedule
+    through ``launch.train.train``, each step's aux terms read from its
+    step function's metrics; then the drops of one forward of the trained
+    model on the run's data against uniform tokens, and one profiled
+    step."""
+    import shutil
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed import steps
+    from repro_torch.launch.train import train
+    from repro_torch.models import model, moe
+    f = MOE_TRAIN
+    cfg = configs.get_config(MOE_ARCH).replace(num_layers=f["depth"])
+    B, S = f["batch"], f["seq"]
+    shape = configs.ShapeConfig("train_4k_cut", S, B, "train")
+    oc = configs.OptimConfig(lr=3e-4, warmup_steps=f["steps"] // 5 + 1,
+                             total_steps=f["steps"])
+    mm, attn, n_params, n_active = train_flops(cfg, B, S)
+    ckpt = CKPT_ROOT / "moe"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.mkdir(parents=True)
+    check(shutil.disk_usage(ckpt).free > 1.1 * n_params * 12,
+          "too little disk for the final checkpoint")
+    keys = ("loss", "ce_loss", "moe_aux", "moe_z", "moe_dropped")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with StepMetrics(keys) as sm:
+            params, opt, losses, mon, _ = train(
+                cfg, shape, oc, num_steps=f["steps"], ckpt_dir=str(ckpt),
+                ckpt_every=0, verbose=False, device="cuda")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec = sm.read(losses)
+    check(sorted(losses) == list(range(f["steps"])),
+          f"train ran steps {sorted(losses)}")
+    check(all(np.isfinite(rec["loss"])), f"a moe loss is not finite: "
+          f"{rec['loss']}")
+    check(rec["ce_loss"][-1] < rec["ce_loss"][0],
+          f"the moe cross-entropy did not fall: {rec['ce_loss']}")
+
+    # the drops of the trained model on the run's Zipf and grammar tokens
+    # against tokens drawn uniformly from the vocabulary
+    data = SyntheticLMData(cfg, shape)
+    zipf = data.batch_at(f["steps"])
+    rng = np.random.default_rng(f["steps"])
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    uniform = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    drops, ids = {}, {}
+    with torch.no_grad():
+        for name, bt in (("zipf", zipf), ("uniform", uniform)):
+            _, aux = model.loss_fn(params, cfg, {
+                k: torch.from_numpy(v).cuda() for k, v in bt.items()})
+            drops[name] = float(aux["moe_dropped"]) / cfg.num_layers
+            _, counts = np.unique(bt["tokens"], return_counts=True)
+            ids[name] = (len(counts), counts.max() / bt["tokens"].size)
+
+    step_fn = steps.build_train_step(cfg, oc)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in zipf.items()}
+    sync()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        tp = time.perf_counter()
+        params, opt, _ = step_fn(params, opt, batch)
+        sync()
+        pwall = time.perf_counter() - tp
+    busy, idle, rows, _ = device_profile(prof, pwall, top=12)
+    groups = kernel_groups(prof)
+    check(busy > 0, "the profiled moe train step shows no device time")
+    del params, opt, prof, batch
+    torch.cuda.empty_cache()
+    step_ms = [t * 1e3 for t in mon.times]
+    med = float(np.median(step_ms))
+    flops = mm + attn
+    share = flops / (med / 1e3) / BF16_RATE
+    tokens = B * S
+    print(f"moe_train {MOE_ARCH}: {cfg.num_layers} of 16 layers (cut for "
+          f"memory), d_model "
+          f"{cfg.d_model}, {cfg.num_experts} experts top-{cfg.top_k} of d_ff "
+          f"{cfg.d_ff} (capacity {moe._capacity(cfg, tokens)} rows an expert "
+          f"at capacity_factor {cfg.capacity_factor}), {n_params} params "
+          f"({n_active} active a token), params float32, activations "
+          f"{cfg.dtype}, AdamW float32, remat {cfg.remat}; through "
+          f"launch.train.train; batch {B} x seq "
+          f"{S} ({tokens} tokens a step); step ms "
+          f"{[round(v, 1) for v in step_ms]}; median {med:.1f} ms = "
+          f"{tokens / med * 1e3:.1f} tokens/s; {flops / 1e12:.2f} TFLOP a "
+          f"step ({mm / 1e12:.2f} matmul, experts at capacity, + "
+          f"{attn / 1e12:.2f} causal attention) = "
+          f"{flops / (med / 1e3) / 1e12:.1f} TFLOP/s, {share * 100:.2f}% of "
+          f"the {BF16_RATE / 1e12:.0f} TFLOP/s bf16 dense peak; peak memory "
+          f"{peak:.2f} GiB; run with its final checkpoint {run_s:.1f} s; "
+          f"card: {smi}")
+    for k in keys:
+        print(f"moe_train {k} by step: {[round(v, 6) for v in rec[k]]}")
+    print("moe_train_drops: one forward of the trained model, moe_dropped "
+          "a layer: " + "; ".join(
+              f"{n} tokens {drops[n]:.6f} ({ids[n][0]} distinct ids, the "
+              f"commonest {ids[n][1] * 100:.2f}% of the batch)"
+              for n in drops) + f"; card: {smi}")
+    print(f"moe_train_profile: 1 step under torch.profiler, wall "
+          f"{pwall * 1e3:.1f} ms, device busy {busy:.1f} ms, idle "
+          f"{idle * 100:.1f}%; by group: " + ", ".join(
+              f"{g} {ms:.1f} ms ({ms / busy * 100:.1f}%)"
+              for g, ms in groups.items()) + f"; card: {smi}; top kernels:")
+    for ms, n, name in rows:
+        print(f"  {ms:10.3f} ms x{n:<6d} {name}")
+    return dict(median_ms=med, share=share, peak=peak, idle=idle,
+                drops=drops)
+
+
+def family_path(k, ref, smi):
+    """Phase 12: the moe and hybrid families."""
+    import shutil
+    import torch
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        check_family_modules_vs_cpu(smi)
+    check_small_train_vs_cpu(smi, FAMILY_TRAIN_ARCHS)
+    try:
+        check_restart_on_card(smi, FAMILY_RESTART)
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        check_hybrid_decode_matches_forward(smi)
+        t2 = time.perf_counter()
+        launches, serve_stats = family_serving(k, ref, smi)
+    t3 = time.perf_counter()
+    train = moe_train_full_width(smi)
+    print(f"family_path: (a) {t1 - t0:.1f} s, (b) decode vs forward "
+          f"{t2 - t1:.1f} s, (b)+(c) serving {t3 - t2:.1f} s, (d) "
+          f"{time.perf_counter() - t3:.1f} s; card: {smi}")
+    return launches, serve_stats, train
+
+
 
 
 def main() -> int:
@@ -2787,6 +3293,10 @@ def main() -> int:
     # -- 11. training and the checkpoint -------------------------------------
     ckpt_launches, _ = training_path(hashmap, PAPER_HASHMEM, keys, vals,
                                      probes, pidx, k, smi)
+    del keys, vals, probes, pidx
+
+    # -- 12. the moe and hybrid families ---------------------------------------
+    family_launches, _, _ = family_path(k, ref, smi)
 
     replaces = {"probe_perf": "src/repro/kernels/probe_perf.py:34",
                 "probe_area": "src/repro/kernels/probe_area.py:32",
@@ -2798,7 +3308,7 @@ def main() -> int:
     check(m_probe["probe_perf"] == 1 and m_serve["probe_perf"] > 0,
           "the mesh path did not launch probe_perf")
     launches = {"probe_perf": perf_path["probe_perf"] + decode_launches
-                + ckpt_launches,
+                + ckpt_launches + family_launches,
                 "probe_area": bs_path["probe_area"],
                 "probe_bitserial": bs_path["probe_bitserial"]}
     print(json.dumps({"kernels": [{

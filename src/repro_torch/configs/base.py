@@ -120,10 +120,15 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Parameter count of ``models.model.init_params`` (dense family),
-        from shapes alone."""
+        """Parameter count of ``models.model.init_params`` (the dense, moe
+        and hybrid families), from shapes alone."""
         from repro_torch.models.model import count_params
         return count_params(self)
+
+    def active_param_count(self) -> int:
+        """The parameters a token meets: the routed experts' at top_k / E."""
+        from repro_torch.models.model import count_params
+        return count_params(self, active_only=True)
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,10 @@
     batched HashMem delete for every sequence finishing in the step
     (``free_seqs``) and one batched insert for every sequence admitted in
     it (``alloc_seqs``) -- and ``PageTableManager.tick()`` runs the
-    compaction triggers on the step clock.  The dense family only (ROADMAP
-    Queue 1 item 12 lists the rest).
+    compaction triggers on the step clock.  The dense, moe and hybrid
+    families (ROADMAP Queue 1 item 12 lists the rest).  As in JAX, a slot
+    that takes a new sequence keeps the mamba states its last one left, and
+    idle slots route through the MoE layers with the live ones.
 
   * ``kv``: the multi-tenant continuous-batching KV engine under a
     YCSB-style load: one tenant per workload letter (A-F), the YCSB load
@@ -17,6 +19,7 @@
     python -m repro_torch.launch.serve --arch llama3-8b --smoke \\
         --requests 12 --batch 4 --max-new 16        # on the card
     python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch olmoe-1b-7b --smoke --device cpu
     python -m repro_torch.launch.serve --mode kv --workloads A,B,E \\
         --requests 64 --slots 16 [--device cpu]
     python -m repro_torch.launch.serve --mode kv --device cpu \\
@@ -96,7 +99,10 @@ def serve(cfg, *, batch=4, horizon=256, page_tokens=32, requests=8,
 
     def place(newly):
         """Coalesced admission: ONE page-table insert for every sequence
-        admitted this step, then per-slot decode-state reset."""
+        admitted this step, then each slot's block table, position and
+        first token.  The slot's decode states are not reset, as in JAX's
+        ``serve``: a mamba layer's conv and SSM states carry the previous
+        sequence's into the new one (ROADMAP Queue 3)."""
         if not newly:
             return
         phys = mgr.alloc_seqs([(req["id"], ctx.n_pages, 0)
@@ -254,7 +260,7 @@ def main(argv=None):
             ap.error("--arch is required in decode mode")
         cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
         try:
-            transformer.require_dense(cfg)
+            transformer.require_ported(cfg)
         except NotImplementedError as e:
             ap.error(str(e))
         serve(cfg, batch=args.batch, requests=args.requests,

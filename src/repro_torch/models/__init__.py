@@ -1,2 +1,4 @@
-"""The model zoo of the port: the dense family (llama3-8b, qwen3-8b,
-phi4-mini-3.8b, h2o-danube-1.8b) as ``nn.Module`` trees."""
+"""The model zoo of the port as ``nn.Module`` trees: the dense family
+(llama3-8b, qwen3-8b, phi4-mini-3.8b, h2o-danube-1.8b), the moe family
+(olmoe-1b-7b, llama4-maverick-400b-a17b) and the hybrid family
+(jamba-v0.1-52b)."""

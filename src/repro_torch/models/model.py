@@ -1,17 +1,20 @@
 """Top-level model API of the port (the JAX package's ``models/model.py``)
-for the dense family: init, forward, logits, decode, and the bridge that
-carries a JAX parameter tree across (``params_from_numpy``).
+for the dense, moe and hybrid families: init, forward, logits, decode, and
+the bridge that carries a JAX parameter tree across (``params_from_numpy``).
 
 ``Model`` is an ``nn.Module`` tree with the JAX tree's names and layouts:
 ``embed``, ``head`` (absent when the embeddings are tied), ``final_norm``
-and one ``DenseLayer`` a layer, which JAX stacks under ``stacks/j0`` with a
-leading layer axis.  ``jax_leaves`` groups a model's tensors (or a
-``ParamDict`` of tensors keyed like its parameters, the optimizer's moments)
-by JAX leaf, which the optimizer, gradient compression and the checkpoint
-read.  The loss is JAX's sequence-chunked cross-entropy
-(``chunked_cross_entropy``, ``loss_fn``); ``input_specs`` gives the inputs
-of each shape kind as meta tensors.  The other families wait for ROADMAP
-Queue 1 item 12.
+and ``units``, one ``ModuleDict`` of layers ``j0 .. j{unit-1}`` a unit
+(``transformer.init_units``), which JAX stacks under ``stacks/j{j}`` with a
+leading unit axis.  A parameter's name says where its JAX leaf is
+(``units.3.j1.ffn_moe.gate`` is ``stacks/j1/ffn_moe/gate`` at index 3), so
+``jax_leaves`` groups a model's tensors (or a ``ParamDict`` of tensors
+keyed like its parameters, the optimizer's moments) by JAX leaf with no
+config at hand; the optimizer, gradient compression and the checkpoint
+read it.  The loss is JAX's sequence-chunked cross-entropy
+(``chunked_cross_entropy``) plus the MoE aux terms (``loss_fn``);
+``input_specs`` gives the inputs of each shape kind as meta tensors.  The
+ssm, encdec and vlm families wait for ROADMAP Queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -31,13 +34,13 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 class Model(nn.Module):
-    """The dense LM's parameters.  With ``generator`` they are drawn on
+    """The LM's parameters.  With ``generator`` they are drawn on
     ``device`` as JAX's ``init_params`` draws them (other numbers: another
     generator); without, they are left uninitialised for loading."""
 
     def __init__(self, cfg, device=None, generator=None):
         super().__init__()
-        transformer.require_dense(cfg)
+        transformer.require_ported(cfg)
         pdt = DTYPES[cfg.param_dtype]
         V, d = cfg.padded_vocab, cfg.d_model
         self.embed = param((V, d), device, pdt)
@@ -47,9 +50,7 @@ class Model(nn.Module):
             if self.head is not None:
                 embed_init_(self.head, generator)
         self.final_norm = RMSNorm(d, device)
-        self.layers = nn.ModuleList(
-            transformer.DenseLayer(cfg, device, pdt, generator)
-            for _ in range(cfg.num_layers))
+        self.units = transformer.init_units(cfg, device, pdt, generator)
 
 
 def init_params(cfg, seed: int = 0, device=None) -> Model:
@@ -60,9 +61,22 @@ def init_params(cfg, seed: int = 0, device=None) -> Model:
     return Model(cfg, dev, g)
 
 
-def count_params(cfg) -> int:
-    """Parameter count, from shapes alone (a model on the meta device)."""
-    return sum(p.numel() for p in Model(cfg, "meta").parameters())
+def count_params(cfg, active_only: bool = False) -> int:
+    """Parameter count, from shapes alone (a model on the meta device).
+    ``active_only`` counts the routed experts' leaves (``ffn_moe`` but not
+    its ``shared`` or ``router``) at top_k / E of their size, leaf by JAX
+    leaf as JAX's ``count_params`` does."""
+    m = Model(cfg, "meta")
+    named = dict(m.named_parameters())
+    scale = cfg.top_k / cfg.num_experts if cfg.num_experts else 1.0
+    total = 0
+    for path, (names, _) in jax_leaves(m).items():
+        n = sum(named[k].numel() for k in names)
+        if active_only and "ffn_moe" in path and "shared" not in path \
+                and "router" not in path:
+            n = int(n * scale)
+        total += n
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -70,16 +84,17 @@ def count_params(cfg) -> int:
 # ---------------------------------------------------------------------------
 
 def _jax_path(name: str):
-    """Module parameter name -> (JAX tree path, layer index or None)."""
+    """Module parameter name -> (JAX tree path, unit index or None):
+    ``units.{u}.j{j}.<leaf>`` is ``stacks/j{j}/<leaf>`` at index u."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        return "stacks/j0/" + "/".join(parts[2:]), int(parts[1])
+    if parts[0] == "units":
+        return "stacks/" + "/".join(parts[2:]), int(parts[1])
     return "/".join(parts), None
 
 
 class ParamDict(dict):
     """Tensors keyed by a ``Model``'s parameter names (``"embed"``,
-    ``"layers.3.attn.wq"``): the optimizer's moments and a step's
+    ``"units.3.j0.attn.wq"``): the optimizer's moments and a step's
     gradients.  ``jax_leaves`` groups them as the JAX tree does."""
 
 
@@ -92,7 +107,7 @@ def named_tensors(tree) -> dict:
 def jax_leaves(tree) -> dict:
     """{JAX tree path ("stacks/j0/attn/wq"): (parameter names, stacked)} in
     the order JAX flattens the tree (dict keys sorted at every level).  A
-    layer leaf names one parameter a layer, in layer order, which JAX stacks
+    layer leaf names one parameter a unit, in unit order, which JAX stacks
     on a leading axis (``stacked``); any other leaf one parameter."""
     groups: dict = {}
     for name in named_tensors(tree):
@@ -106,9 +121,10 @@ def jax_leaves(tree) -> dict:
 def params_from_numpy(cfg, tree: dict, device=None) -> Model:
     """Load a JAX parameter tree (nested dicts of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``: ``embed``, ``head``,
-    ``final_norm/scale``, ``stacks/j0/{norm1/scale, attn/{wq, wk, wv, wo,
-    q_scale, k_scale}, norm2/scale, ffn/{gate, up, down}}``, each layer leaf
-    with the leading layer axis) into a ``Model`` on ``device``."""
+    ``final_norm/scale``, ``stacks/j{j}/{norm1/scale, attn/{wq, wk, wv, wo,
+    q_scale, k_scale} or mamba/{...}, norm2/scale, ffn/{gate, up, down} or
+    ffn_moe/{router, gate, up, down, shared/...}}``, each layer leaf with
+    the leading unit axis) into a ``Model`` on ``device``."""
     flat = flatten_tree(tree)
     m = Model(cfg, resolve_device(device))
     used = set()
@@ -133,7 +149,7 @@ def params_from_numpy(cfg, tree: dict, device=None) -> Model:
 def params_to_numpy(params: Model) -> dict:
     """The inverse of ``params_from_numpy``: the JAX tree, float32 numpy
     leaves (copies, never views of the parameters), layer leaves stacked on
-    a leading layer axis."""
+    a leading unit axis."""
     named = dict(params.named_parameters())
     flat = {}
     for path, (names, stacked) in jax_leaves(params).items():
@@ -158,11 +174,11 @@ def _embed(params: Model, cfg, tokens):
 
 def forward(params: Model, cfg, batch):
     """Returns (final hidden (B,S,d), aux dict).  Causal LM trunk."""
-    transformer.require_dense(cfg)
+    transformer.require_ported(cfg)
     x = _embed(params, cfg, batch["tokens"])
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    return transformer.apply_stack(params.layers, cfg, x, positions)
+    return transformer.apply_stack(params.units, cfg, x, positions)
 
 
 def _head(params: Model, cfg):
@@ -214,8 +230,9 @@ def chunked_cross_entropy(params: Model, cfg, x, labels, chunk: int = 512):
 
 
 def loss_fn(params: Model, cfg, batch):
-    """Scalar LM loss.  batch['labels'] -100 = ignored.  Returns (loss,
-    {"ce_loss": ...}): the dense family adds no MoE aux terms."""
+    """Scalar LM loss (+ the MoE aux terms ``moe_aux`` and ``moe_z``).
+    batch['labels'] -100 = ignored.  Returns (loss, {"ce_loss", and a MoE
+    config's "moe_aux", "moe_z", "moe_dropped"})."""
     x, aux = forward(params, cfg, batch)
     loss = chunked_cross_entropy(params, cfg, x, batch["labels"])
     extra = sum(v for k_, v in aux.items() if k_ in ("moe_aux", "moe_z"))
@@ -267,17 +284,20 @@ def make_decode_ctx(cfg, serve_cfg, B, mesh=None):
 
 
 def init_decode_states(params: Model, cfg, B, ctx, kv_dtype=torch.bfloat16):
-    """Zeroed paged KV pools, one pair a layer, on the params' device."""
+    """Zeroed decode states, one a layer, on the params' device: an
+    attention layer's paged KV pools, a mamba layer's conv and SSM
+    states for ``B`` sequences."""
     return transformer.init_decode_states(cfg, B, ctx, kv_dtype,
                                           device=params.embed.device)
 
 
 def decode_step(params: Model, cfg, states, tokens, pos, block_table, ctx):
     """One token for every sequence.  tokens (B,1) -> logits (B,1,V); the
-    states' pools are written in place and returned."""
+    states' pools are written in place, and the new states (the pools, the
+    mamba layers' new conv and SSM states) returned."""
     x = _embed(params, cfg, tokens)
     x, new_states = transformer.decode_stack(
-        params.layers, cfg, x, states, block_table, pos, ctx)
+        params.units, cfg, x, states, block_table, pos, ctx)
     return logits_fn(params, cfg, x), new_states
 
 
@@ -290,7 +310,7 @@ def input_specs(cfg, shape_cfg, ctx=None):
     memory): tokens and labels (B, S) int32 for ``train`` and ``prefill``;
     for ``decode`` one token against the KV horizon: tokens (B, 1), pos
     (B,) and the block table (B, ctx.n_pages)."""
-    transformer.require_dense(cfg)
+    transformer.require_ported(cfg)
     B, S = shape_cfg.global_batch, shape_cfg.seq_len
 
     def sd(shape):

@@ -1,39 +1,81 @@
-"""Layer stack of the port (the JAX package's ``models/transformer.py``) for
-the dense family: pre-norm attention + SwiGLU blocks.
+"""Layer stack of the port (the JAX package's ``models/transformer.py``):
+the dense, moe and hybrid families, pre-norm blocks whose mixer is
+attention or mamba and whose FFN is a SwiGLU or a MoE.
 
-JAX stacks the layers' parameters and runs them with ``lax.scan``
-(``scan_utils.maybe_scan``); the port keeps one ``DenseLayer`` a layer in an
-``nn.ModuleList`` and runs a Python loop over it, which computes the same
-thing (``scan_utils`` is not ported).  Decode threads per-layer states
-(the paged KV pools) through the same loop; attention layers read and write
-the HashMem-managed paged cache (``core/paged_kv.py``) through its gather
-path.  JAX decodes through ``shard_map`` when the decode context is sharded;
-the port runs on one card, where a context has one channel and one batch
-group and the sharded path computes what the gather path does.
+Hybrid architectures repeat a fixed unit of layers (jamba: 8 layers, 7
+mamba and 1 attention, MoE on the odd ones; llama4: dense/MoE alternation).
+JAX stacks the units' parameters and scans them, unrolling a unit's layers
+in Python; the port keeps a ``ModuleDict`` of ``j0 .. j{unit-1}`` a unit in
+an ``nn.ModuleList`` and runs a Python loop over it, which computes the
+same thing, and remats a unit where JAX checkpoints its unit body.  Decode
+threads per-layer states (the paged KV pools of an attention layer, the
+conv and SSM states of a mamba layer) through the same loop; attention
+layers read and write the HashMem-managed paged cache
+(``core/paged_kv.py``) through its gather path.  JAX decodes through
+``shard_map`` when the decode context is sharded; the port runs on one
+card, where a context has one channel and one batch group and the sharded
+path computes what the gather path does.
 
-The other families (moe, hybrid, ssm, encdec, vlm) raise
-``NotImplementedError`` naming their ROADMAP item; no family falls through
-to a dense block.
+The ssm, encdec and vlm families raise ``NotImplementedError`` naming
+their ROADMAP item; no family falls through to another's blocks.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import paged_kv
-from repro_torch.models import attention, mlp
+from repro_torch.models import attention, mamba, mlp, moe
 from repro_torch.models.layers import F32, RMSNorm, rms_norm
 
+PORTED = ("dense", "moe", "hybrid")
 
-def require_dense(cfg):
-    """Raise for every family but ``dense``, naming what it waits for."""
-    if cfg.family != "dense":
+
+def require_ported(cfg):
+    """Raise for the families the port does not have yet, naming what they
+    wait for."""
+    if cfg.family not in PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
             f"(ROADMAP Queue 1 item 12)")
+
+
+# ---------------------------------------------------------------------------
+# Unit structure
+# ---------------------------------------------------------------------------
+
+def scan_unit_size(cfg) -> int:
+    u = 1
+    if cfg.family == "hybrid":
+        u = math.lcm(u, cfg.attn_every)
+    if cfg.num_experts:
+        u = math.lcm(u, cfg.moe_every)
+    if cfg.slstm_every:
+        u = math.lcm(u, cfg.slstm_every)
+    if cfg.d_ff_dense:
+        u = math.lcm(u, cfg.moe_every)
+    return u
+
+
+def layer_kind(cfg, i: int) -> str:
+    """'attn' | 'mamba' | 'mlstm' | 'slstm' for global layer index i."""
+    if cfg.family == "ssm":
+        return "slstm" if cfg.is_slstm_layer(i) else "mlstm"
+    if cfg.family == "hybrid":
+        return "attn" if cfg.is_attn_layer(i) else "mamba"
+    return "attn"
+
+
+def ffn_kind(cfg, i: int) -> Optional[str]:
+    """'moe' | 'dense' | None (xlstm blocks have no separate FFN)."""
+    if cfg.family == "ssm":
+        return None
+    return "moe" if cfg.is_moe_layer(i) else "dense"
 
 
 @dataclass(frozen=True)
@@ -56,51 +98,106 @@ class DecodeCtx:
 # Init
 # ---------------------------------------------------------------------------
 
-class DenseLayer(nn.Module):
-    """``{"norm1", "attn", "norm2", "ffn"}``: one pre-norm block, drawn from
-    ``generator`` (uninitialised without one, for loading)."""
+class Layer(nn.Module):
+    """Layer ``i``: ``norm1``, its mixer (``attn`` or ``mamba``), ``norm2``
+    and its FFN (``ffn``, a SwiGLU of width ``d_ff_dense or d_ff``, or
+    ``ffn_moe``), drawn from ``generator`` (uninitialised without one, for
+    loading) in the order of the dense family's draws."""
 
-    def __init__(self, cfg, device=None, dtype=F32, generator=None):
+    def __init__(self, cfg, i: int, device=None, dtype=F32, generator=None):
         super().__init__()
-        ff = cfg.d_ff_dense or cfg.d_ff
+        kind, fk = layer_kind(cfg, i), ffn_kind(cfg, i)
         self.norm1 = RMSNorm(cfg.d_model, device)
-        if generator is None:
-            self.attn = attention.Attention(cfg, device, dtype)
-            self.ffn = mlp.SwiGLU(cfg.d_model, ff, device, dtype)
+        drawn = generator is not None
+        if kind == "attn":
+            self.attn = attention.init(cfg, generator, device, dtype) \
+                if drawn else attention.Attention(cfg, device, dtype)
         else:
-            self.attn = attention.init(cfg, generator, device, dtype)
+            self.mamba = mamba.init(cfg, generator, device, dtype) \
+                if drawn else mamba.Mamba(cfg, device, dtype)
+        if fk == "moe":
+            self.ffn_moe = moe.init(cfg, generator, device=device,
+                                    dtype=dtype) \
+                if drawn else moe.MoE(cfg, device=device, dtype=dtype)
+        else:
+            ff = cfg.d_ff_dense or cfg.d_ff
             self.ffn = mlp.init_swiglu(cfg.d_model, ff, generator, device,
-                                       dtype)
+                                       dtype) \
+                if drawn else mlp.SwiGLU(cfg.d_model, ff, device, dtype)
         self.norm2 = RMSNorm(cfg.d_model, device)
+
+
+def init_units(cfg, device=None, dtype=F32, generator=None) -> nn.ModuleList:
+    """The stack as ``n_units`` ``ModuleDict``s of ``j0 .. j{unit-1}``:
+    layer ``u * unit + j`` is ``units[u]["j{j}"]``, the JAX tree's
+    ``stacks/j{j}`` at stack index ``u``."""
+    require_ported(cfg)
+    unit = scan_unit_size(cfg)
+    if cfg.num_layers % unit:
+        raise ValueError(f"{cfg.num_layers} layers are not whole units of "
+                         f"{unit}")
+    return nn.ModuleList(
+        nn.ModuleDict({f"j{j}": Layer(cfg, u * unit + j, device, dtype,
+                                      generator) for j in range(unit)})
+        for u in range(cfg.num_layers // unit))
 
 
 # ---------------------------------------------------------------------------
 # Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _apply_layer(p: DenseLayer, cfg, x, positions, *, causal=True):
+def _apply_layer(p: Layer, cfg, x, positions, *, causal=True):
+    """One pre-norm block -> (x, its aux dict: the MoE's, else empty)."""
+    aux = {}
     h = rms_norm(x, p.norm1.scale, cfg.norm_eps)
-    q, k, v = attention.qkv(p.attn, cfg, h, positions)
-    o = attention.chunked_attention(q, k, v, cfg, causal=causal)
-    x = x + attention.out_proj(p.attn, cfg, o)
+    if hasattr(p, "attn"):
+        q, k, v = attention.qkv(p.attn, cfg, h, positions)
+        o = attention.chunked_attention(q, k, v, cfg, causal=causal)
+        sub = attention.out_proj(p.attn, cfg, o)
+    else:
+        sub = mamba.apply(p.mamba, cfg, h)
+    x = x + sub
     h2 = rms_norm(x, p.norm2.scale, cfg.norm_eps)
-    return x + mlp.swiglu(p.ffn, h2)
+    if hasattr(p, "ffn_moe"):
+        y, aux = moe.apply(p.ffn_moe, cfg, h2)
+    else:
+        y = mlp.swiglu(p.ffn, h2)
+    return x + y, aux
 
 
-def apply_stack(layers, cfg, x, positions, *, causal=True):
-    """x (B,S,d) -> (x, aux sums): a loop over the layers where JAX
-    scans.  With ``cfg.remat`` and autograd on, each layer is recomputed in
-    the backward pass from its input alone, as JAX's ``jax.checkpoint`` of
-    the unit body does.  The dense family has no auxiliary losses."""
-    require_dense(cfg)
+def _apply_unit(unit, cfg, x, positions, causal):
+    """A unit's layers in order -> (x, their aux dicts)."""
+    auxes = []
+    for p in unit.values():
+        x, aux = _apply_layer(p, cfg, x, positions, causal=causal)
+        auxes.append(aux)
+    return x, auxes
+
+
+def apply_stack(units, cfg, x, positions, *, causal=True):
+    """x (B,S,d) -> (x, aux sums): a loop over the units where JAX scans.
+    With ``cfg.remat`` and autograd on, each unit is recomputed in the
+    backward pass from its input alone, as JAX's ``jax.checkpoint`` of the
+    unit body does.  A MoE config sums ``moe_aux``, ``moe_z`` and
+    ``moe_dropped`` over its MoE layers in layer order, from float32
+    zeros."""
+    require_ported(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
-    for p in layers:
+    aux_sum = {}
+    if cfg.num_experts:
+        aux_sum = {k: torch.zeros((), dtype=F32, device=x.device)
+                   for k in ("moe_aux", "moe_z", "moe_dropped")}
+    for unit in units:
         if remat:
-            x = checkpoint(_apply_layer, p, cfg, x, positions, causal=causal,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, auxes = checkpoint(_apply_unit, unit, cfg, x, positions,
+                                  causal, use_reentrant=False,
+                                  preserve_rng_state=False)
         else:
-            x = _apply_layer(p, cfg, x, positions, causal=causal)
-    return x, {}
+            x, auxes = _apply_unit(unit, cfg, x, positions, causal)
+        for aux in auxes:
+            for k, v in aux.items():
+                aux_sum[k] = aux_sum[k] + v
+    return x, aux_sum
 
 
 # ---------------------------------------------------------------------------
@@ -108,15 +205,17 @@ def apply_stack(layers, cfg, x, positions, *, causal=True):
 # ---------------------------------------------------------------------------
 
 def init_decode_states(cfg, B: int, ctx: DecodeCtx, kv_dtype=torch.bfloat16,
-                       num_layers=None, device=None):
-    """One ``{"k_pool", "v_pool"}`` a layer, each (pool_pages, page_tokens,
-    K, hd) zeros (JAX stacks them on a leading layer axis).  ``B`` sizes
-    the recurrent states of other families; the pools do not depend on
-    it."""
-    del B
-    require_dense(cfg)
+                       device=None):
+    """One state a layer, in layer order (JAX stacks them by unit
+    position): an attention layer's ``{"k_pool", "v_pool"}``, each
+    (pool_pages, page_tokens, K, hd) zeros, a mamba layer's ``{"conv",
+    "ssm"}`` for ``B`` sequences (``mamba.init_state``)."""
+    require_ported(cfg)
     out = []
-    for _ in range(num_layers or cfg.num_layers):
+    for i in range(cfg.num_layers):
+        if layer_kind(cfg, i) == "mamba":
+            out.append(mamba.init_state(cfg, B, device=device))
+            continue
         k_pool, v_pool = paged_kv.init_pool(
             ctx.pool_pages, ctx.page_tokens, cfg.num_kv_heads, cfg.head_dim,
             kv_dtype, device)
@@ -140,19 +239,30 @@ def _paged_attn_sub(p_attn, cfg, h, state, block_table, pos, ctx):
     return sub, {"k_pool": k_pool, "v_pool": v_pool}
 
 
-def _apply_layer_decode(p: DenseLayer, cfg, x, state, block_table, pos, ctx):
+def _apply_layer_decode(p: Layer, cfg, x, state, block_table, pos, ctx):
     h = rms_norm(x, p.norm1.scale, cfg.norm_eps)
-    sub, state = _paged_attn_sub(p.attn, cfg, h, state, block_table, pos,
-                                 ctx)
+    if hasattr(p, "attn"):
+        sub, state = _paged_attn_sub(p.attn, cfg, h, state, block_table,
+                                     pos, ctx)
+    else:
+        sub, state = mamba.decode_step(p.mamba, cfg, state, h)
     x = x + sub
     h2 = rms_norm(x, p.norm2.scale, cfg.norm_eps)
-    return x + mlp.swiglu(p.ffn, h2), state
+    if hasattr(p, "ffn_moe"):
+        # the B rows route together, idle slots included, at the capacity
+        # of B tokens, as in JAX
+        y, _ = moe.apply(p.ffn_moe, cfg, h2)
+    else:
+        y = mlp.swiglu(p.ffn, h2)
+    return x + y, state
 
 
-def decode_stack(layers, cfg, x, states, block_table, pos, ctx):
-    """One decode step through all layers.  x (B,1,d)."""
-    require_dense(cfg)
+def decode_stack(units, cfg, x, states, block_table, pos, ctx):
+    """One decode step through all layers.  x (B,1,d); ``states`` one a
+    layer, in layer order."""
+    require_ported(cfg)
     new_states = []
+    layers = (p for unit in units for p in unit.values())
     for p, s in zip(layers, states):
         x, s = _apply_layer_decode(p, cfg, x, s, block_table, pos, ctx)
         new_states.append(s)

@@ -2,10 +2,12 @@
 package's on-disk format, so a checkpoint crosses in both directions: the
 generic cases of ``tests/test_checkpoint.py`` on the port, a save that
 snapshots a tree the caller then updates in place, a model and optimizer
-state and three HashMem tables (displaced with a stash, extendible after a
-split, two shards stacked) saved by JAX and restored by the port with equal
-leaves and equal probes, and the port's manifest, files and leaves read back
-by JAX.  Everything here is exact: the files carry bits."""
+state (a dense model, and jamba's hybrid one of mamba, attention and MoE
+layers in units of 4 under ``stacks/j0 .. j3``) and three HashMem tables
+(displaced with a stash, extendible after a split, two shards stacked)
+saved by JAX and restored by the port with equal leaves and equal probes,
+and the port's manifest, files and leaves read back by JAX.  Everything
+here is exact: the files carry bits."""
 import json
 
 import jax
@@ -380,6 +382,39 @@ def test_port_train_state_checkpoint_is_jax_s(tmp_path, state_dtype):
         back = JCheckpointer(str(tmp_path / "p")).restore(2, target)
         for a, b in zip(jax.tree.leaves(jstate), jax.tree.leaves(back)):
             np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
+
+
+def test_jamba_train_state_crosses_both_ways(tmp_path):
+    """A JAX jamba train state (two units of 4 layers) restores into the
+    port with equal parameters and moments; the port saves it back into the
+    same files, byte for byte, and JAX's restore reads them."""
+    from repro.configs import smoke_config as j_smoke_config
+    joc, oc = JOptimConfig(), OptimConfig()
+    jcfg = j_smoke_config("jamba-v0.1-52b").replace(num_layers=8)
+    cfg = smoke_config("jamba-v0.1-52b").replace(num_layers=8)
+    jstate = j_train_state(jcfg, joc)
+    JCheckpointer(str(tmp_path / "j"), async_save=False).save(5, jstate)
+    state = Checkpointer(str(tmp_path / "j")).restore(
+        5, _restore_tree_shapes(cfg, oc), device=CPU)
+    want = flatten_tree(jax.tree.map(np.asarray, jstate["params"]))
+    have = flatten_tree(model.params_to_numpy(state["params"]))
+    assert want.keys() == have.keys()
+    assert {k.split("/")[1] for k in want if k.startswith("stacks")} == \
+        {"j0", "j1", "j2", "j3"}
+    for k in want:
+        np.testing.assert_array_equal(have[k], want[k], k)
+    for mom in ("m", "v"):
+        w, h = j_moments(jstate["opt"][mom]), port_moments(state["opt"][mom])
+        assert w.keys() == h.keys()
+        for k in w:
+            np.testing.assert_array_equal(h[k], w[k], f"{mom} {k}")
+    Checkpointer(str(tmp_path / "p"), async_save=False).save(5, state)
+    assert_same_checkpoint(tmp_path / "p" / "step_00000005",
+                           tmp_path / "j" / "step_00000005")
+    back = JCheckpointer(str(tmp_path / "p")).restore(
+        5, jax.eval_shape(lambda: jstate))
+    for a, b in zip(jax.tree.leaves(jstate), jax.tree.leaves(back)):
+        np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
 
 
 def test_port_tables_checkpoint_is_jax_s(tmp_path):

@@ -378,10 +378,8 @@ def test_make_decode_ctx_refuses_more_than_one_shard():
         model.make_decode_ctx(cfg, scfg, 4, mesh={"data": 2, "model": 1})
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "jamba-v0.1-52b",
-                                  "xlstm-1.3b", "whisper-tiny",
-                                  "internvl2-2b",
-                                  "llama4-maverick-400b-a17b"])
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "whisper-tiny",
+                                  "internvl2-2b"])
 def test_other_families_raise(arch):
     cfg = smoke_config(arch)
     with pytest.raises(NotImplementedError, match="item 12"):
@@ -393,3 +391,28 @@ def test_other_families_raise(arch):
     with pytest.raises(NotImplementedError):
         model.forward(dense, cfg, {"tokens": torch.zeros((1, 4),
                                                          dtype=torch.int64)})
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "jamba-v0.1-52b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_and_hybrid_families_build_and_run(arch):
+    """The cases ``test_other_families_raise`` had for these families: they
+    build, run forward and decode one step, with the MoE aux terms."""
+    cfg = smoke_config(arch)
+    m = model.init_params(cfg, device=CPU)
+    x, aux = model.forward(m, cfg, {"tokens": torch.zeros((1, 16),
+                                                          dtype=torch.int64)})
+    assert x.shape == (1, 16, cfg.d_model) and bool(torch.isfinite(x).all())
+    assert set(aux) == {"moe_aux", "moe_z", "moe_dropped"}
+    states = transformer.init_decode_states(
+        cfg, 2, transformer.DecodeCtx(8, 2, 4), device=CPU)
+    kinds = [transformer.layer_kind(cfg, i) for i in range(cfg.num_layers)]
+    assert [set(s) for s in states] == [
+        {"k_pool", "v_pool"} if k == "attn" else {"conv", "ssm"}
+        for k in kinds]
+    logits, _ = model.decode_step(
+        m, cfg, states, torch.zeros((2, 1), dtype=torch.int32),
+        torch.zeros(2, dtype=torch.int32),
+        torch.arange(4, dtype=torch.int32).reshape(2, 2),
+        transformer.DecodeCtx(8, 2, 4))
+    assert logits.shape == (2, 1, cfg.padded_vocab)

@@ -40,8 +40,8 @@ from repro_torch.optim import adamw
 SHAPES = {"embed": (6, 4), "final_norm/scale": (4,),
           "stacks/j0/attn/wq": (2, 4, 3), "stacks/j0/norm1/scale": (2, 4)}
 PORT_NAMES = {"embed": "embed", "final_norm/scale": "final_norm.scale",
-              "stacks/j0/attn/wq": "layers.{}.attn.wq",
-              "stacks/j0/norm1/scale": "layers.{}.norm1.scale"}
+              "stacks/j0/attn/wq": "units.{}.j0.attn.wq",
+              "stacks/j0/norm1/scale": "units.{}.j0.norm1.scale"}
 
 
 def mixed_tree(rng, scale=1.0, layer_scales=(1.0, 1.0)):
@@ -168,23 +168,23 @@ def test_adamw_update_matches_jax(case):
 
 
 def test_decay_mask_reads_the_jax_path():
-    assert adamw._decay_mask("layers.3.attn.wq")
+    assert adamw._decay_mask("units.3.j0.attn.wq")
     assert adamw._decay_mask("embed") and adamw._decay_mask("head")
-    for name in ("final_norm.scale", "layers.0.norm1.scale",
-                 "layers.2.attn.q_scale", "layers.1.norm2.scale"):
+    for name in ("final_norm.scale", "units.0.j0.norm1.scale",
+                 "units.2.j0.attn.q_scale", "units.1.j0.norm2.scale"):
         assert not adamw._decay_mask(name), name
 
 
 def test_no_decay_on_norm_scales():
     oc = OptimConfig(lr=0.1, warmup_steps=0, total_steps=10,
                      weight_decay=1.0)
-    params = ParamDict({"layers.0.ffn.up": torch.ones(4),
-                        "layers.0.norm1.scale": torch.ones(4)})
+    params = ParamDict({"units.0.j0.ffn.up": torch.ones(4),
+                        "units.0.j0.norm1.scale": torch.ones(4)})
     state = adamw.init_opt_state(params, oc)
     g = ParamDict({n: torch.zeros_like(p) for n, p in params.items()})
     adamw.adamw_update(params, g, state, oc)
-    assert float((params["layers.0.norm1.scale"] - 1).abs().max()) < 1e-6
-    assert float((params["layers.0.ffn.up"] - 1).abs().max()) > 1e-3
+    assert float((params["units.0.j0.norm1.scale"] - 1).abs().max()) < 1e-6
+    assert float((params["units.0.j0.ffn.up"] - 1).abs().max()) > 1e-3
 
 
 def test_adamw_converges_quadratic():
@@ -228,7 +228,7 @@ def test_compress_tree_bit_equal_to_jax(mode):
     if mode == "int8":
         np.testing.assert_array_equal(got["embed"][0], [127, 2, 4, -0.0])     # a per-layer scale would give layer 0 other values
         per_layer = to_jax_flat(compression.compress_tree(
-            ParamDict({"a": to_port(g)["layers.0.attn.wq"]}), mode))["a"]
+            ParamDict({"a": to_port(g)["units.0.j0.attn.wq"]}), mode))["a"]
         assert not np.array_equal(per_layer, got["stacks/j0/attn/wq"][0])
 
 

@@ -4,17 +4,24 @@ init carried across by ``params_from_numpy``), float32: the same generated
 tokens for every request, the same number of steps, the same page-table
 call trace (every ``alloc_seqs`` with the pages it returned, every
 ``free_seqs``), the same grow and compact events and the page table's
-leaves equal bit for bit at the end.  JAX decodes on its serving CLI's
+leaves equal bit for bit at the end; for the dense archs and for
+olmoe-1b-7b and jamba-v0.1-52b, whose served tokens depend on two things
+JAX's ``serve`` does on purpose: idle slots take part in MoE routing (and
+its capacity), and a reused slot's mamba states are not reset.  JAX decodes on its serving CLI's
 (1, 1) mesh, through ``shard_map``; the port through its gather path.
 
 Tokens are compared exactly: both sides are float32 and the logits agree
-to about 1e-6 (``tests/test_torch_models.py``), far inside the gaps
-between the top two logits of these runs, which the test checks (> 1e-4).
+to about 1e-6 (``tests/test_torch_models.py``; <= 1.8e-6 for the moe and
+hybrid families, ``tests/test_torch_families.py``), far inside the gaps
+between the top two logits of these runs, which the test checks: > 1e-4
+for the dense archs, > 2e-5 (ten times that agreement) for olmoe and
+jamba, whose smallest gap is 9.2e-5.
 Also: determinism, the CLI's decode mode, and the ``serve_paged``
 example."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import smoke_config as j_smoke_config
 from repro.core import paged_kv as jkv
@@ -33,6 +40,16 @@ from test_torch_paged_kv import jitted_jax_page_table
 
 CPU = "cpu"
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite runs several workers on a few cores,
+    and PyTorch's thread pool in each would oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SCENARIOS = {
     "llama3-8b-ref": ("llama3-8b", "ref", dict(
         batch=4, requests=6, max_new=5, horizon=64, page_tokens=8,
@@ -45,7 +62,18 @@ SCENARIOS = {
     "llama3-8b-perf-churn": ("llama3-8b", "perf", dict(
         batch=4, requests=9, max_new=9, horizon=12, page_tokens=2,
         prompt_len=2)),
+    # the moe and hybrid families: idle slots route with the live ones, and
+    # a reused slot keeps its mamba states, as in JAX
+    "olmoe-1b-7b-perf": ("olmoe-1b-7b", "perf", dict(
+        batch=3, requests=7, max_new=4, horizon=32, page_tokens=8,
+        prompt_len=3)),
+    "jamba-v0.1-52b-perf": ("jamba-v0.1-52b", "perf", dict(
+        batch=3, requests=7, max_new=5, horizon=32, page_tokens=8,
+        prompt_len=3)),
 }
+
+
+MIN_GAP = {"olmoe-1b-7b-perf": 2e-5, "jamba-v0.1-52b-perf": 2e-5}
 
 
 def _trace(monkeypatch, cls, log):
@@ -119,7 +147,7 @@ def test_serve_outputs_and_steps_match_jax(served):
     for a, b in zip(tdone, jdone):
         assert (a["id"], a["prompt"], a["out"]) == (b["id"], b["prompt"],
                                                     b["out"])
-    assert min(served["gaps"]) > 1e-4
+    assert min(served["gaps"]) > MIN_GAP.get(served["name"], 1e-4)
 
 
 def test_serve_page_table_trace_and_leaves_match_jax(served):

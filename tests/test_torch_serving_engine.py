@@ -852,7 +852,7 @@ def test_serve_kv_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "decode", "--arch", "olmoe-1b-7b", "--smoke"],
+    (["--mode", "decode", "--arch", "xlstm-1.3b", "--smoke"],
      "Queue 1 item 12"),
 ])
 def test_serve_cli_refuses_what_is_not_ported(argv, match, capsys):

@@ -2,7 +2,10 @@
 ``distributed.steps.build_train_step``, ``launch.train``) with the JAX
 package's, at ``smoke_config`` of llama3-8b, qwen3-8b and h2o-danube-1.8b
 (window 12, which the 64-token sequences pass) in float32, and llama3-8b in
-bfloat16.  Parameters cross from JAX by ``params_from_numpy`` or through a
+bfloat16; and of the moe and hybrid families in float32: one step of
+olmoe-1b-7b and of jamba-v0.1-52b, 8 steps of ``train`` of jamba (its units
+hold both MoE and mamba layers), the decay mask and int8 compression on
+their ``stacks/j{j}`` trees.  Parameters cross from JAX by ``params_from_numpy`` or through a
 step-0 checkpoint JAX wrote; every JAX function runs jitted, once a case.
 
 Tolerances, each from what float32 summation order can do:
@@ -25,6 +28,12 @@ Tolerances, each from what float32 summation order can do:
     parameters are held to the 2 lr bound only.
   * 8 steps of ``train`` resumed from the same JAX step-0 checkpoint: every
     loss within 1e-5 relative of JAX's (observed <= 3.9e-7).
+  * olmoe and jamba take the float32 bounds above; their losses carry the
+    MoE aux terms, and the router's gradient flows through the gates, the
+    load-balance and the z loss.  Routing is discrete, so the bounds hold
+    only while both sides route alike: the MoE tests check that every
+    routing decision agrees (``tests/test_torch_moe.py``).
+  * the decay mask and int8 compression on the unit trees: exact.
 """
 import shutil
 
@@ -69,6 +78,7 @@ OC = dict(lr=1e-3, warmup_steps=2, total_steps=16)
 B, S = 4, 64
 CASES = [("llama3-8b", "float32"), ("qwen3-8b", "float32"),
          ("h2o-danube-1.8b", "float32"), ("llama3-8b", "bfloat16")]
+MOE_CASES = [("olmoe-1b-7b", "float32"), ("jamba-v0.1-52b", "float32")]
 
 
 def configs(arch, dtype):
@@ -156,7 +166,7 @@ def test_input_specs_match_jax():
 # One train step from carried parameters
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("c", CASES, ids=case_id)
+@pytest.mark.parametrize("c", CASES + MOE_CASES, ids=case_id)
 def test_train_step_matches_jax(c, mesh):
     jcfg, cfg = configs(*c)
     joc, oc = JOptimConfig(**OC), OptimConfig(**OC)
@@ -188,8 +198,12 @@ def test_train_step_matches_jax(c, mesh):
         for k in want:
             assert np.abs(got[k] - want[k]).max() <= 2 * lr, k
         return
-    for k in ("loss", "ce_loss", "grad_norm"):
-        assert rel(tm[k], jm[k]) <= 1e-5, k
+    assert set(tm) == set(jm)
+    for k in ("loss", "ce_loss", "grad_norm", "moe_aux", "moe_z"):
+        if k in jm:
+            assert rel(tm[k], jm[k]) <= 1e-5, k
+    if "moe_dropped" in jm:
+        assert float(tm["moe_dropped"]) == float(jm["moe_dropped"])
     stacked = {}
     for n, g in zip(names, tgrads):
         path, i = model._jax_path(n)
@@ -217,7 +231,7 @@ def test_train_step_refuses_a_mesh_of_more_than_one_shard():
 # train() resumes from JAX's step-0 checkpoint and follows JAX's losses
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("c", CASES[:3], ids=case_id)
+@pytest.mark.parametrize("c", CASES[:3] + MOE_CASES[1:], ids=case_id)
 def test_train_from_jax_checkpoint_follows_jax(c, mesh, tmp_path):
     jcfg, cfg = configs(*c)
     joc, oc = JOptimConfig(**OC), OptimConfig(**OC)
@@ -236,6 +250,71 @@ def test_train_from_jax_checkpoint_follows_jax(c, mesh, tmp_path):
     assert sorted(got) == list(range(8)) and pol.restarts == 0
     for s in range(8):
         assert rel(got[s], want[s]) <= 1e-5, (s, got[s], want[s])
+
+
+# ---------------------------------------------------------------------------
+# The decay mask and int8 compression on the unit trees
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b",
+                                  "llama4-maverick-400b-a17b"])
+def test_decay_mask_matches_jax_on_every_leaf(arch):
+    from repro.optim.adamw import _decay_mask as j_decay_mask
+    from repro_torch.optim.adamw import _decay_mask
+    jcfg, cfg = j_smoke_config(arch), smoke_config(arch)
+    shapes = jax.eval_shape(lambda k: jmodel.init_params(jcfg, k),
+                            jax.random.PRNGKey(0))
+    want = {"/".join(str(k.key) for k in path): j_decay_mask(path)
+            for path, _ in jax.tree_util.tree_leaves_with_path(shapes)}
+    m = model.Model(cfg, "meta")
+    got = {}
+    for name, _ in m.named_parameters():
+        got.setdefault(model._jax_path(name)[0], set()).add(_decay_mask(name))
+    assert got == {k: {v} for k, v in want.items()}
+    # mamba's A_log, D, conv_b and conv_w and the experts decay; dt_bias and
+    # the norms do not
+    for leaf, decays in (("mamba/A_log", True), ("mamba/D", True),
+                         ("mamba/conv_b", True), ("mamba/conv_w", True),
+                         ("ffn_moe/gate", True), ("ffn_moe/router", True),
+                         ("mamba/dt_bias", False), ("norm1/scale", False)):
+        hits = [v for k, v in want.items() if k.endswith(leaf)]
+        if arch.startswith("jamba") or not leaf.startswith("mamba"):
+            assert hits and all(h == decays for h in hits), leaf
+
+
+def test_int8_compression_of_a_unit_tree_is_jax_s():
+    """One int8 scale per JAX leaf: ``stacks/j{j}/...`` stacks layer j of
+    every unit, so its scale is the largest magnitude over them."""
+    from repro.distributed import compression as jcomp
+    from repro_torch.distributed import compression
+    jcfg = j_smoke_config("jamba-v0.1-52b").replace(num_layers=8)
+    cfg = smoke_config("jamba-v0.1-52b").replace(num_layers=8)
+    rng = np.random.default_rng(4)
+    shapes = jax.eval_shape(lambda k: jmodel.init_params(jcfg, k),
+                            jax.random.PRNGKey(0))
+    tree = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(
+        np.float32) * rng.uniform(0.1, 10), shapes)
+    # two units: unit 1's layers three times unit 0's, per leaf
+    tree["stacks"] = jax.tree.map(
+        lambda a: a * np.asarray([1.0, 3.0], np.float32).reshape(
+            (2,) + (1,) * (a.ndim - 1)), tree["stacks"])
+    grads = model.ParamDict(model.params_from_numpy(cfg, tree, CPU)
+                            .named_parameters())
+    got = flatten_tree(model.params_to_numpy(_as_model(
+        cfg, compression.compress_tree(grads, "int8"))))
+    want = flatten_tree(jax.tree.map(np.asarray, jcomp.compress_tree(
+        jax.tree.map(jnp.asarray, tree), "int8")))
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], k)
+
+
+def _as_model(cfg, pd):
+    m = model.Model(cfg, CPU)
+    with torch.no_grad():
+        for n, p in m.named_parameters():
+            p.copy_(pd[n])
+    return m
 
 
 # ---------------------------------------------------------------------------

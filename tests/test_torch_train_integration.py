@@ -2,7 +2,8 @@
 training stack, on the CPU: the loss falls, a restart after an injected
 failure replays the same steps bit for bit (losses, parameters and
 moments), and bf16 gradient compression trains; and the entry points
-``launch.train.main`` and ``train_lm`` run with ``--device cpu``."""
+``launch.train.main`` (the dense, moe and hybrid families) and ``train_lm``
+run with ``--device cpu``."""
 import numpy as np
 import pytest
 import torch
@@ -76,6 +77,19 @@ def test_train_cli_on_cpu(tmp_path, capsys):
     assert "restarts=1" in out and "[restore] resumed from step 2" in out
     assert ttrain.main(args) == {}        # the checkpoint holds step 4
     assert "no step to run" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llama4-maverick-400b-a17b",
+                                  "jamba-v0.1-52b"])
+def test_train_cli_runs_the_moe_and_hybrid_families(arch, tmp_path, capsys):
+    losses = ttrain.main(["--arch", arch, "--smoke", "--steps", "3",
+                          "--batch", "2", "--seq", "32", "--ckpt-dir",
+                          str(tmp_path), "--ckpt-every", "1",
+                          "--inject-failure-at", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert sorted(losses) == [0, 1, 2]
+    assert all(np.isfinite(v) for v in losses.values())
+    assert "restarts=1" in out and "[restore] resumed from step 2" in out
 
 
 def test_train_lm_on_cpu(tmp_path, capsys):
