@@ -120,8 +120,8 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Parameter count of ``models.model.init_params`` (the dense, moe
-        and hybrid families), from shapes alone."""
+        """Parameter count of ``models.model.init_params``, from shapes
+        alone."""
         from repro_torch.models.model import count_params
         return count_params(self)
 

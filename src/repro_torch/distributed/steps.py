@@ -38,14 +38,18 @@ def build_train_step(cfg, oc, mesh=None, *, grad_compression: str = "none"):
     with respect to every parameter, ``compress_tree`` of the gradient when
     ``grad_compression`` is not ``"none"``, then ``adamw_update``, which
     updates ``params`` and the moments in place.  ``batch`` holds
-    ``tokens`` and ``labels`` (B, S) on the parameters' device."""
+    the family's inputs (``model.input_specs``) on the parameters'
+    device."""
     _one_card(mesh)
 
     def train_step(params, opt_state, batch):
         names, tensors = zip(*params.named_parameters())
         with torch.enable_grad():
             loss, metrics = model.loss_fn(params, cfg, batch)
-            grads = torch.autograd.grad(loss, tensors)
+            # a leaf the loss never reads (whisper's final_norm/bias: the
+            # loss takes final_norm's scale only) gets JAX's zero gradient
+            grads = torch.autograd.grad(loss, tensors, allow_unused=True,
+                                        materialize_grads=True)
         grads = model.ParamDict(zip(names, grads))
         if grad_compression != "none":
             grads = compress_tree(grads, grad_compression)

@@ -7,10 +7,11 @@
     batched HashMem delete for every sequence finishing in the step
     (``free_seqs``) and one batched insert for every sequence admitted in
     it (``alloc_seqs``) -- and ``PageTableManager.tick()`` runs the
-    compaction triggers on the step clock.  The dense, moe and hybrid
-    families (ROADMAP Queue 1 item 12 lists the rest).  As in JAX, a slot
-    that takes a new sequence keeps the mamba states its last one left, and
-    idle slots route through the MoE layers with the live ones.
+    compaction triggers on the step clock.  Every family but encdec, which
+    the reference's loop cannot serve either (``refuse_encdec``).  As in
+    JAX, a slot that takes a new sequence keeps the recurrent (mamba,
+    mLSTM, sLSTM) states its last one left, idle slots route through the
+    MoE layers with the live ones, and a vlm decodes tokens only.
 
   * ``kv``: the multi-tenant continuous-batching KV engine under a
     YCSB-style load: one tenant per workload letter (A-F), the YCSB load
@@ -20,6 +21,7 @@
         --requests 12 --batch 4 --max-new 16        # on the card
     python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu
     python -m repro_torch.launch.serve --arch olmoe-1b-7b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke --device cpu
     python -m repro_torch.launch.serve --mode kv --workloads A,B,E \\
         --requests 64 --slots 16 [--device cpu]
     python -m repro_torch.launch.serve --mode kv --device cpu \\
@@ -46,7 +48,7 @@ from repro_torch.configs import ServeConfig, ShapeConfig, get_config, \
 from repro_torch.core.layout import resolve_device
 from repro_torch.core.paged_kv import PageTableManager
 from repro_torch.distributed import steps as dsteps
-from repro_torch.models import model, transformer
+from repro_torch.models import model
 from repro_torch.serving import SlotPool, build_ycsb_engine
 
 # JAX's serving CLI decodes on a (1, 1) ("data", "model") mesh; the port
@@ -65,6 +67,22 @@ def _host_buffer(shape, dev):
     return t, t.numpy()
 
 
+def refuse_encdec(cfg):
+    """Raise for an encoder-decoder arch.  The reference's ``serve`` calls
+    ``model.init_decode_states`` without ``enc_frames``
+    (``src/repro/launch/serve.py:57``) and fails on them; the port keeps
+    the limitation and says so.  Encdec decode runs at the library level:
+    ``model.init_decode_states(..., enc_frames=...)``, then
+    ``model.decode_step``."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"{cfg.name}: the serving loop does not serve encoder-decoder "
+            f"archs: the reference's serve builds the decode states without "
+            f"enc_frames (src/repro/launch/serve.py:57) and fails; decode "
+            f"through model.init_decode_states(..., enc_frames=...) and "
+            f"model.decode_step")
+
+
 @torch.no_grad()
 def serve(cfg, *, batch=4, horizon=256, page_tokens=32, requests=8,
           max_new=16, prompt_len=8, seed=0, backend="perf", verbose=True,
@@ -76,7 +94,8 @@ def serve(cfg, *, batch=4, horizon=256, page_tokens=32, requests=8,
     (idle ones too), then frees the finished sequences in one batched
     delete, refills the slots with one batched insert and ticks the page
     table.  Builds no autograd graph.  Returns (done requests, the
-    PageTableManager, steps run)."""
+    PageTableManager, steps run).  Refuses encdec (``refuse_encdec``)."""
+    refuse_encdec(cfg)
     dev = resolve_device(device)
     shape = ShapeConfig("serve", horizon, batch, "decode")
     scfg = ServeConfig(model=cfg, shape=shape, kv_page_tokens=page_tokens)
@@ -260,8 +279,8 @@ def main(argv=None):
             ap.error("--arch is required in decode mode")
         cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
         try:
-            transformer.require_ported(cfg)
-        except NotImplementedError as e:
+            refuse_encdec(cfg)
+        except ValueError as e:
             ap.error(str(e))
         serve(cfg, batch=args.batch, requests=args.requests,
               max_new=args.max_new, horizon=args.horizon,

@@ -1,5 +1,6 @@
 """Shared model layers of the port (the JAX package's ``models/layers.py``):
-norms, RoPE, initialisers and the param-tree helpers.
+norms (RMS, and the centred layer norm of the encoder-decoder family), RoPE,
+sinusoidal positions, initialisers and the param-tree helpers.
 
 The port's models are ``nn.Module`` trees whose parameters keep the JAX
 package's layouts (``wq`` is ``(d, H, hd)``, an embedding ``(vocab, d)``), so
@@ -64,12 +65,40 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.scale, eps)
 
 
+class LayerNorm(RMSNorm):
+    """The centred norm of the JAX tree, ``norm_init(d, centered=True)``:
+    ``{"scale": (d,) ones, "bias": (d,) zeros}``."""
+
+    def __init__(self, d: int, device=None, dtype=F32):
+        super().__init__(d, device, dtype)
+        self.bias = param((d,), device, dtype)
+        with torch.no_grad():
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+        return layer_norm(x, self, eps)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
     dt = x.dtype
     x = x.to(F32)
     var = x.square().mean(-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
     return (y * scale).to(dt)
+
+
+def layer_norm(x: torch.Tensor, p: RMSNorm, eps: float = 1e-5):
+    """Centred norm over the last axis in float32, then ``p.scale`` and,
+    where the norm has one (a ``LayerNorm``), ``p.bias``; the input's dtype
+    out."""
+    dt = x.dtype
+    x = x.to(F32)
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps) * p.scale
+    if hasattr(p, "bias"):
+        y = y + p.bias
+    return y.to(dt)
 
 
 def head_rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
@@ -96,6 +125,19 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1f, x2f = x[..., :half].to(F32), x[..., half:].to(F32)
     return torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin],
                      dim=-1).to(dt)
+
+
+def sinusoid_positions(S: int, d: int, device=None) -> torch.Tensor:
+    """(S, d) float32: sin on the even columns, cos on the odd ones, the
+    angles in numpy float64 and cast once, as JAX computes them (float32
+    angles are off by up to 2.5e-4 at 4096 positions)."""
+    pos = np.arange(S)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / (10000 ** (2 * i / d))
+    out = np.zeros((S, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return torch.from_numpy(out).to(device)
 
 
 def project(x: torch.Tensor, w: torch.Tensor, in_dims: int = 1):

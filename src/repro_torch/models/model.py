@@ -1,20 +1,26 @@
 """Top-level model API of the port (the JAX package's ``models/model.py``)
-for the dense, moe and hybrid families: init, forward, logits, decode, and
-the bridge that carries a JAX parameter tree across (``params_from_numpy``).
+for every family: dense | moe | hybrid (jamba) | ssm (xlstm) | vlm
+(internvl: stub patch embeddings prepended) | encdec (whisper: stub frame
+embeddings).  Init, forward, logits, decode, and the bridge that carries a
+JAX parameter tree across (``params_from_numpy``).
 
 ``Model`` is an ``nn.Module`` tree with the JAX tree's names and layouts:
 ``embed``, ``head`` (absent when the embeddings are tied), ``final_norm``
-and ``units``, one ``ModuleDict`` of layers ``j0 .. j{unit-1}`` a unit
-(``transformer.init_units``), which JAX stacks under ``stacks/j{j}`` with a
-leading unit axis.  A parameter's name says where its JAX leaf is
-(``units.3.j1.ffn_moe.gate`` is ``stacks/j1/ffn_moe/gate`` at index 3), so
-``jax_leaves`` groups a model's tensors (or a ``ParamDict`` of tensors
-keyed like its parameters, the optimizer's moments) by JAX leaf with no
-config at hand; the optimizer, gradient compression and the checkpoint
-read it.  The loss is JAX's sequence-chunked cross-entropy
-(``chunked_cross_entropy``) plus the MoE aux terms (``loss_fn``);
-``input_specs`` gives the inputs of each shape kind as meta tensors.  The
-ssm, encdec and vlm families wait for ROADMAP Queue 1 item 12.
+(centred for encdec) and either ``units``, one ``ModuleDict`` of layers
+``j0 .. j{unit-1}`` a unit (``transformer.init_units``), which JAX stacks
+under ``stacks/j{j}`` with a leading unit axis, or, for encdec, the layer
+lists ``encoder`` and ``decoder`` (``encdec.init_stacks``), stacked under
+``stacks/encoder`` and ``stacks/decoder``.  A parameter's name says where
+its JAX leaf is (``units.3.j1.ffn_moe.gate`` is ``stacks/j1/ffn_moe/gate``
+at index 3, ``decoder.2.cross.wq`` is ``stacks/decoder/cross/wq`` at index
+2), so ``jax_leaves`` groups a model's tensors (or a ``ParamDict`` of
+tensors keyed like its parameters, the optimizer's moments) by JAX leaf
+with no config at hand; the optimizer, gradient compression and the
+checkpoint read it.  The loss is JAX's sequence-chunked cross-entropy
+(``chunked_cross_entropy``) plus the MoE aux terms (``loss_fn``); like
+JAX's, it reads only ``final_norm``'s scale, so whisper's
+``final_norm/bias`` gets a zero gradient.  ``input_specs`` gives the
+inputs of each shape kind as meta tensors.
 """
 from __future__ import annotations
 
@@ -25,8 +31,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.layout import resolve_device
-from repro_torch.models import transformer
-from repro_torch.models.layers import (F32, RMSNorm, embed_init_,
+from repro_torch.models import encdec, transformer
+from repro_torch.models.layers import (F32, LayerNorm, RMSNorm, embed_init_,
                                        flatten_tree, param, rms_norm,
                                        unflatten_tree)
 
@@ -40,7 +46,6 @@ class Model(nn.Module):
 
     def __init__(self, cfg, device=None, generator=None):
         super().__init__()
-        transformer.require_ported(cfg)
         pdt = DTYPES[cfg.param_dtype]
         V, d = cfg.padded_vocab, cfg.d_model
         self.embed = param((V, d), device, pdt)
@@ -49,8 +54,13 @@ class Model(nn.Module):
             embed_init_(self.embed, generator)
             if self.head is not None:
                 embed_init_(self.head, generator)
-        self.final_norm = RMSNorm(d, device)
-        self.units = transformer.init_units(cfg, device, pdt, generator)
+        if cfg.is_encoder_decoder:
+            self.final_norm = LayerNorm(d, device)
+            self.encoder, self.decoder = encdec.init_stacks(
+                cfg, device, pdt, generator)
+        else:
+            self.final_norm = RMSNorm(d, device)
+            self.units = transformer.init_units(cfg, device, pdt, generator)
 
 
 def init_params(cfg, seed: int = 0, device=None) -> Model:
@@ -84,11 +94,15 @@ def count_params(cfg, active_only: bool = False) -> int:
 # ---------------------------------------------------------------------------
 
 def _jax_path(name: str):
-    """Module parameter name -> (JAX tree path, unit index or None):
-    ``units.{u}.j{j}.<leaf>`` is ``stacks/j{j}/<leaf>`` at index u."""
+    """Module parameter name -> (JAX tree path, stack index or None):
+    ``units.{u}.j{j}.<leaf>`` is ``stacks/j{j}/<leaf>`` at index u,
+    ``encoder.{l}.<leaf>`` is ``stacks/encoder/<leaf>`` at index l (and
+    ``decoder`` likewise)."""
     parts = name.split(".")
     if parts[0] == "units":
         return "stacks/" + "/".join(parts[2:]), int(parts[1])
+    if parts[0] in ("encoder", "decoder"):
+        return f"stacks/{parts[0]}/" + "/".join(parts[2:]), int(parts[1])
     return "/".join(parts), None
 
 
@@ -121,10 +135,12 @@ def jax_leaves(tree) -> dict:
 def params_from_numpy(cfg, tree: dict, device=None) -> Model:
     """Load a JAX parameter tree (nested dicts of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``: ``embed``, ``head``,
-    ``final_norm/scale``, ``stacks/j{j}/{norm1/scale, attn/{wq, wk, wv, wo,
-    q_scale, k_scale} or mamba/{...}, norm2/scale, ffn/{gate, up, down} or
-    ffn_moe/{router, gate, up, down, shared/...}}``, each layer leaf with
-    the leading unit axis) into a ``Model`` on ``device``."""
+    ``final_norm/{scale, bias}``, ``stacks/j{j}/{norm1/scale, attn/{wq, wk,
+    wv, wo, q_scale, k_scale}, mamba/{...}, mlstm/{...} or slstm/{...},
+    norm2/scale, ffn/{gate, up, down} or ffn_moe/{router, gate, up, down,
+    shared/...}}`` or ``stacks/{encoder, decoder}/{norm1, attn, norm_x,
+    cross, norm2, ffn/{up, down}}``, each layer leaf with the leading stack
+    axis) into a ``Model`` on ``device``."""
     flat = flatten_tree(tree)
     m = Model(cfg, resolve_device(device))
     used = set()
@@ -172,12 +188,33 @@ def _embed(params: Model, cfg, tokens):
         DTYPES[cfg.dtype])
 
 
-def forward(params: Model, cfg, batch):
-    """Returns (final hidden (B,S,d), aux dict).  Causal LM trunk."""
-    transformer.require_ported(cfg)
-    x = _embed(params, cfg, batch["tokens"])
+def _positions(x):
     B, S = x.shape[:2]
-    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    return torch.arange(S, device=x.device)[None, :].expand(B, S)
+
+
+def _trunk_inputs(params: Model, cfg, batch):
+    """Token / stub-frontend embedding -> (x (B,S,d), positions (B,S)): a
+    vlm's patch embeddings, cast to ``cfg.dtype``, come before its
+    tokens'."""
+    x = _embed(params, cfg, batch["tokens"])
+    if cfg.family == "vlm":
+        pe = batch["patch_embeds"].to(DTYPES[cfg.dtype])         # (B,P,d)
+        x = torch.cat([pe, x], dim=1)
+    return x, _positions(x)
+
+
+def forward(params: Model, cfg, batch):
+    """Returns (final hidden (B,S,d), aux dict).  Causal LM trunk; for
+    encdec the decoder's hidden states over ``batch["dec_tokens"]`` after
+    encoding ``batch["frames"]``, and no aux."""
+    if cfg.is_encoder_decoder:
+        frames = batch["frames"].to(DTYPES[cfg.dtype])
+        enc_out = encdec.encode(params.encoder, cfg, frames)
+        xd = _embed(params, cfg, batch["dec_tokens"])
+        return encdec.decode_train(params.decoder, cfg, xd, enc_out,
+                                   _positions(xd)), {}
+    x, positions = _trunk_inputs(params, cfg, batch)
     return transformer.apply_stack(params.units, cfg, x, positions)
 
 
@@ -283,21 +320,38 @@ def make_decode_ctx(cfg, serve_cfg, B, mesh=None):
         pages_per_shard=B * n_pages)
 
 
-def init_decode_states(params: Model, cfg, B, ctx, kv_dtype=torch.bfloat16):
-    """Zeroed decode states, one a layer, on the params' device: an
-    attention layer's paged KV pools, a mamba layer's conv and SSM
-    states for ``B`` sequences."""
-    return transformer.init_decode_states(cfg, B, ctx, kv_dtype,
-                                          device=params.embed.device)
+def init_decode_states(params: Model, cfg, B, ctx, kv_dtype=torch.bfloat16,
+                       enc_frames=None):
+    """Decode states, one a layer, on the params' device: an attention
+    layer's zeroed paged KV pools; for ``B`` sequences the zeroed
+    recurrent states of a mamba, mLSTM or sLSTM layer.  An encdec model
+    encodes ``enc_frames`` (B, S_enc, d) and gives each decoder layer its
+    pools and its cross K/V (``encdec.init_decode_states``)."""
+    dev = params.embed.device
+    if cfg.is_encoder_decoder:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder decode needs "
+                             f"enc_frames, the encoder's input")
+        enc_out = encdec.encode(params.encoder, cfg,
+                                enc_frames.to(DTYPES[cfg.dtype]))
+        enc_kv = encdec.cross_kv(params.decoder, cfg, enc_out)
+        return encdec.init_decode_states(cfg, B, ctx, enc_kv, kv_dtype,
+                                         device=dev)
+    return transformer.init_decode_states(cfg, B, ctx, kv_dtype, device=dev)
 
 
 def decode_step(params: Model, cfg, states, tokens, pos, block_table, ctx):
     """One token for every sequence.  tokens (B,1) -> logits (B,1,V); the
     states' pools are written in place, and the new states (the pools, the
-    mamba layers' new conv and SSM states) returned."""
+    recurrent layers' new states, encdec's cross K/V) returned.  A vlm
+    decodes tokens only, as JAX's does."""
     x = _embed(params, cfg, tokens)
-    x, new_states = transformer.decode_stack(
-        params.units, cfg, x, states, block_table, pos, ctx)
+    if cfg.is_encoder_decoder:
+        x, new_states = encdec.decode_step_stack(
+            params.decoder, cfg, x, states, block_table, pos, ctx)
+    else:
+        x, new_states = transformer.decode_stack(
+            params.units, cfg, x, states, block_table, pos, ctx)
     return logits_fn(params, cfg, x), new_states
 
 
@@ -307,15 +361,26 @@ def decode_step(params: Model, cfg, states, tokens, pos, block_table, ctx):
 
 def input_specs(cfg, shape_cfg, ctx=None):
     """The inputs of a shape kind as meta tensors (shapes and dtypes, no
-    memory): tokens and labels (B, S) int32 for ``train`` and ``prefill``;
-    for ``decode`` one token against the KV horizon: tokens (B, 1), pos
-    (B,) and the block table (B, ctx.n_pages)."""
-    transformer.require_ported(cfg)
+    memory): tokens and labels (B, S) int32 for ``train`` and ``prefill``
+    (encdec: frames (B, S, d) in ``cfg.dtype``, decoder tokens and labels
+    (B, min(512, S)); vlm: P patch embeddings (B, P, d), tokens (B, S - P),
+    labels (B, S)); for ``decode`` one token against the KV horizon: tokens
+    (B, 1), pos (B,) and the block table (B, ctx.n_pages)."""
     B, S = shape_cfg.global_batch, shape_cfg.seq_len
 
-    def sd(shape):
-        return torch.empty(shape, dtype=torch.int32, device="meta")
+    def sd(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device="meta")
     if shape_cfg.kind in ("train", "prefill"):
+        dt = DTYPES[cfg.dtype]
+        if cfg.is_encoder_decoder:
+            dec_len = min(512, S)
+            return {"frames": sd((B, S, cfg.d_model), dt),
+                    "dec_tokens": sd((B, dec_len)),
+                    "labels": sd((B, dec_len))}
+        if cfg.family == "vlm":
+            P_ = cfg.num_prefix_embeds
+            return {"patch_embeds": sd((B, P_, cfg.d_model), dt),
+                    "tokens": sd((B, S - P_)), "labels": sd((B, S))}
         return {"tokens": sd((B, S)), "labels": sd((B, S))}
     if ctx is None:
         raise ValueError("decode input specs need the decode context")

@@ -1,23 +1,23 @@
 """Layer stack of the port (the JAX package's ``models/transformer.py``):
-the dense, moe and hybrid families, pre-norm blocks whose mixer is
-attention or mamba and whose FFN is a SwiGLU or a MoE.
+the dense, moe, hybrid, ssm and vlm families, pre-norm blocks whose mixer
+is attention, mamba, an mLSTM or an sLSTM and whose FFN is a SwiGLU, a MoE
+or, in an xLSTM block, absent.
 
 Hybrid architectures repeat a fixed unit of layers (jamba: 8 layers, 7
-mamba and 1 attention, MoE on the odd ones; llama4: dense/MoE alternation).
-JAX stacks the units' parameters and scans them, unrolling a unit's layers
-in Python; the port keeps a ``ModuleDict`` of ``j0 .. j{unit-1}`` a unit in
-an ``nn.ModuleList`` and runs a Python loop over it, which computes the
-same thing, and remats a unit where JAX checkpoints its unit body.  Decode
-threads per-layer states (the paged KV pools of an attention layer, the
-conv and SSM states of a mamba layer) through the same loop; attention
-layers read and write the HashMem-managed paged cache
+mamba and 1 attention, MoE on the odd ones; llama4: dense/MoE alternation;
+xlstm: 1 sLSTM + 7 mLSTM).  JAX stacks the units' parameters and scans
+them, unrolling a unit's layers in Python; the port keeps a ``ModuleDict``
+of ``j0 .. j{unit-1}`` a unit in an ``nn.ModuleList`` and runs a Python
+loop over it, which computes the same thing, and remats a unit where JAX
+checkpoints its unit body.  Decode threads per-layer states (the paged KV
+pools of an attention layer, the conv and SSM states of a mamba layer, the
+(C, n, m) of an mLSTM and the (c, n, h, m) of an sLSTM) through the same
+loop; attention layers read and write the HashMem-managed paged cache
 (``core/paged_kv.py``) through its gather path.  JAX decodes through
 ``shard_map`` when the decode context is sharded; the port runs on one
 card, where a context has one channel and one batch group and the sharded
-path computes what the gather path does.
-
-The ssm, encdec and vlm families raise ``NotImplementedError`` naming
-their ROADMAP item; no family falls through to another's blocks.
+path computes what the gather path does.  The encoder-decoder family has
+stacks of its own (``models/encdec.py``).
 """
 from __future__ import annotations
 
@@ -30,20 +30,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import paged_kv
-from repro_torch.models import attention, mamba, mlp, moe
+from repro_torch.models import attention, mamba, mlp, moe, xlstm
 from repro_torch.models.layers import F32, RMSNorm, rms_norm
-
-PORTED = ("dense", "moe", "hybrid")
-
-
-def require_ported(cfg):
-    """Raise for the families the port does not have yet, naming what they
-    wait for."""
-    if cfg.family not in PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP Queue 1 item 12)")
-
 
 # ---------------------------------------------------------------------------
 # Unit structure
@@ -98,23 +86,31 @@ class DecodeCtx:
 # Init
 # ---------------------------------------------------------------------------
 
+MIXERS = {
+    "attn": (attention.init, attention.Attention),
+    "mamba": (mamba.init, mamba.Mamba),
+    "mlstm": (xlstm.init_mlstm, xlstm.MLSTM),
+    "slstm": (xlstm.init_slstm, xlstm.SLSTM),
+}
+
+
 class Layer(nn.Module):
-    """Layer ``i``: ``norm1``, its mixer (``attn`` or ``mamba``), ``norm2``
-    and its FFN (``ffn``, a SwiGLU of width ``d_ff_dense or d_ff``, or
-    ``ffn_moe``), drawn from ``generator`` (uninitialised without one, for
-    loading) in the order of the dense family's draws."""
+    """Layer ``i``: ``norm1``, its mixer (``attn``, ``mamba``, ``mlstm`` or
+    ``slstm``, the attribute named by ``layer_kind``) and, unless it is an
+    xLSTM block, ``norm2`` and its FFN (``ffn``, a SwiGLU of width
+    ``d_ff_dense or d_ff``, or ``ffn_moe``), drawn from ``generator``
+    (uninitialised without one, for loading)."""
 
     def __init__(self, cfg, i: int, device=None, dtype=F32, generator=None):
         super().__init__()
         kind, fk = layer_kind(cfg, i), ffn_kind(cfg, i)
         self.norm1 = RMSNorm(cfg.d_model, device)
         drawn = generator is not None
-        if kind == "attn":
-            self.attn = attention.init(cfg, generator, device, dtype) \
-                if drawn else attention.Attention(cfg, device, dtype)
-        else:
-            self.mamba = mamba.init(cfg, generator, device, dtype) \
-                if drawn else mamba.Mamba(cfg, device, dtype)
+        init, cls = MIXERS[kind]
+        setattr(self, kind, init(cfg, generator, device, dtype) if drawn
+                else cls(cfg, device, dtype))
+        if fk is None:
+            return
         if fk == "moe":
             self.ffn_moe = moe.init(cfg, generator, device=device,
                                     dtype=dtype) \
@@ -131,7 +127,6 @@ def init_units(cfg, device=None, dtype=F32, generator=None) -> nn.ModuleList:
     """The stack as ``n_units`` ``ModuleDict``s of ``j0 .. j{unit-1}``:
     layer ``u * unit + j`` is ``units[u]["j{j}"]``, the JAX tree's
     ``stacks/j{j}`` at stack index ``u``."""
-    require_ported(cfg)
     unit = scan_unit_size(cfg)
     if cfg.num_layers % unit:
         raise ValueError(f"{cfg.num_layers} layers are not whole units of "
@@ -154,9 +149,15 @@ def _apply_layer(p: Layer, cfg, x, positions, *, causal=True):
         q, k, v = attention.qkv(p.attn, cfg, h, positions)
         o = attention.chunked_attention(q, k, v, cfg, causal=causal)
         sub = attention.out_proj(p.attn, cfg, o)
-    else:
+    elif hasattr(p, "mamba"):
         sub = mamba.apply(p.mamba, cfg, h)
+    elif hasattr(p, "mlstm"):
+        sub = xlstm.apply_mlstm(p.mlstm, cfg, h)
+    else:
+        sub = xlstm.apply_slstm(p.slstm, cfg, h)
     x = x + sub
+    if not hasattr(p, "norm2"):
+        return x, aux
     h2 = rms_norm(x, p.norm2.scale, cfg.norm_eps)
     if hasattr(p, "ffn_moe"):
         y, aux = moe.apply(p.ffn_moe, cfg, h2)
@@ -181,7 +182,6 @@ def apply_stack(units, cfg, x, positions, *, causal=True):
     unit body does.  A MoE config sums ``moe_aux``, ``moe_z`` and
     ``moe_dropped`` over its MoE layers in layer order, from float32
     zeros."""
-    require_ported(cfg)
     remat = cfg.remat and torch.is_grad_enabled()
     aux_sum = {}
     if cfg.num_experts:
@@ -208,13 +208,16 @@ def init_decode_states(cfg, B: int, ctx: DecodeCtx, kv_dtype=torch.bfloat16,
                        device=None):
     """One state a layer, in layer order (JAX stacks them by unit
     position): an attention layer's ``{"k_pool", "v_pool"}``, each
-    (pool_pages, page_tokens, K, hd) zeros, a mamba layer's ``{"conv",
-    "ssm"}`` for ``B`` sequences (``mamba.init_state``)."""
-    require_ported(cfg)
+    (pool_pages, page_tokens, K, hd) zeros; for ``B`` sequences a mamba
+    layer's ``{"conv", "ssm"}`` (``mamba.init_state``), an mLSTM's ``{"C",
+    "n", "m"}`` and an sLSTM's ``{"c", "n", "h", "m"}``, float32 zeros."""
+    states = {"mamba": mamba.init_state, "mlstm": xlstm.init_mlstm_state,
+              "slstm": xlstm.init_slstm_state}
     out = []
     for i in range(cfg.num_layers):
-        if layer_kind(cfg, i) == "mamba":
-            out.append(mamba.init_state(cfg, B, device=device))
+        kind = layer_kind(cfg, i)
+        if kind in states:
+            out.append(states[kind](cfg, B, device=device))
             continue
         k_pool, v_pool = paged_kv.init_pool(
             ctx.pool_pages, ctx.page_tokens, cfg.num_kv_heads, cfg.head_dim,
@@ -244,9 +247,15 @@ def _apply_layer_decode(p: Layer, cfg, x, state, block_table, pos, ctx):
     if hasattr(p, "attn"):
         sub, state = _paged_attn_sub(p.attn, cfg, h, state, block_table,
                                      pos, ctx)
-    else:
+    elif hasattr(p, "mamba"):
         sub, state = mamba.decode_step(p.mamba, cfg, state, h)
+    elif hasattr(p, "mlstm"):
+        sub, state = xlstm.decode_mlstm(p.mlstm, cfg, state, h)
+    else:
+        sub, state = xlstm.decode_slstm(p.slstm, cfg, state, h)
     x = x + sub
+    if not hasattr(p, "norm2"):
+        return x, state
     h2 = rms_norm(x, p.norm2.scale, cfg.norm_eps)
     if hasattr(p, "ffn_moe"):
         # the B rows route together, idle slots included, at the capacity
@@ -260,7 +269,6 @@ def _apply_layer_decode(p: Layer, cfg, x, state, block_table, pos, ctx):
 def decode_stack(units, cfg, x, states, block_table, pos, ctx):
     """One decode step through all layers.  x (B,1,d); ``states`` one a
     layer, in layer order."""
-    require_ported(cfg)
     new_states = []
     layers = (p for unit in units for p in unit.values())
     for p, s in zip(layers, states):

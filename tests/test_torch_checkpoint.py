@@ -2,8 +2,10 @@
 package's on-disk format, so a checkpoint crosses in both directions: the
 generic cases of ``tests/test_checkpoint.py`` on the port, a save that
 snapshots a tree the caller then updates in place, a model and optimizer
-state (a dense model, and jamba's hybrid one of mamba, attention and MoE
-layers in units of 4 under ``stacks/j0 .. j3``) and three HashMem tables
+state (a dense model; jamba's hybrid one of mamba, attention and MoE
+layers in units of 4 under ``stacks/j0 .. j3``; whisper's under
+``stacks/encoder`` and ``stacks/decoder``; xlstm's sLSTM and mLSTM units)
+and three HashMem tables
 (displaced with a stash, extendible after a split, two shards stacked)
 saved by JAX and restored by the port with equal leaves and equal probes,
 and the port's manifest, files and leaves read back by JAX.  Everything
@@ -389,18 +391,38 @@ def test_jamba_train_state_crosses_both_ways(tmp_path):
     port with equal parameters and moments; the port saves it back into the
     same files, byte for byte, and JAX's restore reads them."""
     from repro.configs import smoke_config as j_smoke_config
-    joc, oc = JOptimConfig(), OptimConfig()
     jcfg = j_smoke_config("jamba-v0.1-52b").replace(num_layers=8)
     cfg = smoke_config("jamba-v0.1-52b").replace(num_layers=8)
+    want = crosses_both_ways(tmp_path, jcfg, cfg, 5)
+    assert {k.split("/")[1] for k in want if k.startswith("stacks")} == \
+        {"j0", "j1", "j2", "j3"}
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "xlstm-1.3b"])
+def test_encdec_and_xlstm_train_states_cross_both_ways(tmp_path, arch):
+    """The same for a whisper train state (``stacks/encoder`` and
+    ``stacks/decoder``, the centred ``final_norm``) and an xlstm one (two
+    units of sLSTM + mLSTM, no FFN leaves)."""
+    from repro.configs import smoke_config as j_smoke_config
+    want = crosses_both_ways(tmp_path, j_smoke_config(arch),
+                             smoke_config(arch), 3)
+    stacks = {k.split("/")[1] for k in want if k.startswith("stacks")}
+    assert stacks == ({"encoder", "decoder"} if arch == "whisper-tiny"
+                      else {"j0", "j1"})
+
+
+def crosses_both_ways(tmp_path, jcfg, cfg, step) -> dict:
+    """JAX saves a train state of ``jcfg``; the port restores it with equal
+    parameters and moments and saves it back into the same files, byte for
+    byte; JAX's restore reads them.  Returns the flat JAX parameters."""
+    joc, oc = JOptimConfig(), OptimConfig()
     jstate = j_train_state(jcfg, joc)
-    JCheckpointer(str(tmp_path / "j"), async_save=False).save(5, jstate)
+    JCheckpointer(str(tmp_path / "j"), async_save=False).save(step, jstate)
     state = Checkpointer(str(tmp_path / "j")).restore(
-        5, _restore_tree_shapes(cfg, oc), device=CPU)
+        step, _restore_tree_shapes(cfg, oc), device=CPU)
     want = flatten_tree(jax.tree.map(np.asarray, jstate["params"]))
     have = flatten_tree(model.params_to_numpy(state["params"]))
     assert want.keys() == have.keys()
-    assert {k.split("/")[1] for k in want if k.startswith("stacks")} == \
-        {"j0", "j1", "j2", "j3"}
     for k in want:
         np.testing.assert_array_equal(have[k], want[k], k)
     for mom in ("m", "v"):
@@ -408,13 +430,14 @@ def test_jamba_train_state_crosses_both_ways(tmp_path):
         assert w.keys() == h.keys()
         for k in w:
             np.testing.assert_array_equal(h[k], w[k], f"{mom} {k}")
-    Checkpointer(str(tmp_path / "p"), async_save=False).save(5, state)
-    assert_same_checkpoint(tmp_path / "p" / "step_00000005",
-                           tmp_path / "j" / "step_00000005")
+    Checkpointer(str(tmp_path / "p"), async_save=False).save(step, state)
+    assert_same_checkpoint(tmp_path / "p" / f"step_{step:08d}",
+                           tmp_path / "j" / f"step_{step:08d}")
     back = JCheckpointer(str(tmp_path / "p")).restore(
-        5, jax.eval_shape(lambda: jstate))
+        step, jax.eval_shape(lambda: jstate))
     for a, b in zip(jax.tree.leaves(jstate), jax.tree.leaves(back)):
         np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
+    return want
 
 
 def test_port_tables_checkpoint_is_jax_s(tmp_path):

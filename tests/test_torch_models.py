@@ -380,24 +380,43 @@ def test_make_decode_ctx_refuses_more_than_one_shard():
 
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "whisper-tiny",
                                   "internvl2-2b"])
-def test_other_families_raise(arch):
+def test_remaining_families_build_and_run(arch):
+    """The ssm, encdec and vlm families (which raised NotImplementedError
+    before they were ported) build, run forward and decode one step; their
+    decode states are the mLSTM/sLSTM states, or the paged pools and the
+    cross K/V."""
     cfg = smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        model.init_params(cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        transformer.init_decode_states(cfg, 2, transformer.DecodeCtx(8, 2, 4),
-                                       device=CPU)
-    dense = model.init_params(smoke_config("llama3-8b"), device=CPU)
-    with pytest.raises(NotImplementedError):
-        model.forward(dense, cfg, {"tokens": torch.zeros((1, 4),
-                                                         dtype=torch.int64)})
+    m = model.init_params(cfg, device=CPU)
+    specs = model.input_specs(cfg, ShapeConfig("t", 16, 1, "train"))
+    batch = {k: torch.zeros(v.shape, dtype=v.dtype) for k, v in
+             specs.items()}
+    x, aux = model.forward(m, cfg, batch)
+    S = 16
+    assert x.shape == (1, S, cfg.d_model) and bool(torch.isfinite(x).all())
+    assert aux == {}
+    ctx = transformer.DecodeCtx(8, 2, 4)
+    frames = torch.zeros((2, 8, cfg.d_model)) if cfg.is_encoder_decoder \
+        else None
+    states = model.init_decode_states(m, cfg, 2, ctx, enc_frames=frames)
+    want = [{"k_pool", "v_pool", "ek", "ev"}] * cfg.num_layers \
+        if cfg.is_encoder_decoder else [
+            {"mlstm": {"C", "n", "m"}, "slstm": {"c", "n", "h", "m"},
+             "attn": {"k_pool", "v_pool"}}[transformer.layer_kind(cfg, i)]
+            for i in range(cfg.num_layers)]
+    assert [set(s) for s in states] == want
+    logits, _ = model.decode_step(
+        m, cfg, states, torch.zeros((2, 1), dtype=torch.int32),
+        torch.zeros(2, dtype=torch.int32),
+        torch.arange(4, dtype=torch.int32).reshape(2, 2), ctx)
+    assert logits.shape == (2, 1, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "jamba-v0.1-52b",
                                   "llama4-maverick-400b-a17b"])
 def test_moe_and_hybrid_families_build_and_run(arch):
-    """The cases ``test_other_families_raise`` had for these families: they
-    build, run forward and decode one step, with the MoE aux terms."""
+    """The moe and hybrid families build, run forward and decode one step,
+    with the MoE aux terms."""
     cfg = smoke_config(arch)
     m = model.init_params(cfg, device=CPU)
     x, aux = model.forward(m, cfg, {"tokens": torch.zeros((1, 16),

@@ -7,7 +7,9 @@ call trace (every ``alloc_seqs`` with the pages it returned, every
 leaves equal bit for bit at the end; for the dense archs and for
 olmoe-1b-7b and jamba-v0.1-52b, whose served tokens depend on two things
 JAX's ``serve`` does on purpose: idle slots take part in MoE routing (and
-its capacity), and a reused slot's mamba states are not reset.  JAX decodes on its serving CLI's
+its capacity), and a reused slot's mamba states are not reset; and for
+xlstm-1.3b (a reused slot keeps its mLSTM and sLSTM states too) and
+internvl2-2b (decoding tokens only).  JAX decodes on its serving CLI's
 (1, 1) mesh, through ``shard_map``; the port through its gather path.
 
 Tokens are compared exactly: both sides are float32 and the logits agree
@@ -16,8 +18,8 @@ hybrid families, ``tests/test_torch_families.py``), far inside the gaps
 between the top two logits of these runs, which the test checks: > 1e-4
 for the dense archs, > 2e-5 (ten times that agreement) for olmoe and
 jamba, whose smallest gap is 9.2e-5.
-Also: determinism, the CLI's decode mode, and the ``serve_paged``
-example."""
+Also: determinism, the CLI's decode mode, JAX's ``serve`` failing on
+whisper where the port refuses it, and the ``serve_paged`` example."""
 import jax
 import numpy as np
 import pytest
@@ -70,6 +72,14 @@ SCENARIOS = {
     "jamba-v0.1-52b-perf": ("jamba-v0.1-52b", "perf", dict(
         batch=3, requests=7, max_new=5, horizon=32, page_tokens=8,
         prompt_len=3)),
+    # the ssm and vlm families: a reused slot keeps its mLSTM and sLSTM
+    # states; internvl2 decodes tokens only
+    "xlstm-1.3b-perf": ("xlstm-1.3b", "perf", dict(
+        batch=3, requests=7, max_new=5, horizon=32, page_tokens=8,
+        prompt_len=3)),
+    "internvl2-2b-perf": ("internvl2-2b", "perf", dict(
+        batch=3, requests=7, max_new=4, horizon=32, page_tokens=8,
+        prompt_len=3)),
 }
 
 
@@ -98,11 +108,15 @@ def served(request):
     arch, backend, kw = SCENARIOS[request.param]
     jcfg = j_smoke_config(arch).replace(dtype="float32")
     cfg = smoke_config(arch).replace(dtype="float32")
-    jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
+    # JAX's init jitted once, and JAX's serve handed the same parameters
+    # (its seed 0 draws them from PRNGKey(0)): eager init takes seconds
+    jparams = jax.jit(jmodel.init_params, static_argnums=0)(
+        jcfg, jax.random.PRNGKey(0))
     tree = jax.tree.map(np.asarray, jparams)
     jlog, tlog, gaps, dups = [], [], [], []
     mp = jitted_jax_page_table()
     try:
+        mp.setattr(jmodel, "init_params", lambda c, key: jparams)
         _trace(mp, jkv.PageTableManager, jlog)
         jdone, jmgr, jsteps = jserve.serve(
             jcfg, make_mesh((1, 1), ("data", "model")), backend=backend,
@@ -186,9 +200,35 @@ def test_serve_cli_decode_mode(capsys):
     assert "live pages after drain: 0" in out
 
 
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "internvl2-2b"])
+def test_serve_cli_decodes_the_ssm_and_vlm_families(arch, capsys):
+    tserve.main(["--arch", arch, "--smoke", "--device", CPU, "--requests",
+                 "3", "--batch", "2", "--max-new", "3", "--horizon", "32",
+                 "--page-tokens", "8"])
+    out = capsys.readouterr().out
+    assert "served 3 requests" in out
+    assert "live pages after drain: 0" in out
+
+
 def test_serve_paged_example(capsys):
     from repro_torch import serve_paged
     done, mgr, steps = serve_paged.main(["--device", CPU])
     assert len(done) == 10 and all(len(r["out"]) == 12 for r in done)
     assert mgr.live_pages() == 0 and mgr.hm.config.backend == "perf"
     assert "page-table state after drain: live=0" in capsys.readouterr().out
+
+
+def test_serve_refuses_encdec_as_jax_fails():
+    """JAX's ``serve`` cannot serve whisper: it builds the decode states
+    without ``enc_frames`` (``src/repro/launch/serve.py:57``) and the
+    encdec branch calls ``.astype`` on None.  The port refuses the same
+    arch with an error that names the limitation."""
+    jcfg = j_smoke_config("whisper-tiny").replace(dtype="float32")
+    with pytest.raises(AttributeError, match="astype"):
+        jserve.serve(jcfg, make_mesh((1, 1), ("data", "model")), batch=2,
+                     requests=2, max_new=2, horizon=16, page_tokens=8,
+                     verbose=False)
+    cfg = smoke_config("whisper-tiny").replace(dtype="float32")
+    with pytest.raises(ValueError, match="src/repro/launch/serve.py:57"):
+        tserve.serve(cfg, batch=2, requests=2, max_new=2, horizon=16,
+                     page_tokens=8, verbose=False, device=CPU)

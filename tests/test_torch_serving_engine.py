@@ -852,10 +852,12 @@ def test_serve_kv_on_the_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "decode", "--arch", "xlstm-1.3b", "--smoke"],
-     "Queue 1 item 12"),
+    (["--mode", "decode", "--arch", "whisper-tiny", "--smoke"],
+     "src/repro/launch/serve.py:57"),
 ])
 def test_serve_cli_refuses_what_is_not_ported(argv, match, capsys):
+    """The decode CLI refuses an encoder-decoder arch, which the reference's
+    serving loop cannot serve either (``launch.serve.refuse_encdec``)."""
     from repro_torch.launch import serve
     with pytest.raises(SystemExit) as e:
         serve.main(argv + ["--device", CPU])

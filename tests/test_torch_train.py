@@ -2,10 +2,13 @@
 ``distributed.steps.build_train_step``, ``launch.train``) with the JAX
 package's, at ``smoke_config`` of llama3-8b, qwen3-8b and h2o-danube-1.8b
 (window 12, which the 64-token sequences pass) in float32, and llama3-8b in
-bfloat16; and of the moe and hybrid families in float32: one step of
+bfloat16; of the moe and hybrid families in float32: one step of
 olmoe-1b-7b and of jamba-v0.1-52b, 8 steps of ``train`` of jamba (its units
 hold both MoE and mamba layers), the decay mask and int8 compression on
-their ``stacks/j{j}`` trees.  Parameters cross from JAX by ``params_from_numpy`` or through a
+their ``stacks/j{j}`` trees; and of the ssm, encdec and vlm families in
+float32: one step and 8 steps of ``train`` of xlstm-1.3b, whisper-tiny and
+internvl2-2b, the decay mask on the ``stacks/{encoder, decoder}`` and
+xLSTM trees, ``input_specs`` of encdec and vlm.  Parameters cross from JAX by ``params_from_numpy`` or through a
 step-0 checkpoint JAX wrote; every JAX function runs jitted, once a case.
 
 Tolerances, each from what float32 summation order can do:
@@ -28,6 +31,19 @@ Tolerances, each from what float32 summation order can do:
     parameters are held to the 2 lr bound only.
   * 8 steps of ``train`` resumed from the same JAX step-0 checkpoint: every
     loss within 1e-5 relative of JAX's (observed <= 3.9e-7).
+  * xlstm-1.3b, whisper-tiny and internvl2-2b take the float32 bounds
+    above (whisper's 8 losses observed <= 2.6e-7, internvl2's <= 2.4e-7),
+    but for xlstm's gradients and later losses.  Its exponential gates
+    amplify float32 rounding through the stack, the port's and JAX's
+    alike: against a float64 recurrence the port's mLSTM errs 1.38e-6 of
+    its largest output, JAX's 1.49e-6; yet JAX against itself at mLSTM
+    chunk 64 instead of 16 (the same function) moves one step's gradients
+    by up to 1.8e-5 of a leaf's largest and the losses of steps 2-7 by up
+    to 2.4e-3 relative (``tests/xlstm_drift.py --train``).  So xlstm's gradients are held within 1e-4 of their
+    leaf's largest (observed 5.7e-5) and its losses of steps 2-7 within
+    5e-3 relative (observed <= 1.5e-3; steps 0-1 within 1e-5, observed
+    4.0e-6).  Whisper's ``final_norm/bias``, which the loss never reads,
+    has a zero gradient and zero moments and stays zero, as in JAX.
   * olmoe and jamba take the float32 bounds above; their losses carry the
     MoE aux terms, and the router's gradient flows through the gates, the
     load-balance and the z loss.  Routing is discrete, so the bounds hold
@@ -79,6 +95,15 @@ B, S = 4, 64
 CASES = [("llama3-8b", "float32"), ("qwen3-8b", "float32"),
          ("h2o-danube-1.8b", "float32"), ("llama3-8b", "bfloat16")]
 MOE_CASES = [("olmoe-1b-7b", "float32"), ("jamba-v0.1-52b", "float32")]
+REST_CASES = [("xlstm-1.3b", "float32"), ("whisper-tiny", "float32"),
+              ("internvl2-2b", "float32")]
+# xLSTM's exponential gates amplify float32 rounding through the stack:
+# JAX against itself at another mLSTM chunking (the same function) moves
+# these gradients by up to 1.8e-5 of a leaf's largest, the port by 5.7e-5
+GRAD_TOL = {"xlstm-1.3b": 1e-4}
+# ... and its training trajectory: JAX against itself at another chunking
+# differs by up to 2.4e-3 relative in the losses of steps 2-7
+LOSS_TOL = {"xlstm-1.3b": 5e-3}
 
 
 def configs(arch, dtype):
@@ -166,7 +191,7 @@ def test_input_specs_match_jax():
 # One train step from carried parameters
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("c", CASES + MOE_CASES, ids=case_id)
+@pytest.mark.parametrize("c", CASES + MOE_CASES + REST_CASES, ids=case_id)
 def test_train_step_matches_jax(c, mesh):
     jcfg, cfg = configs(*c)
     joc, oc = JOptimConfig(**OC), OptimConfig(**OC)
@@ -184,7 +209,8 @@ def test_train_step_matches_jax(c, mesh):
     tp = model.params_from_numpy(cfg, p_np, CPU)
     tb = {k: torch.from_numpy(v) for k, v in b.items()}
     names, tensors = zip(*tp.named_parameters())
-    tgrads = torch.autograd.grad(model.loss_fn(tp, cfg, tb)[0], tensors)
+    tgrads = torch.autograd.grad(model.loss_fn(tp, cfg, tb)[0], tensors,
+                                 allow_unused=True, materialize_grads=True)
     step = steps.build_train_step(cfg, oc)
     tp, opt, tm = step(tp, init_opt_state(tp, oc), tb)
     got = flatten_tree(model.params_to_numpy(tp))
@@ -211,11 +237,20 @@ def test_train_step_matches_jax(c, mesh):
     for path, gs in stacked.items():
         g = np.stack(gs) if path.startswith("stacks") else gs[0]
         wg = jgrads[path]
-        assert np.abs(g - wg).max() <= 1e-5 * np.abs(wg).max(), path
+        assert np.abs(g - wg).max() <= GRAD_TOL.get(c[0], 1e-5) * \
+            np.abs(wg).max(), path
         d = np.abs(got[path] - want[path])
         sure = np.abs(wg) >= 1e-6
         assert d[sure].max(initial=0) <= 1e-5, path
         assert d.max() <= 2 * lr, path
+    if jcfg.is_encoder_decoder:
+        # the loss reads final_norm's scale only: its bias gets a zero
+        # gradient and zero moments, and stays at zero, as in JAX
+        n = "final_norm.bias"
+        assert not np.any(jgrads["final_norm/bias"])
+        assert not torch.any(tgrads[names.index(n)])
+        assert not torch.any(opt["m"][n]) and not torch.any(opt["v"][n])
+        assert not np.any(got["final_norm/bias"])
 
 
 def test_train_step_refuses_a_mesh_of_more_than_one_shard():
@@ -231,7 +266,8 @@ def test_train_step_refuses_a_mesh_of_more_than_one_shard():
 # train() resumes from JAX's step-0 checkpoint and follows JAX's losses
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("c", CASES[:3] + MOE_CASES[1:], ids=case_id)
+@pytest.mark.parametrize("c", CASES[:3] + MOE_CASES[1:] + REST_CASES,
+                         ids=case_id)
 def test_train_from_jax_checkpoint_follows_jax(c, mesh, tmp_path):
     jcfg, cfg = configs(*c)
     joc, oc = JOptimConfig(**OC), OptimConfig(**OC)
@@ -249,7 +285,8 @@ def test_train_from_jax_checkpoint_follows_jax(c, mesh, tmp_path):
         device=CPU)
     assert sorted(got) == list(range(8)) and pol.restarts == 0
     for s in range(8):
-        assert rel(got[s], want[s]) <= 1e-5, (s, got[s], want[s])
+        tol = LOSS_TOL.get(c[0], 1e-5) if s >= 2 else 1e-5
+        assert rel(got[s], want[s]) <= tol, (s, got[s], want[s])
 
 
 # ---------------------------------------------------------------------------
@@ -280,6 +317,48 @@ def test_decay_mask_matches_jax_on_every_leaf(arch):
         hits = [v for k, v in want.items() if k.endswith(leaf)]
         if arch.startswith("jamba") or not leaf.startswith("mamba"):
             assert hits and all(h == decays for h in hits), leaf
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "xlstm-1.3b"])
+def test_decay_mask_matches_jax_on_the_encdec_and_xlstm_trees(arch):
+    """On ``stacks/{encoder, decoder}`` and the xLSTM blocks: the centred
+    norms' scales and biases, the sLSTM's ``bg`` and the ``gn_scale``s do
+    not decay; every projection does."""
+    from repro.optim.adamw import _decay_mask as j_decay_mask
+    from repro_torch.optim.adamw import _decay_mask
+    jcfg, cfg = j_smoke_config(arch), smoke_config(arch)
+    shapes = jax.eval_shape(lambda k: jmodel.init_params(jcfg, k),
+                            jax.random.PRNGKey(0))
+    want = {"/".join(str(k.key) for k in path): j_decay_mask(path)
+            for path, _ in jax.tree_util.tree_leaves_with_path(shapes)}
+    got = {}
+    for name, _ in model.Model(cfg, "meta").named_parameters():
+        got.setdefault(model._jax_path(name)[0], set()).add(_decay_mask(name))
+    assert got == {k: {v} for k, v in want.items()}
+    leaves = (("stacks/encoder/norm1/bias", False),
+              ("stacks/decoder/norm_x/scale", False),
+              ("stacks/decoder/cross/wk", True), ("final_norm/bias", False),
+              ("stacks/encoder/ffn/up", True)) if arch == "whisper-tiny" \
+        else (("stacks/j0/slstm/bg", True), ("stacks/j0/slstm/rg", True),
+              ("stacks/j1/mlstm/gn_scale", False),
+              ("stacks/j1/mlstm/wi", True))
+    for leaf, decays in leaves:
+        assert want[leaf] == decays, leaf
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-2b"])
+def test_input_specs_of_encdec_and_vlm_match_jax(arch):
+    jcfg, cfg = j_smoke_config(arch), smoke_config(arch)
+    for S in (128, 1024):
+        for kind in ("train", "prefill"):
+            want = jmodel.input_specs(jcfg, JShapeConfig("t", S, 4, kind))
+            got = model.input_specs(cfg, ShapeConfig("t", S, 4, kind))
+            assert want.keys() == got.keys()
+            for k in want:
+                assert got[k].device.type == "meta"
+                assert tuple(got[k].shape) == want[k].shape, k
+                assert str(got[k].dtype).split(".")[-1] == \
+                    str(want[k].dtype), k
 
 
 def test_int8_compression_of_a_unit_tree_is_jax_s():
