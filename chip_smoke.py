@@ -145,7 +145,19 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      tokens); prints the ``kernels`` line (``probe_perf``'s launches
      count the perf path's, the timed serves' of phases 10, 12 and 13 and
      the checkpointed table's probes);
- 14. prints the device line last.
+ 14. serves the sharded table from 4 rank processes, one shard each, over
+     ``torch.distributed`` (``launch/mesh.py`` ``spawn_ranks``; NCCL with a
+     card a rank, else gloo with every rank on the one card): (a) phase 3's
+     mesh engines (2 and 4 ranks) and routed one-shard calls, equal to
+     phase 3's CPU runs, rank r's leaves to shard r; (b) each rank loads
+     its pairs of phase 4's 100M into its shard of PAPER_HASHMEM cut four
+     ways (every leaf equal to phase 9's shard r), probes its block of the
+     10M probes through ``rlu.probe_sharded`` (one ``probe_perf`` launch a
+     rank, timed), then serves phase 8's stream through the rank engine
+     (fused tick, depth 1), equal to phase 8 and the DictModel, reporting
+     ops/s and the host ms in ``rlu.exchange`` a tick; the ``kernels``
+     line adds every rank's launches of phase 14;
+ 15. prints the device line last.
 
 Any failed check raises and the script exits non-zero.  Without a card, or
 without the rest of the repo beside it, it exits non-zero and prints no
@@ -1379,32 +1391,24 @@ def count_issue_launches(eng, k):
     return per
 
 
-def mesh_insert_heavy(serving, cfg, D, dev, **kw):
-    """An engine on a D-shard mesh driven by ``tests/model.py``'s
-    insert-heavy streams (growth or extendible splits); returns (engine,
-    requests)."""
-    from repro_torch.launch.mesh import make_serving_mesh
+def mesh_insert_heavy(serving, cfg, mesh, dev, **kw):
+    """An engine on ``mesh`` driven by ``tests/model.py``'s insert-heavy
+    streams (growth or extendible splits); returns (engine, requests)."""
     sys.path.insert(0, str(ROOT / "tests"))
     from model import make_insert_heavy_schedule
     streams = make_insert_heavy_schedule(
         9, n_requests=48, ops_per_request=3, keyspace=96,
         zipf_theta=0.6 if cfg.resize == "extendible" else 0.0)
-    eng = serving.ServingEngine(cfg, mesh=make_serving_mesh(D, device=dev),
-                                max_slots=8, record_schedule=True,
-                                device=dev, **kw)
+    eng = serving.ServingEngine(cfg, mesh=mesh, max_slots=8,
+                                record_schedule=True, device=dev, **kw)
     return eng, [serving.Request(ops=list(ops)) for ops in streams]
 
 
-def check_small_mesh_vs_cpu(serving, hashmap, HashMemConfig, k):
-    """Mesh engines with 2 and 4 shards stacked on the card against the
-    same engines on the CPU: equal results, schedules, deterministic metrics
-    and stacked leaves, for each kernel backend, fused and unfused, at
-    pipeline depth 1 and 2; a displaced table; a tiny table that grows at
-    drain; an extendible one that splits and doubles.  On the card each
-    probe phase and each delete's find is one kernel launch for all shards
-    (counted inside the issue of every tick).  Then the routed calls with
-    every key routed to one shard.  Returns the launches."""
-    from repro_torch.launch.mesh import make_serving_mesh
+def small_mesh_cases(HashMemConfig) -> list:
+    """Phase 3's mesh engine cases, (name, cfg, shards, engine kwargs,
+    driven by insert-heavy streams): perf/area/bitserial on 2 and 4 shards,
+    fused and unfused, at depth 1 and 2; a displaced table; a tiny table
+    that grows and an extendible one that splits and doubles."""
     base = HashMemConfig(num_buckets=64, slots_per_page=64, overflow_pages=64,
                          max_chain=8)
     cases = []
@@ -1417,28 +1421,53 @@ def check_small_mesh_vs_cpu(serving, hashmap, HashMemConfig, k):
                         f"_d{depth}", dataclasses.replace(base,
                                                           backend=backend),
                         D, dict(fused_tick=None if fused else False,
-                                pipeline_depth=depth)))
+                                pipeline_depth=depth), False))
     cases.append(("displaced_D2", HashMemConfig(
         num_buckets=16, slots_per_page=32, overflow_pages=32, max_chain=4,
         displacement=True, fingerprint_bits=8, stash_slots=32), 2,
-        dict(pipeline_depth=2)))
-    heavy = {"grows_D2": HashMemConfig(
+        dict(pipeline_depth=2), False))
+    cases.append(("grows_D2", HashMemConfig(
         num_buckets=4, slots_per_page=4, overflow_pages=8, max_chain=2,
-        max_load_factor=0.95), "extendible_D2": HashMemConfig(
+        max_load_factor=0.95), 2, dict(pipeline_depth=2), True))
+    cases.append(("extendible_D2", HashMemConfig(
         num_buckets=4, slots_per_page=4, overflow_pages=60, max_chain=2,
-        resize="extendible", max_load_factor=1.0)}
+        resize="extendible", max_load_factor=1.0), 2,
+        dict(pipeline_depth=2), True))
+    return cases
+
+
+def small_mesh_engine(serving, case, mesh, dev):
+    """The engine of one ``small_mesh_cases`` case on ``mesh``, and its
+    requests."""
+    name, cfg, D, kw, heavy = case
+    if heavy:
+        return mesh_insert_heavy(serving, cfg, mesh, dev, **kw)
+    eng, reqs, _, _ = serving_engine(serving, cfg, "ABEF", 256, 8, dev,
+                                     max_slots=16, mesh=mesh, **kw)
+    return eng, reqs
+
+
+def check_small_mesh_vs_cpu(serving, hashmap, HashMemConfig, k):
+    """Mesh engines with 2 and 4 shards stacked on the card against the
+    same engines on the CPU: equal results, schedules, deterministic metrics
+    and stacked leaves, for each kernel backend, fused and unfused, at
+    pipeline depth 1 and 2; a displaced table; a tiny table that grows at
+    drain; an extendible one that splits and doubles.  On the card each
+    probe phase and each delete's find is one kernel launch for all shards
+    (counted inside the issue of every tick).  Then the routed calls with
+    every key routed to one shard.  Returns the launches and the CPU
+    outcomes (by case, and the routed calls'), which phase 14 holds the
+    ranks to."""
+    from repro_torch.launch.mesh import make_serving_mesh
     reset_launches(k)
     phases = {"probe": [], "delete": []}
-    for name, cfg, D, kw in cases + [(n, c, 2, dict(pipeline_depth=2))
-                                     for n, c in heavy.items()]:
+    cpu_out = {}
+    for case in small_mesh_cases(HashMemConfig):
+        name, cfg, D = case[:3]
         out = {}
         for dev in ("cuda", "cpu"):
-            if name in heavy:
-                eng, reqs = mesh_insert_heavy(serving, cfg, D, dev, **kw)
-            else:
-                eng, reqs, _, _ = serving_engine(
-                    serving, cfg, "ABEF", 256, 8, dev, max_slots=16,
-                    mesh=make_serving_mesh(D, device=dev), **kw)
+            eng, reqs = small_mesh_engine(
+                serving, case, make_serving_mesh(D, device=dev), dev)
             per = count_issue_launches(eng, k) if dev == "cuda" else None
             eng.submit_all(reqs)
             out[dev] = engine_outcome(hashmap, eng, reqs, eng.run())
@@ -1451,20 +1480,15 @@ def check_small_mesh_vs_cpu(serving, hashmap, HashMemConfig, k):
                         if kd in phases:
                             phases[kd].append(1)
         (res, sched, det, leaves), cpu = out["cuda"], out["cpu"]
+        cpu_out[name] = cpu
         check(res == cpu[0], f"mesh engine {name}: results differ")
         check(sched == cpu[1], f"mesh engine {name}: schedules differ")
         check(det == cpu[2], f"mesh engine {name}: metrics differ")
         check(all(np.array_equal(a[n], b[n]) for a, b in zip(leaves, cpu[3])
                   for n in a) and len(leaves) == len(cpu[3]) == D,
               f"mesh engine {name}: stacked leaves differ")
+        check_heavy(eng, name)
         st = eng.stats()
-        if name == "grows_D2":
-            check(eng.grow_events > 0, "mesh engine grows_D2: no grow")
-        if name == "extendible_D2":
-            check(eng.split_events > 0 and eng.directory_doublings > 0
-                  and eng.grow_events == 0, f"mesh engine extendible_D2: "
-                  f"{eng.split_events} splits, {eng.directory_doublings} "
-                  f"doublings, {eng.grow_events} grows")
         print(f"small_mesh {name}: {len(reqs)} requests, {eng.ticks} ticks, "
               f"batch calls {eng.batch_calls}, grows {eng.grow_events}, "
               f"splits {eng.split_events}, route caps "
@@ -1474,44 +1498,75 @@ def check_small_mesh_vs_cpu(serving, hashmap, HashMemConfig, k):
     print(f"small_mesh: {len(phases['probe'])} probe phases and "
           f"{len(phases['delete'])} delete phases on the card, each ONE "
           f"kernel launch for all shards; launches {launches}")
-    routed_one_shard(hashmap, HashMemConfig, k)
-    return launches
+    return launches, cpu_out, routed_one_shard(hashmap, HashMemConfig, k)
+
+
+def check_heavy(eng, name):
+    """The growth and split cases must grow, and split and double."""
+    if name == "grows_D2":
+        check(eng.grow_events > 0, f"mesh engine {name}: no grow")
+    if name == "extendible_D2":
+        check(eng.split_events > 0 and eng.directory_doublings > 0
+              and eng.grow_events == 0, f"mesh engine {name}: "
+              f"{eng.split_events} splits, {eng.directory_doublings} "
+              f"doublings, {eng.grow_events} grows")
+
+
+ONE_SHARD = 4                    # shards of the routed one-shard calls
+
+
+def one_shard_inputs(rlu, HashMemConfig):
+    """(cfg, router, keys, new keys, probes): every key owned by shard 0
+    of ``ONE_SHARD``."""
+    cfg = HashMemConfig(num_buckets=64, slots_per_page=64, overflow_pages=64,
+                        max_chain=8)
+    sb = "highbits"
+    cand = np.arange(1, 400_000, dtype=np.uint32)
+    hot = cand[rlu.owner_of_np(cand, cfg, ONE_SHARD, sb) == 0][:3072]
+    keys, new = hot[:2048], hot[2048:]
+    return cfg, sb, keys, new, np.concatenate([keys[:1024], new[:1024]])
+
+
+def one_shard_calls(hashmap, rlu, mesh, hs, k, block=lambda x: x):
+    """``insert_sharded``, then ``probe_sharded``, ``delete_sharded`` and
+    ``insert_mesh`` at ``routing_cap`` on ``mesh`` (``block`` takes what
+    this process passes of a batch).  Returns (outputs, leaves, caps,
+    launches of the probe and of the delete)."""
+    from repro_torch.configs import HashMemConfig
+    cfg, sb, keys, new, q = one_shard_inputs(rlu, HashMemConfig)
+    D = ONE_SHARD
+    hs, ok, cfg2 = rlu.insert_sharded(hs, keys, keys ^ 5, cfg, D,
+                                      shard_by=sb, mesh=mesh)
+    caps = [rlu.routing_cap(x, cfg2, D, sb) for x in (q, keys[:512], new)]
+    l0 = read_launches(k)
+    v, f = rlu.probe_sharded(mesh, hs, block(q), cfg2, cap=caps[0],
+                             shard_by=sb)
+    l1 = read_launches(k)
+    hs2, df = rlu.delete_sharded(mesh, hs, block(keys[:512]), cfg2,
+                                 cap=caps[1], shard_by=sb)
+    l2 = read_launches(k)
+    hs3, iok = rlu.insert_mesh(mesh, hs2, block(new), block(new ^ 9), cfg2,
+                               cap=caps[2], shard_by=sb)
+    return ([ok.cpu(), v.cpu(), f.cpu(), df.cpu(), iok.cpu()],
+            hashmap.to_numpy(hs3), caps,
+            [{n: b[n] - a[n] for n in a} for a, b in ((l0, l1), (l1, l2))])
 
 
 def routed_one_shard(hashmap, HashMemConfig, k):
     """probe_sharded, delete_sharded and insert_mesh at ``routing_cap``
     with every key owned by shard 0 of 4, card against CPU; one launch a
-    probe and one a delete's find."""
+    probe and one a delete's find.  Returns the CPU run."""
     import torch
     from repro_torch.core import rlu
     from repro_torch.launch.mesh import make_serving_mesh
-    D, sb = 4, "highbits"
-    cfg = HashMemConfig(num_buckets=64, slots_per_page=64, overflow_pages=64,
-                        max_chain=8)
-    cand = np.arange(1, 400_000, dtype=np.uint32)
-    hot = cand[rlu.owner_of_np(cand, cfg, D, sb) == 0][:3072]
-    keys, new = hot[:2048], hot[2048:]
-    q = np.concatenate([keys[:1024], new[:1024]])
+    D = ONE_SHARD
+    cfg, sb, keys, new, q = one_shard_inputs(rlu, HashMemConfig)
     runs = {}
     for dev in ("cuda", "cpu"):
-        mesh = make_serving_mesh(D, device=dev)
         hs = hashmap.stack([hashmap.create(cfg, device=dev)
                             for _ in range(D)])
-        hs, ok, cfg2 = rlu.insert_sharded(hs, keys, keys ^ 5, cfg, D,
-                                          shard_by=sb)
-        caps = [rlu.routing_cap(x, cfg2, D, sb) for x in (q, keys[:512], new)]
-        l0 = read_launches(k)
-        v, f = rlu.probe_sharded(mesh, hs, q, cfg2, cap=caps[0], shard_by=sb)
-        l1 = read_launches(k)
-        hs2, df = rlu.delete_sharded(mesh, hs, keys[:512], cfg2, cap=caps[1],
-                                     shard_by=sb)
-        l2 = read_launches(k)
-        hs3, iok = rlu.insert_mesh(mesh, hs2, new, new ^ 9, cfg2, cap=caps[2],
-                                   shard_by=sb)
-        runs[dev] = ([ok.cpu(), v.cpu(), f.cpu(), df.cpu(), iok.cpu()],
-                     hashmap.to_numpy(hs3), caps,
-                     [{n: b[n] - a[n] for n in a} for a, b in
-                      ((l0, l1), (l1, l2))])
+        runs[dev] = one_shard_calls(hashmap, rlu,
+                                    make_serving_mesh(D, device=dev), hs, k)
     (outs, leaves, caps, launched), cpu = runs["cuda"], runs["cpu"]
     check(all(torch.equal(a, b) for a, b in zip(outs, cpu[0])),
           "routed one-shard calls: card and CPU outputs differ")
@@ -1529,6 +1584,7 @@ def routed_one_shard(hashmap, HashMemConfig, k):
           f"Q_local); probe_sharded, delete_sharded, insert_mesh on the card "
           f"equal the CPU; launches: probe {launched[0]}, delete "
           f"{launched[1]}")
+    return cpu
 
 
 def mesh_path(serving, hashmap, k, data, smi, host_rate, host_results):
@@ -1536,7 +1592,8 @@ def mesh_path(serving, hashmap, k, data, smi, host_rate, host_results):
     shards stacked on the card (``highbits``); the sharded probe of the 10M
     paper probes, then the phase 8 stream through the mesh engine, fused at
     depth 1 and 2 and unfused at depth 1.  Returns the launches of the
-    sharded probe and of the fused depth-1 run."""
+    sharded probe and of the fused depth-1 run, and the sha256 of every
+    leaf of every shard after the load."""
     import torch
     from repro_torch.configs import PAPER_HASHMEM
     from repro_torch.core import rlu
@@ -1568,6 +1625,7 @@ def mesh_path(serving, hashmap, k, data, smi, host_rate, host_results):
           f"{[s['live_entries'] for s in st]}; max chain "
           f"{max(s['max_chain'] for s in st)}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    digests = leaf_digests(hashmap, hs)
     qd = as_u32(probes, "cuda")
     cap = rlu.routing_cap(probes, cfg, D, sb)
     reset_launches(k)
@@ -1698,7 +1756,15 @@ def mesh_path(serving, hashmap, k, data, smi, host_rate, host_results):
             print(f"  {ms_:9.3f} ms x{count:<5d} {key}")
     print(f"mesh_time: phase 9 took {time.perf_counter() - t_phase:.3f} s; "
           f"card: {smi}")
-    return probe_launches, first["launches"]
+    return probe_launches, first["launches"], digests
+
+
+def leaf_digests(hashmap, hm) -> dict:
+    """{leaf: [sha256 of shard d's bytes, ...]} of a stacked table (a
+    rank's stack of one gives one)."""
+    import hashlib
+    return {n: [hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+                for x in a] for n, a in hashmap.to_numpy(hm).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -3769,7 +3835,331 @@ def rest_path(k, ref, smi):
                           whisper=whisper, vlm=vlm)
 
 
+# ---------------------------------------------------------------------------
+# The sharded table over ranks: one shard a process, over torch.distributed
+# ---------------------------------------------------------------------------
+
+RANKS = 4                        # phase 14: PAPER_HASHMEM cut four ways as in
+                                 # phase 9, one shard a rank process
+RANK_TIMEOUT = 600               # seconds any collective may wait, then fail
+RANK_DATA = ROOT / "build" / "ranks"
+RANK_DATA_NAMES = ("keys", "vals", "probes", "pidx", "held_k")
+
+
+def rank_world():
+    """(backend, device) of phase 14's world: NCCL with a card a rank, else
+    gloo with every rank on cuda:0 (gloo stages CUDA tensors through the
+    host)."""
+    import torch
+    if torch.cuda.device_count() >= RANKS:
+        return "nccl", None
+    return "gloo", "cuda:0"
+
+
+def save_rank_data(data):
+    """Phase 4's pairs and probes as .npy files that the rank processes map
+    (written once, after phase 9)."""
+    RANK_DATA.mkdir(parents=True, exist_ok=True)
+    for n in RANK_DATA_NAMES:
+        np.save(RANK_DATA / f"{n}.npy", data[n])
+
+
+def rank_kernels():
+    from repro_torch.kernels.probe_area import probe_pages_area
+    from repro_torch.kernels.probe_bitserial import probe_pages_bitserial
+    from repro_torch.kernels.probe_perf import probe_pages_perf
+    return {"probe_perf": probe_pages_perf, "probe_area": probe_pages_area,
+            "probe_bitserial": probe_pages_bitserial}
+
+
+def rank_block(x, mesh):
+    """The rank's source block of a whole batch."""
+    n = len(x) // mesh.num_shards
+    return x[mesh.rank * n:(mesh.rank + 1) * n]
+
+
+def rank_small(mesh, serving, hashmap, rlu, HashMemConfig, k):
+    """(a) on one rank: phase 3's small mesh engines, the 2-shard ones on
+    the first two ranks, and the routed one-shard calls.  Returns each
+    engine's outcome (this rank's leaves), the issues whose launches were
+    not one a probe phase and one a delete's find, the one-shard calls and
+    the launches."""
+    from repro_torch.launch.mesh import sub_mesh
+    meshes = {2: sub_mesh(mesh, 2), RANKS: mesh}
+    reset_launches(k)
+    outcomes, bad = {}, []
+    for case in small_mesh_cases(HashMemConfig):
+        name, cfg, D = case[:3]
+        m = meshes[D]
+        if m is None:
+            continue
+        eng, reqs = small_mesh_engine(serving, case, m, m.device)
+        per = count_issue_launches(eng, k)
+        eng.submit_all(reqs)
+        snap = eng.run()
+        bad += [(name, kinds, n) for kinds, n in per
+                if n != issue_launches_wanted(eng, kinds)]
+        outcomes[name] = (
+            [r.results for r in reqs], eng.schedule, deterministic(eng, snap),
+            {n: a[0] for n, a in
+             hashmap.to_numpy(eng.backend.hm_stacked).items()},
+            (eng.grow_events, eng.split_events, eng.directory_doublings))
+    cfg = one_shard_inputs(rlu, HashMemConfig)[0]
+    one = one_shard_calls(hashmap, rlu, mesh,
+                          hashmap.stack([hashmap.create(cfg,
+                                                        device=mesh.device)]),
+                          k, lambda x: rank_block(x, mesh))
+    return dict(outcomes=outcomes, bad=bad, one_shard=one,
+                launches=read_launches(k))
+
+
+def rank_paper(mesh, serving, hashmap, rlu, k):
+    """(b) on one rank: its shard of PAPER_HASHMEM cut four ways loaded
+    from the pairs it owns among phase 4's 100M, the 10M probes through
+    ``probe_sharded`` (its block), timed; then the phase 8 stream through
+    the rank engine, fused at depth 1.  Returns what the parent checks and
+    prints."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import PAPER_HASHMEM
+    from repro_torch.core.hashing import as_u32
+    D, dev, sb = mesh.num_shards, mesh.device, "highbits"
+    cfg = dataclasses.replace(PAPER_HASHMEM, num_buckets=MESH_BUCKETS,
+                              overflow_pages=MESH_OVERFLOW)
+    data = {n: np.load(RANK_DATA / f"{n}.npy") for n in RANK_DATA_NAMES}
+    out = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(k)
+    hs = hashmap.stack([hashmap.create(cfg, device=dev)])
+    dist.barrier()
+    t0 = time.perf_counter()
+    hs, ok, cfg2 = rlu.insert_sharded(hs, data["keys"], data["vals"], cfg, D,
+                                      shard_by=sb, mesh=mesh)
+    sync()
+    out["load_s"] = time.perf_counter() - t0
+    check(bool(ok.all()) and cfg2 == cfg,
+          f"rank {mesh.rank}: insert_sharded refused {int((~ok).sum())} "
+          f"pairs or grew")
+    out["digests"] = leaf_digests(hashmap, hs)
+    out["load_stats"] = hashmap.stats(hashmap.unstack(hs)[0])
+    out["load_stats"].pop("chain_lengths")
+    probes = data["probes"]
+    cap = rlu.routing_cap(probes, cfg, D, sb)
+    qd = as_u32(np.asarray(rank_block(probes, mesh)), dev)
+    l0 = read_launches(k)
+    v, f = rlu.probe_sharded(mesh, hs, qd, cfg, cap=cap, shard_by=sb)
+    l1 = read_launches(k)
+    want = np.asarray(data["vals"])[np.asarray(rank_block(data["pidx"],
+                                                          mesh))]
+    out["probe_launches"] = {n: l1[n] - l0[n] for n in l0}
+    out["probe_wrong"] = int((~f).sum()) + int(
+        (v.cpu().numpy().astype(np.uint32) != want).sum())
+    _, f = rlu.probe_sharded(mesh, hs, np.asarray(rank_block(data["held_k"],
+                                                             mesh)),
+                             cfg, shard_by=sb)
+    out["held_found"] = int(f.sum())
+    ex0, times = dict(mesh.exchanges), []
+    for _ in range(TIMED_RUNS + 1):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        rlu.probe_sharded(mesh, hs, qd, cfg, cap=cap, shard_by=sb)
+        sync()
+        dist.barrier()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["probe_ms"] = float(np.median(times[1:]))
+    out["probe_exchange_ms"] = (mesh.exchanges["seconds"] - ex0["seconds"]) \
+        / len(times) * 1e3
+    out["cap"] = cap
+    out["peak_load"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del hs, qd, v, f, ok, data
+    torch.cuda.empty_cache()
+
+    # -- the phase 8 stream through the rank engine -------------------------
+    eng, reqs, load_s, svals = serving_engine(
+        serving, cfg, SERVE_WORKLOADS, SERVE_RECORDS, SERVE_REQUESTS, dev,
+        mesh=mesh, max_slots=SERVE_SLOTS, pipeline_depth=1)
+    out["preload_s"] = load_s
+    out["preloaded"] = sum(st["live_entries"]
+                           for st in eng.backend.shard_stats())
+    per = count_issue_launches(eng, k)
+    eng.submit_all(reqs)
+    reset_launches(k)
+    ex0 = dict(mesh.exchanges)
+    dist.barrier()
+    sync()
+    t0 = time.perf_counter()
+    snap = eng.run()
+    sync()
+    out["wall"] = time.perf_counter() - t0
+    out["launches"] = read_launches(k)
+    out["exchanges"] = {n: mesh.exchanges[n] - ex0[n] for n in ex0}
+    out["bad"] = [(kinds, n) for kinds, n in per
+                  if n != issue_launches_wanted(eng, kinds)]
+    out["results"] = [r.results for r in reqs]
+    out["ticks"] = eng.ticks
+    out["snap"] = snap
+    out["stats"] = eng.stats()
+    out["replayed"] = dict_model_replay(eng.schedule, eng.tenants.space,
+                                        svals) if mesh.rank == 0 else None
+    out["peak"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def rank_main(mesh):
+    """Phase 14 on one rank: (a) then (b).  Runs in a process of its own
+    (``spawn_ranks``), which finds ``src`` and ``tests`` on its path."""
+    from repro_torch import serving
+    from repro_torch.configs import HashMemConfig
+    from repro_torch.core import hashmap, rlu
+    k = rank_kernels()
+    t0 = time.perf_counter()
+    small = rank_small(mesh, serving, hashmap, rlu, HashMemConfig, k)
+    small["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paper = rank_paper(mesh, serving, hashmap, rlu, k)
+    paper["seconds"] = time.perf_counter() - t0
+    return dict(device=str(mesh.device), backend=mesh.backend, small=small,
+                paper=paper)
+
+
+def ranks_path(smi, host_results, small_cpu, one_cpu, digests):
+    """Phase 14: ``RANKS`` rank processes, one shard each, over
+    ``torch.distributed`` (``spawn_ranks``): (a) phase 3's small mesh
+    engines and routed one-shard calls held against phase 3's CPU runs,
+    (b) the phase 9 table, probes and stream held against phases 9 and 8
+    and the DictModel.  Every rank's exit and result is checked.  Returns
+    the ranks' launches, summed, by kernel."""
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks
+    t_phase = time.perf_counter()
+    backend, device = rank_world()
+    torch.cuda.empty_cache()
+    outs = spawn_ranks(rank_main, RANKS, backend=backend, device=device,
+                       timeout=RANK_TIMEOUT)
+    spawn_s = time.perf_counter() - t_phase
+    print(f"ranks: {RANKS} rank processes over {backend} on "
+          f"{[o['device'] for o in outs]} ({torch.cuda.device_count()} "
+          f"card(s)); all exited 0 in {spawn_s:.3f} s")
+
+    # -- (a) small mesh engines and the routed calls -------------------------
+    n_cases = 0
+    for name, cpu in small_cpu.items():
+        ranks = [o["small"]["outcomes"][name] for o in outs
+                 if name in o["small"]["outcomes"]]
+        D = len(cpu[3])
+        check(len(ranks) == D, f"ranks {name}: {len(ranks)} ranks ran it")
+        for r, (res, sched, det, leaves, events) in enumerate(ranks):
+            check(res == cpu[0], f"ranks {name}: rank {r}'s results differ")
+            check(sched == cpu[1], f"ranks {name}: rank {r}'s schedule "
+                  f"differs")
+            check(det == cpu[2], f"ranks {name}: rank {r}'s metrics differ")
+            check(leaves.keys() == cpu[3][r].keys() and all(
+                np.array_equal(leaves[n], cpu[3][r][n]) for n in leaves),
+                f"ranks {name}: rank {r}'s leaves differ from shard {r}")
+        grows, splits, doublings = ranks[0][4]
+        if name == "grows_D2":
+            check(grows > 0, f"ranks {name}: no grow")
+        if name == "extendible_D2":
+            check(splits > 0 and doublings > 0 and grows == 0,
+                  f"ranks {name}: {splits} splits, {doublings} doublings, "
+                  f"{grows} grows")
+        n_cases += 1
+    bad = [b for o in outs for b in o["small"]["bad"]]
+    check(not bad, f"ranks: issues whose launches per rank were not one a "
+          f"probe phase and one a delete's find: {bad[:4]}")
+    ones = [o["small"]["one_shard"] for o in outs]
+    for i, want in enumerate(one_cpu[0]):
+        got = torch.cat([one[0][i] for one in ones]) if i else ones[0][0][i]
+        check(torch.equal(got, want), f"ranks: routed one-shard output {i} "
+              f"differs from phase 3's CPU run")
+    for r, one in enumerate(ones):
+        check(all(np.array_equal(one[1][n], one_cpu[1][n][r:r + 1])
+                  for n in one[1]), f"ranks: one-shard leaves of rank {r}")
+        check(one[2] == one_cpu[2] and one[3][0]["probe_perf"] == 1
+              and one[3][1]["probe_perf"] == 1,
+              f"ranks: one-shard caps {one[2]} or launches {one[3]}")
+    small_l = {n: sum(o["small"]["launches"][n] for o in outs)
+               for n in KERNELS}
+    print(f"ranks_small: {n_cases} mesh engines (2 and {RANKS} ranks) and the "
+          f"routed one-shard calls on the card equal phase 3's CPU runs "
+          f"(results, schedules, metrics, rank r's leaves = shard r); every "
+          f"rank's issue one launch a probe phase and one a delete's find; "
+          f"launches over the ranks {small_l}; "
+          f"{max(o['small']['seconds'] for o in outs):.3f} s")
+
+    # -- (b) the paper table, its probes and the stream ---------------------
+    papers = [o["paper"] for o in outs]
+    for r, p in enumerate(papers):
+        check(all(p["digests"][n][0] == digests[n][r] for n in digests)
+              and p["digests"].keys() == digests.keys(),
+              f"ranks: rank {r}'s shard differs from phase 9's leaf {r}")
+        check(p["probe_wrong"] == 0, f"ranks: rank {r} got "
+              f"{p['probe_wrong']} probe results wrong")
+        check(p["probe_launches"]["probe_perf"] == 1,
+              f"ranks: rank {r}'s sharded probe launched "
+              f"{p['probe_launches']}")
+        check(p["held_found"] == 0, f"ranks: rank {r} found "
+              f"{p['held_found']} never-inserted keys")
+    live = [p["load_stats"]["live_entries"] for p in papers]
+    check(sum(live) == N_BUILD, f"ranks: the shards hold {live}")
+    probe_ms = max(p["probe_ms"] for p in papers)
+    n_probes = int(np.load(RANK_DATA / "probes.npy", mmap_mode="r").size)
+    print(f"ranks_load: each rank kept its pairs of {N_BUILD} through "
+          f"rlu.insert_sharded over the ranks in "
+          f"{max(p['load_s'] for p in papers):.3f} s; live a rank {live}; "
+          f"every leaf of rank r's shard equals phase 9's shard r (sha256); "
+          f"peak device memory a rank "
+          f"{max(p['peak_load'] for p in papers):.2f} GiB")
+    print(f"ranks_probe: {n_probes} probes through rlu.probe_sharded, "
+          f"{n_probes // RANKS} a rank, at cap {papers[0]['cap']}: all found "
+          f"with their values (= phase 9), held-back keys none; one "
+          f"probe_perf launch on each rank; {probe_ms:.4f} ms from a barrier "
+          f"to the last rank's end (median of {TIMED_RUNS} after warm-up) = "
+          f"{n_probes / probe_ms / 1e3:.1f} Mprobes/s; host ms in "
+          f"rlu.exchange a probe "
+          f"{[round(p['probe_exchange_ms'], 3) for p in papers]}; "
+          f"{backend}; card: {smi}")
+    for r, p in enumerate(papers):
+        check(p["preloaded"] == len(SERVE_WORKLOADS) * SERVE_RECORDS,
+              f"ranks: rank {r} sees {p['preloaded']} preloaded pairs")
+        check(p["results"] == host_results, f"ranks: rank {r}'s results "
+              f"differ from phase 8's host engine")
+        check(not p["bad"], f"ranks: rank {r}'s issues launched "
+              f"{p['bad'][:4]}")
+        check(p["launches"]["probe_perf"] > 0, f"ranks: rank {r}'s stream "
+              f"launched no probe_perf")
+    p0 = papers[0]
+    ticks, wall = p0["ticks"], max(p["wall"] for p in papers)
+    snap, st = p0["snap"], p0["stats"]
+    ex = [p["exchanges"] for p in papers]
+    print(f"ranks_serve: {snap['total_ops']} ops of "
+          f"{snap['requests_completed']} requests in {wall:.3f} s = "
+          f"{snap['total_ops'] / wall:.1f} ops/s through the rank engine "
+          f"(fused tick, depth 1); preload "
+          f"{max(p['preload_s'] for p in papers):.3f} s; {ticks} ticks; "
+          f"latency p50/p99 {snap['request_latency_ticks']['p50']:.0f}/"
+          f"{snap['request_latency_ticks']['p99']:.0f} ticks, "
+          f"{snap['request_latency_ms']['p50']:.3f}/"
+          f"{snap['request_latency_ms']['p99']:.3f} ms; every rank's results "
+          f"equal phase 8's; the DictModel replayed {p0['replayed']} keys; "
+          f"probe_perf launches a rank "
+          f"{[p['launches']['probe_perf'] for p in papers]} over {ticks} "
+          f"ticks; rlu.exchange a tick: "
+          f"{ex[0]['calls'] / ticks:.1f} calls, host ms "
+          f"{[round(e['seconds'] / ticks * 1e3, 3) for e in ex]}, "
+          f"{ex[0]['bytes'] / ticks / 1e3:.1f} kB sent by rank 0; "
+          f"route_cap_totals {st['route_cap_totals']}; peak device memory a "
+          f"rank {max(p['peak'] for p in papers):.2f} GiB")
+    print(f"ranks_time: phase 14 took {time.perf_counter() - t_phase:.3f} s "
+          f"((a) {max(o['small']['seconds'] for o in outs):.3f} s, (b) "
+          f"{max(p['seconds'] for p in papers):.3f} s); card: {smi}")
+    return {n: small_l[n] + sum(p["launches"][n] + p["probe_launches"][n]
+                                for p in papers) for n in KERNELS}
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the card and has no CPU mode")
@@ -3809,7 +4199,8 @@ def main() -> int:
     check_kernel_cases(k, ref, pack_bitplanes, load_width)
     check_small_tables_vs_cpu(hashmap, HashMemConfig)
     check_small_engines_vs_cpu(serving, hashmap, HashMemConfig, k)
-    check_small_mesh_vs_cpu(serving, hashmap, HashMemConfig, k)
+    _, small_cpu, one_cpu = check_small_mesh_vs_cpu(serving, hashmap,
+                                                    HashMemConfig, k)
 
     # -- 4. the perf path at PAPER_HASHMEM --------------------------------------
     cfg = PAPER_HASHMEM
@@ -4065,9 +4456,10 @@ def main() -> int:
     s_path, host_results = serving_path(serving, hashmap, k, smi)
 
     # -- 9. the mesh path at paper scale -------------------------------------
-    m_probe, m_serve = mesh_path(serving, hashmap, k, data, smi, host_rate,
-                                 host_results)
-    del data, host_results
+    m_probe, m_serve, m_digests = mesh_path(serving, hashmap, k, data, smi,
+                                            host_rate, host_results)
+    save_rank_data(data)
+    del data
 
     # -- 10. decode serving over the HashMem page table -------------------------
     with torch.no_grad():
@@ -4084,6 +4476,10 @@ def main() -> int:
     # -- 13. the ssm, encdec and vlm families -----------------------------------
     rest_launches, _ = rest_path(k, ref, smi)
 
+    # -- 14. the sharded table over ranks -----------------------------------
+    rank_launches = ranks_path(smi, host_results, small_cpu, one_cpu,
+                               m_digests)
+
     replaces = {"probe_perf": "src/repro/kernels/probe_perf.py:34",
                 "probe_area": "src/repro/kernels/probe_area.py:32",
                 "probe_bitserial": "src/repro/kernels/probe_bitserial.py:36"}
@@ -4094,9 +4490,14 @@ def main() -> int:
     check(m_probe["probe_perf"] == 1 and m_serve["probe_perf"] > 0,
           "the mesh path did not launch probe_perf")
     launches = {"probe_perf": perf_path["probe_perf"] + decode_launches
-                + ckpt_launches + family_launches + rest_launches,
-                "probe_area": bs_path["probe_area"],
-                "probe_bitserial": bs_path["probe_bitserial"]}
+                + ckpt_launches + family_launches + rest_launches
+                + rank_launches["probe_perf"],
+                "probe_area": bs_path["probe_area"]
+                + rank_launches["probe_area"],
+                "probe_bitserial": bs_path["probe_bitserial"]
+                + rank_launches["probe_bitserial"]}
+    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_script:.1f} "
+          f"s; card: {smi}")
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{kname}.cu",

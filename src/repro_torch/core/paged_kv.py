@@ -25,7 +25,7 @@ JAX would drop an out-of-range write.
 
 The channel-sharded variants (``decode_attention_sharded``,
 ``append_sharded``) need channels across cards and wait for ROADMAP Queue 1
-item 16.  At one channel they compute what the gather path does
+item 16b.  At one channel they compute what the gather path does
 (``tests/test_torch_paged_kv.py``).
 """
 from __future__ import annotations

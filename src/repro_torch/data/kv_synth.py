@@ -1,5 +1,7 @@
-"""Key/value workload generators for the HashMem microbenchmark (paper §4.1.1)
-and the YCSB core workloads' op mixes and key skew (the serving load).
+"""Key/value workload generators for the HashMem microbenchmark (paper §4.1.1),
+the mixed mutation streams (``churn_workload``, ``zipfian_workload``), the
+YCSB core workloads' op mixes and key skew (the serving load), and the
+dictionary-word bucket-distribution study (paper Fig. 4).
 
 numpy only, and the same draws as the JAX package's ``repro.data.kv_synth``
 for the same seed, so both packages see the same data.
@@ -52,6 +54,37 @@ def probe_set(keys: np.ndarray, fraction: float, seed: int = 1):
     return keys[idx], idx
 
 
+def churn_workload(n_ops: int, keyspace: int = 4096, insert_batch: int = 8,
+                   delete_batch: int = 4, probe_batch: int = 16,
+                   p_insert: float = 0.5, p_delete: float = 0.25,
+                   seed: int = 0):
+    """Mixed online-mutation op stream for the mutation engine.
+
+    Yields ``(op, keys, vals)`` tuples with op in {"insert", "delete",
+    "probe"}; keys are drawn Zipf-skewed from a bounded keyspace so the
+    stream produces duplicate keys, tombstone-then-reinsert patterns and
+    hot buckets — the access shape a live serving table sees, as opposed to
+    the paper's populate-once microbenchmark (kv_dataset above).
+    """
+    rng = np.random.default_rng(seed)
+    pool = rng.choice(np.uint32(0xFFFFFFF0), size=keyspace,
+                      replace=False).astype(np.uint32)
+    # Zipf-ish ranks: hot head, long tail
+    w = 1.0 / np.arange(1, keyspace + 1) ** 0.8
+    w /= w.sum()
+    for _ in range(n_ops):
+        r = rng.random()
+        if r < p_insert:
+            k = rng.choice(pool, size=insert_batch, p=w)
+            v = rng.integers(1, 2**31, size=insert_batch,
+                             dtype=np.int64).astype(np.uint32)
+            yield "insert", k, v
+        elif r < p_insert + p_delete:
+            yield "delete", rng.choice(pool, size=delete_batch, p=w), None
+        else:
+            yield "probe", rng.choice(pool, size=probe_batch, p=w), None
+
+
 def zipfian_weights(n: int, theta: float = 0.99) -> np.ndarray:
     """YCSB Zipfian popularity weights over ranks 1..n (hot head, long tail).
 
@@ -89,3 +122,69 @@ def ycsb_mix(workload: str) -> dict:
 def ycsb_default_dist(workload: str) -> str:
     """The standard key distribution for a YCSB core workload."""
     return _YCSB_DISTS[workload.upper()]
+
+
+def zipfian_workload(n_ops: int, keyspace: int = 4096, theta: float = 0.99,
+                     insert_batch: int = 8, delete_batch: int = 4,
+                     probe_batch: int = 16, mix=None, workload: str = None,
+                     seed: int = 0):
+    """Zipfian-skewed mixed op stream in the same ``(op, keys, vals)`` shape
+    as :func:`churn_workload`.
+
+    ``mix`` maps {"insert", "delete", "probe"} to probabilities (defaults to
+    churn_workload's 0.5/0.25/0.25).  Alternatively pass ``workload`` (YCSB
+    A-F): reads/scans map to "probe", updates/inserts/rmw to "insert", and a
+    small delete fraction is mixed in so tombstone paths stay exercised.
+    """
+    rng = np.random.default_rng(seed)
+    if workload is not None:
+        ym = ycsb_mix(workload)
+        p_probe = ym.get("read", 0.0) + ym.get("scan", 0.0)
+        p_insert = ym.get("update", 0.0) + ym.get("insert", 0.0) \
+            + ym.get("rmw", 0.0)
+        # fold a 5% delete share in proportionally so tombstones appear
+        mix = {"probe": 0.95 * p_probe, "insert": 0.95 * p_insert,
+               "delete": 0.05}
+    mix = mix or {"insert": 0.5, "delete": 0.25, "probe": 0.25}
+    total = sum(mix.values())
+    p_ins, p_del = mix.get("insert", 0) / total, mix.get("delete", 0) / total
+    pool = rng.choice(np.uint32(0xFFFFFFF0), size=keyspace,
+                      replace=False).astype(np.uint32)
+    w = zipfian_weights(keyspace, theta)
+    for _ in range(n_ops):
+        r = rng.random()
+        if r < p_ins:
+            k = rng.choice(pool, size=insert_batch, p=w)
+            v = rng.integers(1, 2**31, size=insert_batch,
+                             dtype=np.int64).astype(np.uint32)
+            yield "insert", k, v
+        elif r < p_ins + p_del:
+            yield "delete", rng.choice(pool, size=delete_batch, p=w), None
+        else:
+            yield "probe", rng.choice(pool, size=probe_batch, p=w), None
+
+
+def dictionary_words(n: int = 350_000, seed: int = 3) -> np.ndarray:
+    """Synthetic 'dictionary': Zipf-weighted letter n-grams dictionary-encoded
+    to uint32 (paper Fig. 4 maps the first 350k words of a dictionary).
+    Word keys are the dictionary-encoded numeric ids the paper prescribes for
+    string data (§4.1.1): FNV-1a over the letters, unique, below the
+    sentinel range."""
+    rng = np.random.default_rng(seed)
+    # mimic word-length distribution 3..14, characters Zipf over 26 letters
+    lengths = rng.integers(3, 15, size=n)
+    p = 1.0 / np.arange(1, 27) ** 1.07
+    p /= p.sum()
+    out = np.zeros(n, np.uint32)
+    seen = set()
+    for i in range(n):
+        while True:
+            chars = rng.choice(26, size=lengths[i], p=p)
+            h = 2166136261
+            for c in chars:
+                h = ((h ^ (int(c) + 97)) * 16777619) & 0xFFFFFFFF
+            if h not in seen and h < 0xFFFFFFF0:
+                seen.add(h)
+                out[i] = h
+                break
+    return out

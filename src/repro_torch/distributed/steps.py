@@ -6,7 +6,7 @@ optional gradient compression, then the AdamW update, in place.
 ``decode_step`` and the greedy next token, under ``torch.no_grad()``.  JAX
 jits both with their parameter and state shardings; the port runs them
 eagerly on one card, with no shardings, and refuses a mesh of more than one
-shard (ROADMAP Queue 1 item 16).
+shard (ROADMAP Queue 1 item 16b).
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ def _one_card(mesh):
         raise NotImplementedError(
             f"a training mesh of {dict(mesh)} shards the parameters and the "
             f"batch over several cards; the port trains on one card (ROADMAP "
-            f"Queue 1 item 16)")
+            f"Queue 1 item 16b)")
 
 
 # ---------------------------------------------------------------------------

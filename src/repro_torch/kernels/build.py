@@ -59,6 +59,12 @@ def compile_source(name: str) -> Path:
     return so
 
 
+def build_all() -> list:
+    """Compile every ``csrc/*.cu`` not built yet, one after another: what a
+    parent process does before it spawns ranks that load the libraries."""
+    return [compile_source(p.stem) for p in sorted(CSRC.glob("*.cu"))]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     if name not in _libs:

@@ -26,13 +26,16 @@
         --requests 64 --slots 16 [--device cpu]
     python -m repro_torch.launch.serve --mode kv --device cpu \\
         --mesh-shards 4 [--no-fused-tick]           # 4 stacked shards
+    python -m repro_torch.launch.serve --mode kv --device cpu \\
+        --mesh-shards 2 --ranks                     # 2 rank processes
 
 The flags are the JAX CLI's, plus ``--device``, less ``--mesh``: decode
 runs on one card, with the geometry of JAX's default ``(1, 1)`` mesh.
 ``--backend`` defaults to ``perf`` here (``ref`` in the JAX CLI): on the
 card ``ref`` is the plain PyTorch compare and launches no kernel.
-``--mesh-shards N`` stacks N shards on the one device (``launch/mesh.py``)
-instead of the JAX CLI's one shard a device.
+``--mesh-shards N`` stacks N shards on the one device (``launch/mesh.py``);
+with ``--ranks`` it serves from N rank processes, one shard a rank (the
+JAX CLI's one shard a device), over ``torch.distributed``.
 """
 from __future__ import annotations
 
@@ -181,24 +184,64 @@ def serve_kv(*, workloads="A", tenants=None, requests=64, slots=16,
              shards=1, record_count=1024, ops_per_request=4,
              max_pending=0, tenant_slots=0, seed=0, backend="perf",
              mesh_shards=0, pipeline=1, fused_tick=None, verbose=True,
-             trace_out=None, metrics_prom=None, device=None):
+             trace_out=None, metrics_prom=None, ranks=False,
+             device=None):
     """Thin driver over the multi-tenant KV serving engine: one tenant per
     workload letter (comma-separated), YCSB load phase, then a drained
     continuous-batching run on ``device`` (None: the card).
     ``mesh_shards`` > 0 routes the table through the RLU mesh path
-    (``mesh_shards`` shards stacked on the device); ``pipeline`` > 1
-    enables multi-tick op pipelining; ``fused_tick=False`` issues one mesh
-    call per phase instead of one a tick.  ``trace_out`` turns on tick
-    tracing and writes Chrome/Perfetto trace-event JSON there after the
-    drain (``tools/trace_report.py`` reads it); ``metrics_prom`` writes the
-    Prometheus text exposition of the run's metrics.  Returns
-    (engine, snapshot)."""
+    (``mesh_shards`` shards stacked on the device, or with ``ranks`` one
+    shard a rank process over ``torch.distributed``: nccl when there is a
+    card a rank, else gloo); ``pipeline`` > 1 enables multi-tick op
+    pipelining;
+    ``fused_tick=False`` issues one mesh call per phase instead of one a
+    tick.  ``trace_out`` turns on tick tracing and writes Chrome/Perfetto
+    trace-event JSON there after the drain (``tools/trace_report.py``
+    reads it); ``metrics_prom`` writes the Prometheus text exposition of
+    the run's metrics.  Returns (engine, snapshot); over ranks (None, rank
+    0's snapshot), and only rank 0 prints and writes files."""
+    kw = dict(workloads=workloads, tenants=tenants, requests=requests,
+              slots=slots, shards=shards, record_count=record_count,
+              ops_per_request=ops_per_request, max_pending=max_pending,
+              tenant_slots=tenant_slots, seed=seed, backend=backend,
+              pipeline=pipeline, fused_tick=fused_tick, verbose=verbose,
+              trace_out=trace_out, metrics_prom=metrics_prom)
+    if ranks:
+        from repro_torch.launch.mesh import spawn_ranks
+        if mesh_shards < 1:
+            raise ValueError("ranks=True needs mesh_shards >= 1, one a rank")
+        on_cpu = device is not None and torch.device(device).type == "cpu"
+        if not on_cpu:
+            from repro_torch.kernels import build
+            build.build_all()       # here, not in N ranks at once
+        dist = "gloo" if on_cpu or torch.cuda.device_count() < mesh_shards \
+            else "nccl"
+        snaps = spawn_ranks(_serve_kv_rank, mesh_shards, kw, backend=dist,
+                            device=device)
+        return None, snaps[0]
     from repro_torch.launch.mesh import make_serving_mesh
-
-    wls = [w.strip().upper() for w in workloads.split(",") if w.strip()]
-    n_tenants = tenants or len(wls)
     mesh = make_serving_mesh(mesh_shards, device=device) if mesh_shards \
         else None
+    return _serve_kv_on(mesh, device=device, **kw)
+
+
+def _serve_kv_rank(mesh, kw):
+    """One rank of ``serve_kv(ranks=True)``: the same engine and stream on
+    every rank; rank 0 alone prints and writes."""
+    lead = mesh.rank == 0
+    kw = dict(kw, verbose=kw["verbose"] and lead,
+              trace_out=kw["trace_out"] if lead else None,
+              metrics_prom=kw["metrics_prom"] if lead else None)
+    return _serve_kv_on(mesh, device=mesh.device, **kw)[1]
+
+
+def _serve_kv_on(mesh, *, workloads, tenants, requests, slots, shards,
+                 record_count, ops_per_request, max_pending, tenant_slots,
+                 seed, backend, pipeline, fused_tick, verbose, trace_out,
+                 metrics_prom, device):
+    from repro_torch.launch.mesh import RankMesh
+    wls = [w.strip().upper() for w in workloads.split(",") if w.strip()]
+    n_tenants = tenants or len(wls)
     eng, gens = build_ycsb_engine(
         [wls[i % len(wls)] for i in range(n_tenants)], slots=slots,
         shards=shards, record_count=record_count,
@@ -210,6 +253,8 @@ def serve_kv(*, workloads="A", tenants=None, requests=64, slots=16,
     reqs = [r for g in gens for r in g.requests(per)]
     eng.submit_all(reqs)
     snap = eng.run()
+    # a rank engine's stats gather from every rank: all ranks ask
+    stats = eng.stats() if verbose or isinstance(mesh, RankMesh) else None
     if trace_out:
         n = eng.export_trace(trace_out, workloads=workloads)
         if verbose:
@@ -220,8 +265,7 @@ def serve_kv(*, workloads="A", tenants=None, requests=64, slots=16,
         if verbose:
             print(f"wrote Prometheus exposition -> {metrics_prom}")
     if verbose:
-        print(json.dumps({**snap, "engine": eng.stats()}, indent=2,
-                         default=str))
+        print(json.dumps({**snap, "engine": stats}, indent=2, default=str))
     return eng, snap
 
 
@@ -262,6 +306,10 @@ def main(argv=None):
                          "device; 0: host-routed shards")
     ap.add_argument("--pipeline", type=int, default=1,
                     help="multi-tick op pipelining depth (1 = off)")
+    ap.add_argument("--ranks", action="store_true",
+                    help="with --mesh-shards N: one shard a rank, N rank "
+                         "processes over torch.distributed (nccl with a card "
+                         "a rank, else gloo; only rank 0 prints)")
     ap.add_argument("--no-fused-tick", action="store_true",
                     help="on a mesh, one call per phase instead of one "
                          "fused call a tick (the mesh default)")
@@ -294,7 +342,8 @@ def main(argv=None):
              mesh_shards=args.mesh_shards, pipeline=args.pipeline,
              fused_tick=False if args.no_fused_tick else None,
              trace_out=args.trace_out,
-             metrics_prom=args.metrics_prom, device=args.device)
+             metrics_prom=args.metrics_prom, ranks=args.ranks,
+             device=args.device)
 
 
 if __name__ == "__main__":

@@ -289,7 +289,7 @@ def make_decode_ctx(cfg, serve_cfg, B, mesh=None):
     batch shard and spreads a sequence's pages over the channel axes; the
     port holds one card, so it takes meshes of one batch group and one
     channel (JAX's serving CLI default, ``(1, 1)``), whose geometry equals
-    the unsharded one, and refuses the rest (ROADMAP Queue 1 item 16).
+    the unsharded one, and refuses the rest (ROADMAP Queue 1 item 16b).
     Sliding-window archs bound the live horizon to the window."""
     pt = serve_cfg.kv_page_tokens
     horizon = serve_cfg.shape.seq_len
@@ -312,7 +312,7 @@ def make_decode_ctx(cfg, serve_cfg, B, mesh=None):
         raise NotImplementedError(
             f"a decode mesh of {dict(mesh)} spreads the KV pages over "
             f"{n_shards} shards; the port decodes on one card (channels "
-            f"across cards: ROADMAP Queue 1 item 16)")
+            f"across cards: ROADMAP Queue 1 item 16b)")
     n_pages = max(1, (horizon + pt - 1) // pt)
     return transformer.DecodeCtx(
         page_tokens=pt, n_pages=n_pages, pool_pages=B * n_pages,

@@ -21,7 +21,7 @@ token's k contributions in ascending expert order, JAX's CPU scatter-add
 order, one rounding an addition.
 
 JAX's expert-parallel dispatch (``_local_route``, ``apply_ep``) needs a mesh
-across cards and waits for ROADMAP Queue 1 item 16.
+across cards and waits for ROADMAP Queue 1 item 16b.
 """
 from __future__ import annotations
 

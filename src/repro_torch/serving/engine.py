@@ -83,9 +83,14 @@ form only:
     host gathers tick N+1 while the card still runs tick N;
   * ``profile_ticks`` opens a ``torch.profiler`` window, and a window that
     does not start is an error;
-  * the mesh is one card (``launch/mesh.py``): its D shards are stacked
-    there, and each routed probe phase is one kernel launch for all of
-    them.
+  * a ``ServingMesh`` is one card (``launch/mesh.py``): its D shards are
+    stacked there, and each routed probe phase is one kernel launch for
+    all of them;
+  * a ``RankMesh`` holds one shard a rank process (JAX's one shard a
+    device): every rank runs the same engine on the same stream (SPMD),
+    passes its own source block of each phase to the rlu call, and the
+    results are ``all_gather``ed at drain, so the host logic and the
+    schedule are the same on every rank (``_RankShards``).
 """
 from __future__ import annotations
 
@@ -101,6 +106,7 @@ import torch
 from repro_torch.configs import HashMemConfig
 from repro_torch.core import hashmap, rlu
 from repro_torch.core.layout import resolve_device
+from repro_torch.launch.mesh import RankMesh
 from repro_torch.serving.metrics import MetricsCollector
 from repro_torch.serving.tenancy import Tenant, TenantRegistry
 from repro_torch.serving.tracing import NULL_TRACER, Tracer
@@ -385,6 +391,18 @@ class _HostShards:
     def shard_list(self) -> list:
         return self.shards
 
+    # -- telemetry, per shard in shard order -------------------------------
+    def chain_walks(self) -> list:
+        return [hashmap.chain_lengths(hm) for hm in self.shards]
+
+    def rows_terms(self, keys: np.ndarray) -> list:
+        owner = self.owners(keys)
+        return [_rows_term(self.eng, hm, keys[owner == s], routed=False)
+                for s, hm in enumerate(self.shards)]
+
+    def shard_stats(self) -> list:
+        return [_shard_stats(hm) for hm in self.shards]
+
 
 class _MeshShards:
     """Mesh shard backend: ONE stacked HashMem of ``mesh.num_shards``
@@ -397,20 +415,34 @@ class _MeshShards:
 
     def __init__(self, eng: "ServingEngine", mesh, axis: str,
                  cfg: HashMemConfig, tables: Optional[list] = None):
-        from repro_torch.distributed.sharding import shard_stacked_hashmem
-        self._place = lambda hm: shard_stacked_hashmem(mesh, hm, axis)
         self.eng = eng
         self.mesh = mesh
         self.axis = axis
         self.num_shards = mesh.shape[axis]
         self.cfg = cfg
-        shards = list(tables) if tables is not None \
-            else [hashmap.create(cfg, device=eng.device)
-                  for _ in range(self.num_shards)]
-        if len(shards) != self.num_shards:
-            raise ValueError(f"{len(shards)} tables for a mesh of "
+        if tables is not None and len(tables) != self.num_shards:
+            raise ValueError(f"{len(tables)} tables for a mesh of "
                              f"{self.num_shards} shards")
-        self.hm_stacked = self._place(hashmap.stack(shards))
+        self.hm_stacked = self._initial(tables)
+
+    def _initial(self, tables):
+        from repro_torch.distributed.sharding import shard_stacked_hashmem
+        shards = list(tables) if tables is not None \
+            else [hashmap.create(self.cfg, device=self.eng.device)
+                  for _ in range(self.num_shards)]
+        return shard_stacked_hashmem(self.mesh, hashmap.stack(shards),
+                                     self.axis)
+
+    # -- what this process passes and gets back ----------------------------
+    def _block(self, q: np.ndarray) -> np.ndarray:
+        """The part of a padded phase batch this process routes: all of
+        it (every source block)."""
+        return q
+
+    def _host(self, parts: list, lens: list) -> list:
+        """The phases' device results, the first ``lens`` entries of each,
+        as numpy in ONE host copy."""
+        return _to_host([p[:n] for p, n in zip(parts, lens)])
 
     @property
     def auto_grow(self) -> bool:
@@ -430,14 +462,14 @@ class _MeshShards:
 
     # -- phases ------------------------------------------------------------
     def probe(self, keys: np.ndarray, pad: bool = True):
-        q = self.eng._padded(keys, PAD_KEY, pad)
+        q = self._block(self.eng._padded(keys, PAD_KEY, pad))
         v, f = rlu.probe_sharded(self.mesh, self.hm_stacked,
                                  self.eng._on_device(q), self.cfg, self.axis,
                                  shard_by=self.eng.shard_by)
         self.eng._record_call("probe")
 
         def finalize():
-            hv, hf = _to_host([v[:len(keys)], f[:len(keys)]])
+            hv, hf = self._host([v, f], [len(keys)] * 2)
             return hv.astype(np.uint32), hf != 0
         return finalize
 
@@ -465,7 +497,8 @@ class _MeshShards:
                                             self.eng.shard_by, quantum=1))
         on = self.eng._on_device
         self.hm_stacked, v, f, df, iok = rlu.tick_mesh(
-            self.mesh, self.hm_stacked, on(q_p), on(q_d), on(q_k), on(q_v),
+            self.mesh, self.hm_stacked,
+            *(on(self._block(q)) for q in (q_p, q_d, q_k, q_v)),
             self.cfg, self.axis, caps=tuple(caps),
             shard_by=self.eng.shard_by)
         self.eng._record_call("fused_tick")
@@ -476,8 +509,8 @@ class _MeshShards:
 
         def fetch():
             if not host:
-                host.extend(_to_host([v[:len(pk)], f[:len(pk)],
-                                      df[:len(dk)], iok[:len(ik)]]))
+                host.extend(self._host([v, f, df, iok],
+                                       [len(pk), len(pk), len(dk), len(ik)]))
             return host
 
         def fin_probe():
@@ -493,7 +526,7 @@ class _MeshShards:
         return fin_probe, fin_delete, fin_insert
 
     def delete(self, keys: np.ndarray, pad: bool = True):
-        q = self.eng._padded(keys, PAD_KEY, pad)
+        q = self._block(self.eng._padded(keys, PAD_KEY, pad))
         self.hm_stacked, f = rlu.delete_sharded(
             self.mesh, self.hm_stacked, self.eng._on_device(q), self.cfg,
             self.axis, shard_by=self.eng.shard_by)
@@ -501,21 +534,21 @@ class _MeshShards:
         owners = self.owners(keys)
 
         def finalize():
-            found = _to_host([f[:len(keys)]])[0] != 0
+            found = self._host([f], [len(keys)])[0] != 0
             return found, self._tombstones(owners, found)
         return finalize
 
     def insert(self, keys: np.ndarray, vals: np.ndarray, pad: bool = True):
         on = self.eng._on_device
-        q = self.eng._padded(keys, PAD_KEY, pad)
-        v = self.eng._padded(vals, np.uint32(0), pad)
+        q = self._block(self.eng._padded(keys, PAD_KEY, pad))
+        v = self._block(self.eng._padded(vals, np.uint32(0), pad))
         self.hm_stacked, ok = rlu.insert_mesh(
             self.mesh, self.hm_stacked, on(q), on(v), self.cfg, self.axis,
             shard_by=self.eng.shard_by)
         self.eng._record_call("insert")
 
         def finalize():
-            return _to_host([ok[:len(keys)]])[0] != 0
+            return self._host([ok], [len(keys)])[0] != 0
         return finalize
 
     @property
@@ -535,10 +568,10 @@ class _MeshShards:
         events: dict = {}
         hm, ok, cfg2 = rlu.insert_sharded(
             self.hm_stacked, keys, vals, self.cfg, self.num_shards,
-            shard_by=self.eng.shard_by, events=events)
+            shard_by=self.eng.shard_by, events=events, mesh=self.mesh)
         grew = cfg2.num_pages != before
         self.cfg = cfg2
-        self.hm_stacked = self._place(hm)
+        self.hm_stacked = hm
         return (ok.cpu().numpy(),
                 list(range(self.num_shards)) if grew else [], events)
 
@@ -558,11 +591,124 @@ class _MeshShards:
                 shards[s] = hashmap.compact(hm, bucket_fn=bfn)
                 out.append(s)
         if out:
-            self.hm_stacked = self._place(hashmap.stack(shards))
+            self.hm_stacked = hashmap.stack(shards)
         return out
 
     def shard_list(self) -> list:
         return hashmap.unstack(self.hm_stacked)
+
+    # -- telemetry, per shard in shard order -------------------------------
+    def chain_walks(self) -> list:
+        return [hashmap.chain_lengths(hm) for hm in self.shard_list()]
+
+    def rows_terms(self, keys: np.ndarray) -> list:
+        owner = self.owners(keys)
+        return [_rows_term(self.eng, hm, keys[owner == s], routed=True)
+                for s, hm in enumerate(self.shard_list())]
+
+    def shard_stats(self) -> list:
+        return [_shard_stats(hm) for hm in self.shard_list()]
+
+
+class _RankShards(_MeshShards):
+    """Mesh shard backend on a ``RankMesh``, SPMD: every rank runs the same
+    engine on the same request stream and holds shard ``mesh.rank`` (a
+    stack of one on its device).  Each phase passes the rank's own source
+    block of the padded batch to its rlu call (which exchanges with the
+    other ranks), and the results of every block are ``all_gather``ed at
+    drain, so every rank's host logic -- admit, metrics, tombstone
+    accounting, growth and compaction -- sees the whole tick and the
+    schedule stays equal on every rank.  Growth and ``preload`` run the
+    ranked ``rlu.insert_sharded``.  Telemetry (chain walks, rows
+    activated, shard stats) is computed per rank and gathered; every rank
+    must make the same engine calls in the same order."""
+
+    def _initial(self, tables):
+        from repro_torch.distributed.sharding import shard_stacked_hashmem
+        if tables is not None:
+            return shard_stacked_hashmem(self.mesh, hashmap.stack(tables),
+                                         self.axis)
+        return hashmap.stack([hashmap.create(self.cfg,
+                                             device=self.eng.device)])
+
+    def _block(self, q: np.ndarray) -> np.ndarray:
+        n = len(q) // self.num_shards
+        return q[self.mesh.rank * n:(self.mesh.rank + 1) * n]
+
+    def _gather(self, t: torch.Tensor) -> list:
+        import torch.distributed as dist
+        out = [torch.empty_like(t) for _ in range(self.num_shards)]
+        dist.all_gather(out, t.contiguous(), group=self.mesh.group)
+        return out
+
+    def _host(self, parts: list, lens: list) -> list:
+        """Every rank's blocks of the parts in one ``all_gather``, then one
+        host copy: each part whole, in batch order."""
+        local = torch.cat([p.to(torch.int64) for p in parts])
+        flat = torch.stack(self._gather(local)).cpu().numpy()
+        out, at = [], 0
+        for p, n in zip(parts, lens):
+            out.append(flat[:, at:at + p.numel()].reshape(-1)[:n])
+            at += p.numel()
+        return out
+
+    def _local(self):
+        return hashmap.unstack(self.hm_stacked)[0]
+
+    def compact_shards(self, tombstones: list) -> list:
+        hm = self._local()
+        due = hashmap.compact_due(hm, tombstones[self.mesh.rank])
+        if due:
+            bfn = rlu._local_bucket_fn(self.num_shards, self.eng.shard_by)
+            self.hm_stacked = hashmap.stack([hashmap.compact(hm,
+                                                             bucket_fn=bfn)])
+        flags = self._gather(torch.tensor([int(due)],
+                                          device=self.mesh.device))
+        return [s for s, x in enumerate(flags) if int(x)]
+
+    def shard_list(self) -> list:
+        """Every rank's shard, gathered leaf by leaf (a collective: for
+        tests and small tables)."""
+        whole = hashmap._map_leaves(
+            [self.hm_stacked], lambda ts: torch.cat(self._gather(ts[0])))
+        return hashmap.unstack(whole)
+
+    def chain_walks(self) -> list:
+        return self._gather(hashmap.chain_lengths(self._local()))
+
+    def rows_terms(self, keys: np.ndarray) -> list:
+        mine = keys[self.owners(keys) == self.mesh.rank]
+        term = _rows_term(self.eng, self._local(), mine, routed=True)
+        got = self._gather(torch.tensor(term, dtype=torch.float64,
+                                        device=self.mesh.device))
+        return [(float(t[0]), int(t[1])) for t in got]
+
+    def shard_stats(self) -> list:
+        import torch.distributed as dist
+        out = [None] * self.num_shards
+        dist.all_gather_object(out, _shard_stats(self._local()),
+                               group=self.mesh.group)
+        return out
+
+
+def _rows_term(eng: "ServingEngine", hm, mine: np.ndarray,
+               routed: bool) -> tuple:
+    """One shard's share of a rows-activated sample: (mean rows x keys,
+    keys) for its keys ``mine``, bucketed as the probe path buckets them
+    (``routed``: the rlu local bucket; else the shard's own hash)."""
+    if not mine.size:
+        return 0.0, 0
+    b = None
+    if routed:
+        _, b = rlu.owner_and_local_bucket(eng._on_device(mine), hm.config,
+                                          eng.num_shards, eng.shard_by)
+    rows = hashmap.rows_activated_per_probe(hm, eng._on_device(mine), b=b)
+    return float(rows) * int(mine.size), int(mine.size)
+
+
+def _shard_stats(hm) -> dict:
+    return {k: v for k, v in hashmap.stats(hm).items()
+            if k != "chain_lengths"}
 
 
 # ---------------------------------------------------------------------------
@@ -620,6 +766,8 @@ class ServingEngine:
     shards on the mesh's device, which must be the engine's; every
     coalesced phase is ONE rlu call (``fused_tick``, the default on a
     coalesced mesh: ONE call a tick), and ``num_shards`` is the mesh's.
+    ``mesh=`` a ``launch.mesh.RankMesh``: this rank's shard on the rank's
+    device, the same calls on every rank (``_RankShards``).
     Tables passed as ``tables`` must already be on the engine's device.
     Tables auto-grow (host shards independently; mesh shards synchronized)
     and are compacted by an engine-tick policy (tombstone fraction OR
@@ -695,7 +843,8 @@ class ServingEngine:
                                      f"engine on {self.device}")
         if mesh is not None:
             base = tables[0].config if tables else cfg
-            self.backend = _MeshShards(self, mesh, mesh_axis, base, tables)
+            cls = _RankShards if isinstance(mesh, RankMesh) else _MeshShards
+            self.backend = cls(self, mesh, mesh_axis, base, tables)
         else:
             shards = list(tables) if tables is not None else \
                 [hashmap.create(cfg, device=self.device)
@@ -1055,7 +1204,7 @@ class ServingEngine:
         # throttled telemetry: the "sample" span token is simply dropped on
         # un-sampled ticks (begin() allocates no ring entry until end())
         sample_tok = tr.begin("sample", lane)
-        if self.metrics.sample_chains(self.backend.shard_list) \
+        if self.metrics.sample_chains(self.backend.chain_walks) \
                 and self._last_probe_keys is not None:
             rows = self._rows_activated(self._last_probe_keys)
             self.metrics.record_rows_activated(rows)
@@ -1304,7 +1453,7 @@ class ServingEngine:
         # short runs can finish inside one sample window: force a final
         # chain/rows-activated sample so the snapshot is never empty
         if not self.metrics.chain_samples:
-            self.metrics.force_chain_sample(self.backend.shard_list)
+            self.metrics.force_chain_sample(self.backend.chain_walks)
         if self.metrics.rows_h.count == 0 \
                 and self._last_probe_keys is not None:
             self.metrics.record_rows_activated(
@@ -1320,22 +1469,11 @@ class ServingEngine:
         keys = np.asarray(keys, np.uint32)
         if not keys.size:
             return 0.0
-        shards = self.backend.shard_list()
-        cfg = shards[0].config
-        owner = rlu.owner_of_np(keys, cfg, self.num_shards, self.shard_by)
         total, n = 0.0, 0
-        for s in range(self.num_shards):
-            mine = keys[owner == s]
-            if not mine.size:
-                continue
-            b = None
-            if self.backend.is_mesh:
-                _, b = rlu.owner_and_local_bucket(
-                    self._on_device(mine), cfg, self.num_shards,
-                    self.shard_by)
-            total += float(hashmap.rows_activated_per_probe(
-                shards[s], self._on_device(mine), b=b)) * int(mine.size)
-            n += int(mine.size)
+        for term, m in self.backend.rows_terms(keys):
+            if m:
+                total += term
+                n += m
         return total / n if n else 0.0
 
     # -- writeback closures ------------------------------------------------
@@ -1480,8 +1618,5 @@ class ServingEngine:
                 "p99": self.metrics.rows_h.percentile(99),
             },
             "tenants": self.tenants.stats(),
-            "shards": [
-                {k: v for k, v in hashmap.stats(hm).items()
-                 if k != "chain_lengths"}
-                for hm in self.backend.shard_list()],
+            "shards": self.backend.shard_stats(),
         }

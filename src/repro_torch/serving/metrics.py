@@ -265,10 +265,11 @@ class MetricsCollector:
 
     def sample_chains(self, hms) -> bool:
         """Throttled chain-length sample over one HashMem, a list of shards
-        (aggregated, so a single hot shard is visible in max_chain), or a
-        zero-arg callable producing either — the mesh-backed engine passes a
-        callable so shard views are only materialized on sampled ticks;
-        returns True when it sampled."""
+        or of their ``hashmap.chain_lengths`` walks (aggregated, so a single
+        hot shard is visible in max_chain), or a zero-arg callable
+        producing either — the engine passes its backend's
+        ``chain_walks``, so walks (and, over ranks, their gather) happen
+        only on sampled ticks; returns True when it sampled."""
         self._ticks_since_chain_sample += 1
         if self._ticks_since_chain_sample < self.chain_sample_every:
             return False
@@ -286,7 +287,8 @@ class MetricsCollector:
             hms = hms()
         if not isinstance(hms, (list, tuple)):
             hms = [hms]
-        walks = [hashmap.chain_lengths(hm) for hm in hms]
+        walks = [hm if isinstance(hm, torch.Tensor)
+                 else hashmap.chain_lengths(hm) for hm in hms]
         cl = torch.cat(walks).cpu().numpy()
         cls = np.split(cl, np.cumsum([w.numel() for w in walks])[:-1])
         self.chain_samples.append({

@@ -62,8 +62,26 @@ def test_importing_the_port_loads_no_jax():
         "        'repro_torch.optim.adamw', 'repro_torch.checkpoint.checkpointer',\n"
         "        'repro_torch.data.pipeline', 'repro_torch.distributed.compression',\n"
         "        'repro_torch.distributed.fault_tolerance',\n"
-        "        'repro_torch.launch.train', 'repro_torch.train_lm'}\n"
+        "        'repro_torch.launch.train', 'repro_torch.train_lm',\n"
+        "        'repro_torch.serving.engine', 'repro_torch.launch.serve',\n"
+        "        'repro_torch.data.kv_synth',\n"
+        "        'repro_torch.configs.hashmem_paper'}\n"
         "assert want <= set(mods), want - set(mods)\n"
+        "from repro_torch.launch import mesh\n"
+        "from repro_torch.core import rlu\n"
+        "from repro_torch.serving import engine\n"
+        "from repro_torch.data import kv_synth\n"
+        "from repro_torch.configs import hashmem_paper\n"
+        "need = [(mesh, 'RankMesh'), (mesh, 'make_rank_mesh'),\n"
+        "        (mesh, 'spawn_ranks'), (mesh, 'sub_mesh'),\n"
+        "        (rlu, '_exchange'), (rlu, '_send_back'),\n"
+        "        (engine, '_RankShards'), (kv_synth, 'churn_workload'),\n"
+        "        (kv_synth, 'zipfian_workload'),\n"
+        "        (kv_synth, 'dictionary_words'),\n"
+        "        (hashmem_paper, 'WORKLOAD'),\n"
+        "        (hashmem_paper, 'DDR4_TIMING')]\n"
+        "missing = [n for m, n in need if not hasattr(m, n)]\n"
+        "assert not missing, missing\n"
         "print(len(mods))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

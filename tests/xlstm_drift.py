@@ -4,7 +4,7 @@ numbers the xLSTM tolerances of ``tests/test_torch_train.py`` and
 ``chip_smoke.py`` phase 13 rest on.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/xlstm_drift.py \\
-        [--layers 8 16] [--train]
+        [--layers 8 16] [--train] [--leaves]
 
   * ``--layers``: the largest |logit| difference of ``decode_step`` (the
     exact recurrence) against ``forward`` (the chunked mLSTM) over 2 x 64
@@ -17,7 +17,13 @@ numbers the xLSTM tolerances of ``tests/test_torch_train.py`` and
     largest magnitude) and 8 steps of ``train`` from one JAX checkpoint
     (relative loss differences); and ``chip_smoke.py``'s 4-step small
     training, the port against JAX (relative loss and grad-norm
-    differences by step).
+    differences by step);
+  * ``--leaves``: one step's gradients leaf by leaf at 1 and 2 units of
+    ``smoke_config`` (2 and 4 layers; a unit is an mLSTM and an sLSTM
+    layer): for each leaf the largest difference over the leaf's largest
+    magnitude, port against JAX beside JAX against itself at chunk 64
+    instead of 16.  Rounding grows with depth alike in both columns; a
+    fault shows as one leaf far above JAX's own spread at one unit.
 """
 import argparse
 import shutil
@@ -83,6 +89,62 @@ def jax_drift(L, tokens):
     full = jax.jit(lambda p: jmodel.logits_fn(p, cfg, jmodel.forward(
         p, cfg, {"tokens": jnp.asarray(tokens)})[0]))(p)
     return float(np.abs(np.stack(dec, 1) - np.asarray(full)).max())
+
+
+def _one_step_grads(layers):
+    """{name: {leaf: gradient}} of one step at ``smoke_config`` cut to
+    ``layers``, on tests/test_torch_train.py's batch: JAX at chunks 16 and
+    64, the port at chunk 16."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models.layers import flatten_tree
+    base = j_smoke_config("xlstm-1.3b").replace(dtype="float32",
+                                                 num_layers=layers)
+    cfg = configs.smoke_config("xlstm-1.3b").replace(dtype="float32",
+                                                      num_layers=layers)
+    p = jmodel.init_params(base, jax.random.PRNGKey(0))
+    b = SyntheticLMData(cfg, configs.ShapeConfig("t", 64, 4, "train")) \
+        .batch_at(0)
+    b["labels"][0, :10] = -100
+    b["labels"][2, -5:] = -100
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+
+    def jgrads(chunk):
+        c = base.replace(mlstm_chunk=chunk)
+        return flatten_tree(jax.tree.map(np.asarray, jax.jit(jax.grad(
+            lambda q: jmodel.loss_fn(q, c, jb)[0]))(p)))
+
+    tp = model.params_from_numpy(cfg, jax.tree.map(np.asarray, p), "cpu")
+    names, ts = zip(*tp.named_parameters())
+    g = torch.autograd.grad(model.loss_fn(tp, cfg, tb)[0], ts)
+    stacked = {}
+    for n, t in zip(names, g):
+        stacked.setdefault(model._jax_path(n)[0], []).append(t.numpy())
+    port = {k: np.stack(v) if k.startswith("stacks") else v[0]
+            for k, v in stacked.items()}
+    return {"jax16": jgrads(16), "jax64": jgrads(64), "port16": port}
+
+
+def leaf_spread(units=(1, 2)):
+    """Print one step's gradient spread leaf by leaf at each depth."""
+    rows = {}
+    for u in units:
+        g = _one_step_grads(2 * u)
+        for k in g["jax16"]:
+            scale = np.abs(g["jax16"][k]).max()
+            rows.setdefault(k, {})[u] = tuple(
+                float(np.abs(g[a][k] - g["jax16"][k]).max() / scale)
+                if scale else 0.0 for a in ("port16", "jax64"))
+    print("leaf: port vs JAX, JAX chunk 64 vs 16 -- at "
+          + ", ".join(f"{u} unit(s)" for u in units))
+    for k, r in sorted(rows.items()):
+        print(f"  {k}: " + "; ".join(f"{r[u][0]:.2e}, {r[u][1]:.2e}"
+                                     for u in units))
+    for u in units:
+        port = max(r[u][0] for r in rows.values())
+        own = max(r[u][1] for r in rows.values())
+        print(f"{u} unit(s): worst leaf port vs JAX {port:.2e}, JAX's own "
+              f"rechunking {own:.2e}, ratio {port / own:.2f}")
 
 
 def train_sensitivity():
@@ -196,6 +258,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, nargs="*", default=[8, 16])
     ap.add_argument("--train", action="store_true")
+    ap.add_argument("--leaves", action="store_true")
     args = ap.parse_args(argv)
     torch.set_num_threads(4)
     tokens = np.random.default_rng(1).integers(
@@ -206,6 +269,8 @@ def main(argv=None):
               f"{jax_drift(L, tokens):.3e}")
     if args.train:
         train_sensitivity()
+    if args.leaves:
+        leaf_spread()
 
 
 if __name__ == "__main__":
