@@ -53,7 +53,7 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      schedule against plain and its bound;
   8. serves YCSB A-F from six tenants at paper scale: 16M pairs each (96M
      in all) preloaded into one PAPER_HASHMEM ``perf`` table through
-     ``engine.preload``, 2048 requests of 4 ops per tenant through 4096
+     ``engine.preload``, 1024 requests of 4 ops per tenant through 4096
      slots at pipeline depth 1 and, on a fresh engine, depth 2 (equal
      results and schedules), every result checked against the DictModel
      replay (``tests/model.py``), the trace checked by
@@ -82,12 +82,14 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      widths and depth (random init from a seed, drawn on the card): decode
      against ``forward`` at every position of 2 x 64 tokens in float32 with
      TF32 off, the block table probed through ``probe_perf``; then the
-     served run at the config's dtypes (batch 16, horizon 4096, 48 requests
+     served run at the config's dtypes (batch 16, horizon 4096, 32 requests
      of 8 + 32 tokens), once checked (every admission's probed table against
      the allocator, ``probe_perf`` against plain on the table's keys), once
      timed (tokens/s, step ms against its byte bound, page-table host ms,
      ``probe_perf`` launches a step, peak memory) and once profiled (device
-     idle share), all under ``torch.no_grad()``;
+     idle share), all under ``torch.no_grad()``; for phase 15 it keeps the
+     float32 logits of 16 teacher-forced steps and a one-wave serve's
+     tokens and top logits a step under ``build/decode_ranks``;
  11. trains and checkpoints (``launch/train.py`` ``train``,
      ``checkpoint/checkpointer.py``): (a) llama3-8b, qwen3-8b and
      h2o-danube-1.8b at ``smoke_config`` in float32 with TF32 off, 4 train
@@ -99,11 +101,11 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      table (100M pairs) saved by the ``Checkpointer`` and restored to the
      card, its leaves equal and the 10M paper probes through ``probe_perf``
      equal before and after (save and restore seconds and GB/s); (d)
-     h2o-danube-1.8b at its published widths and depth (random init on the
-     card, params float32, activations bfloat16, AdamW float32, remat) for 8
-     steps at batch 4 x 4096 with a checkpoint at step 6, and a second run
-     resumed from it whose steps 6-7 and final checkpoint equal the first
-     run's bit for bit: losses, ms a step, tokens/s, FLOP share of the bf16
+     h2o-danube-1.8b at its published widths, 8 of 24 layers (random init
+     on the card, params float32, activations bfloat16, AdamW float32,
+     remat) for 6 steps at batch 4 x 4096 with a checkpoint at step 4, and
+     a second run resumed from it whose steps 4-5 and final checkpoint
+     equal the first run's bit for bit: losses, ms a step, tokens/s, FLOP share of the bf16
      peak, peak memory, checkpoint seconds, and the device idle share over
      a profiled step;
  12. runs the moe and hybrid families: (a) ``moe.apply`` of olmoe-1b-7b,
@@ -136,7 +138,7 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      served at batch 16, horizon 4096 (checked, timed against a bound of
      the weights and the mLSTM states, profiled), and trained at batch 4 x
      1024 through ``launch.train.train`` with the sLSTM's host time
-     metered and one profiled step at 4 x 64 (the sLSTM's device time by
+     metered and one profiled step at 4 x 16 (the sLSTM's device time by
      range); (c) whisper-tiny at its published widths: decode against
      ``decode_train`` over 1500 stub frames, then training at batch 16 x
      (4096 frames, 512 decoder tokens) with ``final_norm/bias`` and its
@@ -157,7 +159,26 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      (fused tick, depth 1), equal to phase 8 and the DictModel, reporting
      ops/s and the host ms in ``rlu.exchange`` a tick; the ``kernels``
      line adds every rank's launches of phase 14;
- 15. prints the device line last.
+ 15. decodes over ("data", "model") meshes of 4 rank processes
+     (``launch/mesh.py`` ``make_model_mesh``; gloo with every rank on the
+     one card, as phase 14): (a) the four dense archs at ``smoke_config``
+     widths, 2 layers, in float32 on (1, 4) and (2, 2), and qwen3 with 2
+     KV heads (``wk``/``wv`` replicated) on (1, 4), against one card from
+     the same draw: every rank's shard equals the slice of the one-card
+     draw (sha256), 8 teacher-forced steps' logits and the KV pools within
+     5e-4 (keys on the same pages), the tokens of a two-wave serve equal to
+     one card's with the mesh's geometry, every rank's page table equal;
+     (b) Qwen3-8B at its published widths on (1, 4), each rank drawing its
+     shard with ``init_params_sharded``: the float32 logits of 16
+     teacher-forced steps within 5e-4 of phase 10's, then 16 requests
+     served at batch 16, horizon 4096 (ms a step, tokens/s, collectives a
+     step, their bytes and host ms by rank, ``probe_perf`` launches by
+     rank, peak a rank), the tokens against phase 10's one-card run of the
+     same settings (where they differ, the one-card margin at the first
+     divergence must be within the bfloat16 rounding bound ``TopLogits``
+     states); (c) with four cards, (b) again over NCCL, a card a rank; the
+     ``kernels`` line adds every rank's launches;
+ 16. prints the device line last.
 
 Any failed check raises and the script exits non-zero.  Without a card, or
 without the rest of the repo beside it, it exits non-zero and prints no
@@ -1017,7 +1038,7 @@ def displaced_path(hashmap, k, ref, data, smi):
 
 SERVE_WORKLOADS = "ABCDEF"       # one tenant per YCSB core workload
 SERVE_RECORDS = 16_000_000       # per tenant: 96M preloaded pairs in all
-SERVE_REQUESTS = 2048            # per tenant, 4 ops each: 49,152 ops
+SERVE_REQUESTS = 1024            # per tenant, 4 ops each: 24,576 ops
 SERVE_SLOTS = 4096
 SERVE_BASELINE_REQUESTS = 64     # per tenant, through coalesce=False
 SERVE_PROFILE = (4, 12)          # the profiled ticks [start, stop)
@@ -1786,11 +1807,20 @@ DECODE_ARCH = "qwen3-8b"         # published widths and depth, random init
 DECODE_TF = (2, 64, 16)          # teacher-forced: sequences, tokens, page
 # SHAPES["decode_32k"] (batch 128, horizon 32768) cut to one card: batch
 # 16, horizon 4096 (KV 19.3 GB in float32 beside 32.8 GB of weights)
-DECODE_SERVE = dict(batch=16, horizon=4096, page_tokens=32, requests=48,
+# two waves (pages recycle); the profiled serve 5 steps (with 15, phase 10
+# took 101 s, ≈ 50 s of it after the timed serve: the trace is read slowly)
+DECODE_SERVE = dict(batch=16, horizon=4096, page_tokens=32, requests=32,
                     prompt_len=8, max_new=32, backend="perf")
-DECODE_CHECKED = dict(DECODE_SERVE, requests=32)   # two waves: pages recycle
-DECODE_PROFILE = dict(DECODE_SERVE, requests=16, max_new=8)
+DECODE_CHECKED = DECODE_SERVE
+DECODE_PROFILE = dict(DECODE_SERVE, requests=16, prompt_len=4, max_new=2)
 BF16_RATE = 989e12               # dense bf16 tensor-core rate (data sheet)
+# phase 15 against phase 10: the float32 teacher-forced logits of the first
+# 16 steps of DECODE_TF, and a one-wave serve whose top logits are kept
+DECODE_RANK_DATA = ROOT / "build" / "decode_ranks"
+DECODE_RANK_TF = 16
+DECODE_RANK_SERVE = dict(DECODE_SERVE, requests=16, max_new=16)
+TOP_LOGITS = 8
+BF16_U = 2.0 ** -8               # bfloat16 unit roundoff: 8 significant bits
 
 
 def teacher_forced(model, params, cfg, tokens, bt, ctx, enc_frames=None):
@@ -1958,6 +1988,9 @@ def check_decode_matches_forward(smi):
     check(bool(torch.isfinite(dec).all()), "decode logits not finite")
     check(bool(ok.all()), f"decode != forward at {int((~ok).sum())} logits, "
           f"max |diff| {float(err.max())}")
+    DECODE_RANK_DATA.mkdir(parents=True, exist_ok=True)
+    np.save(DECODE_RANK_DATA / "tf_logits.npy",
+            dec[:DECODE_RANK_TF].cpu().numpy())
     print(f"decode_vs_forward {DECODE_ARCH}: {cfg.num_layers} layers, "
           f"d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
           f"head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
@@ -2000,10 +2033,10 @@ class DecodeTimer:
         def build_serve_step(*a, **kw):
             step, ctx = timer._build(*a, **kw)
 
-            def timed(params, states, tokens, pos, bt):
+            def timed(params, states, tokens, pos, bt, **kw):
                 t0 = time.perf_counter()
                 timer.t_first = timer.t_first or t0
-                out = step(params, states, tokens, pos, bt)
+                out = step(params, states, tokens, pos, bt, **kw)
                 if timer.check_tables:
                     check(bool(torch.isfinite(out[1]).all()),
                           "decode logits not finite")
@@ -2138,9 +2171,61 @@ def decode_bound(cfg, kw):
     return bound_ms, w_bytes, kv_bytes, state_bytes
 
 
+class TopLogits:
+    """Patch ``model.logits_fn`` for the length of a ``with`` block to keep,
+    every call, each row's ``TOP_LOGITS`` largest logits (values, indices)
+    and, for each of those tokens v, S_v = sum_i |h_i W_v,i|, h the final
+    hidden state as ``logits_fn`` rounds it: a bfloat16 rounding of h
+    (relative error up to ``BF16_U`` an element) moves logit v by at most
+    ``BF16_U * S_v``."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import model
+        from repro_torch.models.layers import rms_norm
+        self._orig = orig = model.logits_fn
+        self.steps = []
+
+        def logits_fn(params, cfg, x):
+            lg = orig(params, cfg, x)
+            h = rms_norm(x[:, -1], params.final_norm.scale, cfg.norm_eps)
+            top = lg[:, -1].topk(TOP_LOGITS, dim=-1)
+            w = model._head(params, cfg)[top.indices].float().abs()
+            s_v = (h.float().abs()[:, None, :] * w).sum(-1)
+            self.steps.append(torch.stack(
+                [top.values, top.indices.float(), s_v]).cpu())
+            return lg
+        model.logits_fn = logits_fn
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import model
+        model.logits_fn = self._orig
+
+
+def rank_reference_serve(serve, k, cfg):
+    """The one-card serve that phase 15 holds the ranks' tokens against:
+    ``DECODE_RANK_SERVE`` (one wave: request b in slot b, its output i from
+    step prompt_len - 1 + i), each step's top logits kept
+    (``TopLogits``), saved under ``build/``."""
+    kw = DECODE_RANK_SERVE
+    check(kw["requests"] == kw["batch"], "the reference serve is one wave")
+    with TopLogits() as top:
+        done, mgr, steps, timer, _, wall, _, _ = served_run(serve, k, **kw)
+    check_served(cfg, done, mgr, kw, "reference serve")
+    outs = np.asarray([r["out"] for r in sorted(done,
+                                                key=lambda r: r["id"])])
+    np.savez(DECODE_RANK_DATA / "serve_ref.npz", outs=outs,
+             top=np.stack([t.numpy() for t in top.steps]),
+             step_ms=np.asarray(timer.step_ms))
+    print(f"decode_rank_reference: {kw['requests']} requests of prompt "
+          f"{kw['prompt_len']} + {kw['max_new']} new in {steps} steps on one "
+          f"card, median {float(np.median(timer.step_ms)):.3f} ms a step; "
+          f"the top {TOP_LOGITS} logits of every step kept for phase 15")
+
+
 def decode_path(k, ref, smi):
     """Phase 10: LM decode serving over the HashMem page table."""
-    import torch
     from repro_torch import configs
     from repro_torch.launch import serve
     t0 = time.perf_counter()
@@ -2191,6 +2276,8 @@ def decode_path(k, ref, smi):
           f"compactions {mgr.compact_events}; peak {peak:.2f} GiB; "
           f"card: {smi}")
 
+    rank_reference_serve(serve, k, cfg)
+
     done, mgr, psteps, _, _, pwall, _, prof = served_run(
         serve, k, profile=True, **DECODE_PROFILE)
     check_served(cfg, done, mgr, DECODE_PROFILE, "profiled serve")
@@ -2224,9 +2311,12 @@ TRAIN_OC = dict(lr=1e-3, warmup_steps=2, total_steps=16)
 TRAIN_TOL = dict(loss=1e-5, params=1e-3, params_fine=1e-5, share=1e-4)
 TRAIN_RESTART = dict(arch="qwen3-8b", seq=64, batch=4, steps=16, every=4,
                      inject=10)
-TRAIN_ARCH = "h2o-danube-1.8b"   # published widths and depth, random init
-# SHAPES["train_4k"] (seq 4096, batch 256) cut to batch 4 for one card
-TRAIN_FULL = dict(seq=4096, batch=4, steps=8, ckpt_at=6, profile_steps=1)
+TRAIN_ARCH = "h2o-danube-1.8b"   # published widths, random init
+# SHAPES["train_4k"] (seq 4096, batch 256) cut to batch 4 for one card, and
+# to 8 of 24 layers and 6 steps: at 24 layers and 8 steps (a 22.0 GB state
+# written three times) (d) took 193 s of the script's 1200
+TRAIN_FULL = dict(seq=4096, batch=4, depth=8, steps=6, ckpt_at=4,
+                  profile_steps=1)
 CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
 
 
@@ -2496,12 +2586,13 @@ def train_flops(cfg, B, S):
 
 
 def train_full_width(smi):
-    """(d) h2o-danube-1.8b at its published widths and depth (random init
-    from seed 0 on the card; params float32, activations bfloat16, AdamW
-    states float32, remat on) trains 8 steps at batch 4 x 4096 through
-    ``launch.train.train`` with a checkpoint at step 6; a second ``train``
-    resumes from it and its steps 6-7 and its final state must equal the
-    first run's bit for bit; then one profiled step."""
+    """(d) h2o-danube-1.8b at its published widths, ``TRAIN_FULL``'s depth
+    (random init from seed 0 on the card; params float32, activations
+    bfloat16, AdamW states float32, remat on) trains ``TRAIN_FULL``'s steps
+    at batch 4 x 4096 through ``launch.train.train`` with a checkpoint at
+    ``ckpt_at``; a second ``train`` resumes from it and its last steps and
+    its final state must equal the first run's bit for bit; then one
+    profiled step."""
     import json
     import os
     import shutil
@@ -2513,7 +2604,7 @@ def train_full_width(smi):
     from repro_torch.distributed import steps
     from repro_torch.launch.train import train
     f = TRAIN_FULL
-    cfg = configs.get_config(TRAIN_ARCH)
+    cfg = configs.get_config(TRAIN_ARCH).replace(num_layers=f["depth"])
     B, S = f["batch"], f["seq"]
     shape = configs.ShapeConfig("train_4k_cut", S, B, "train")
     # the CLI's schedule for an 8-step run (warmup steps // 5 + 1)
@@ -2528,7 +2619,8 @@ def train_full_width(smi):
     free = shutil.disk_usage(CKPT_ROOT).free
     mem = {ln.split(":")[0]: int(ln.split()[1]) * 1024 for ln in
            Path("/proc/meminfo").read_text().splitlines()}
-    print(f"train_full: {TRAIN_ARCH} {cfg.num_layers} layers, d_model "
+    print(f"train_full: {TRAIN_ARCH} {cfg.num_layers} of "
+          f"{configs.get_config(TRAIN_ARCH).num_layers} layers, d_model "
           f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} of "
           f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
           f"{cfg.padded_vocab}), window {cfg.sliding_window}; {n_params} "
@@ -2675,10 +2767,10 @@ HYBRID_SERVE = dict(batch=16, horizon=4096, page_tokens=32, requests=32,
 MOE_ARCH = "olmoe-1b-7b"         # published widths and depth, random init
 # SHAPES["decode_32k"] (batch 128, horizon 32768) cut to one card as phase
 # 10 cuts it: batch 16, horizon 4096 (KV 17.2 GB beside 27.7 GB of weights)
-MOE_SERVE = dict(batch=16, horizon=4096, page_tokens=32, requests=48,
+MOE_SERVE = dict(batch=16, horizon=4096, page_tokens=32, requests=32,
                  prompt_len=8, max_new=32, backend="perf")
-MOE_CHECKED = dict(MOE_SERVE, requests=32)
-MOE_PROFILE = dict(MOE_SERVE, requests=16, max_new=8)
+MOE_CHECKED = MOE_SERVE
+MOE_PROFILE = dict(MOE_SERVE, requests=16, prompt_len=4, max_new=2)
 # SHAPES["train_4k"] cut to batch 4 and 6 of 16 layers (2.72B params: 43.6
 # GB of params, grads and moments; 4 layers peaked at 47.56 GiB, and each
 # 2 more add 13.4 GB, so 8 would pass 72 GiB; 16 would need 111 GB)
@@ -2975,7 +3067,6 @@ def moe_train_full_width(smi):
     step function's metrics; then the drops of one forward of the trained
     model on the run's data against uniform tokens, and one profiled
     step."""
-    import shutil
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -2991,21 +3082,13 @@ def moe_train_full_width(smi):
     oc = configs.OptimConfig(lr=3e-4, warmup_steps=f["steps"] // 5 + 1,
                              total_steps=f["steps"])
     mm, attn, n_params, n_active = train_flops(cfg, B, S)
-    ckpt = CKPT_ROOT / "moe"
-    shutil.rmtree(ckpt, ignore_errors=True)
-    ckpt.mkdir(parents=True)
-    check(shutil.disk_usage(ckpt).free > 1.1 * n_params * 12,
-          "too little disk for the final checkpoint")
     keys = ("loss", "ce_loss", "moe_aux", "moe_z", "moe_dropped")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    try:
-        with StepMetrics(keys) as sm:
-            params, opt, losses, mon, _ = train(
-                cfg, shape, oc, num_steps=f["steps"], ckpt_dir=str(ckpt),
-                ckpt_every=0, verbose=False, device="cuda")
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+    with StepMetrics(keys) as sm:
+        params, opt, losses, mon, _ = train(
+            cfg, shape, oc, num_steps=f["steps"], ckpt_dir=None,
+            verbose=False, device="cuda")
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     rec = sm.read(losses)
@@ -3066,7 +3149,7 @@ def moe_train_full_width(smi):
           f"{attn / 1e12:.2f} causal attention) = "
           f"{flops / (med / 1e3) / 1e12:.1f} TFLOP/s, {share * 100:.2f}% of "
           f"the {BF16_RATE / 1e12:.0f} TFLOP/s bf16 dense peak; peak memory "
-          f"{peak:.2f} GiB; run with its final checkpoint {run_s:.1f} s; "
+          f"{peak:.2f} GiB; run (no checkpoint) {run_s:.1f} s; "
           f"card: {smi}")
     for k in keys:
         print(f"moe_train {k} by step: {[round(v, 6) for v in rec[k]]}")
@@ -3140,15 +3223,16 @@ XLSTM_TF = (2, 64, 16)           # teacher-forced: sequences, tokens, page
 # SHAPES["decode_32k"] (batch 128, horizon 32768) cut to one card as phase
 # 10 cuts it: batch 16, horizon 4096 (the mLSTM states 2.82 GB beside 5.97
 # GB of weights; xlstm holds no KV, but the page table still maps it)
-XLSTM_SERVE = dict(batch=16, horizon=4096, page_tokens=32, requests=48,
+XLSTM_SERVE = dict(batch=16, horizon=4096, page_tokens=32, requests=32,
                    prompt_len=8, max_new=32, backend="perf")
-XLSTM_CHECKED = dict(XLSTM_SERVE, requests=32)
-XLSTM_PROFILE = dict(XLSTM_SERVE, requests=16, max_new=8)
+XLSTM_CHECKED = XLSTM_SERVE
+XLSTM_PROFILE = dict(XLSTM_SERVE, requests=16, prompt_len=4, max_new=2)
 # SHAPES["train_4k"] (batch 256) cut to batch 4 as phase 11, and to 1024
 # tokens: at 4096 a step took 83 s (the sLSTM's serial loop, 69% of it),
-# past the 30 s a step this phase affords; the profiled step at 64
-# tokens: a trace of a step at 256 took ~170 s to read
-XLSTM_TRAIN = dict(seq=1024, batch=4, steps=3, profile_seq=64)
+# past the 30 s a step this phase affords; 2 steps (3 took 62 s); the
+# profiled step at 16 tokens: reading the trace of a step took ~170 s at
+# 256 tokens, and at 64 (b)'s training took 111.6 s with 50.6 s of steps
+XLSTM_TRAIN = dict(seq=1024, batch=4, steps=2, profile_seq=16)
 WHISPER_ARCH = "whisper-tiny"    # published widths and depth, random init
 WHISPER_TF = (2, 64, 16, 1500)   # sequences, decoder tokens, page, frames
 # SHAPES["train_4k"]: 4096 frames and 512 decoder tokens, cut from batch
@@ -3540,10 +3624,9 @@ def xlstm_train_full_width(smi):
     card; params float32, activations bfloat16, AdamW float32, remat per
     unit of 8 layers) trains at batch 4 x 1024 through
     ``launch.train.train``, the sLSTM's host time metered; then one step at
-    batch 4 x 64 under torch.profiler: busy and idle, kernel groups, and
+    batch 4 x 16 under torch.profiler: busy and idle, kernel groups, and
     the device time of the sLSTM's kernels (its forward passes and its
     backward, by range)."""
-    import shutil
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -3561,20 +3644,12 @@ def xlstm_train_full_width(smi):
     mm, mix, n_params, _ = train_flops(cfg, B, S)
     n_slstm = sum(transformer.layer_kind(cfg, i) == "slstm"
                   for i in range(cfg.num_layers))
-    ckpt = CKPT_ROOT / "xlstm"
-    shutil.rmtree(ckpt, ignore_errors=True)
-    ckpt.mkdir(parents=True)
-    check(shutil.disk_usage(ckpt).free > 1.1 * n_params * 12,
-          "too little disk for the final checkpoint")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    try:
-        with SlstmMeter() as sm:
-            params, opt, losses, mon, _ = train(
-                cfg, shape, oc, num_steps=f["steps"], ckpt_dir=str(ckpt),
-                ckpt_every=0, verbose=False, device="cuda")
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+    with SlstmMeter() as sm:
+        params, opt, losses, mon, _ = train(
+            cfg, shape, oc, num_steps=f["steps"], ckpt_dir=None,
+            verbose=False, device="cuda")
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     ls = [losses[s] for s in sorted(losses)]
@@ -3631,7 +3706,7 @@ def xlstm_train_full_width(smi):
           f"dense peak; the sLSTM layers' host time (both forward passes "
           f"and the backward) {slstm_s:.1f} s of {sum(mon.times):.1f} s = "
           f"{host_share * 100:.1f}% of the steps; peak memory {peak:.2f} GiB;"
-          f" run with its final checkpoint {run_s:.1f} s; card: {smi}")
+          f" run (no checkpoint) {run_s:.1f} s; card: {smi}")
     print(f"xlstm_train_profile: 1 step at batch {B} x {Sp} under "
           f"torch.profiler, wall {pwall * 1e3:.1f} ms, device busy "
           f"{busy:.1f} ms, idle {idle * 100:.1f}%; the sLSTM's kernels "
@@ -3657,7 +3732,6 @@ def whisper_path(smi):
     batch 16 x (4096 frames, 512 decoder tokens) through
     ``launch.train.train``, whose ``final_norm/bias`` (the loss reads only
     the scale) and its moments must stay exactly zero, as in JAX."""
-    import shutil
     import torch
     from repro_torch import configs
     from repro_torch.core.paged_kv import PageTableManager
@@ -3704,15 +3778,10 @@ def whisper_path(smi):
     oc = configs.OptimConfig(lr=3e-4, warmup_steps=f["steps"] // 5 + 1,
                              total_steps=f["steps"])
     mm, attn, n_params, _ = train_flops(cfg, Bt, St)
-    ckpt = CKPT_ROOT / "whisper"
-    shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
-    try:
-        params, opt, losses, mon, _ = train(
-            cfg, shape, oc, num_steps=f["steps"], ckpt_dir=str(ckpt),
-            ckpt_every=0, verbose=False, device="cuda")
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+    params, opt, losses, mon, _ = train(
+        cfg, shape, oc, num_steps=f["steps"], ckpt_dir=None, verbose=False,
+        device="cuda")
     peak = torch.cuda.max_memory_allocated() / 2**30
     ls = [losses[s] for s in sorted(losses)]
     check(all(np.isfinite(ls)) and ls[-1] < ls[0],
@@ -3747,7 +3816,6 @@ def vlm_train_full_width(smi):
     the card; params float32, activations bfloat16, AdamW float32, remat a
     layer) trains 4 steps at batch 4 x (256 patch embeddings + 3840
     tokens), labels -100 on the prefix, through ``launch.train.train``."""
-    import shutil
     import torch
     from repro_torch import configs
     from repro_torch.launch.train import train
@@ -3758,19 +3826,11 @@ def vlm_train_full_width(smi):
     oc = configs.OptimConfig(lr=3e-4, warmup_steps=f["steps"] // 5 + 1,
                              total_steps=f["steps"])
     mm, attn, n_params, _ = train_flops(cfg, B, S)
-    ckpt = CKPT_ROOT / "vlm"
-    shutil.rmtree(ckpt, ignore_errors=True)
-    ckpt.mkdir(parents=True)
-    check(shutil.disk_usage(ckpt).free > 1.1 * n_params * 12,
-          "too little disk for the final checkpoint")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    try:
-        params, opt, losses, mon, _ = train(
-            cfg, shape, oc, num_steps=f["steps"], ckpt_dir=str(ckpt),
-            ckpt_every=0, verbose=False, device="cuda")
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+    params, opt, losses, mon, _ = train(
+        cfg, shape, oc, num_steps=f["steps"], ckpt_dir=None, verbose=False,
+        device="cuda")
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     del params, opt
@@ -3797,7 +3857,7 @@ def vlm_train_full_width(smi):
           f"({mm / 1e12:.2f} matmul + {attn / 1e12:.2f} causal attention) = "
           f"{flops / (med / 1e3) / 1e12:.1f} TFLOP/s, {share * 100:.2f}% of "
           f"the {BF16_RATE / 1e12:.0f} TFLOP/s bf16 dense peak; peak memory "
-          f"{peak:.2f} GiB; run with its final checkpoint {run_s:.1f} s; "
+          f"{peak:.2f} GiB; run (no checkpoint) {run_s:.1f} s; "
           f"card: {smi}")
     return dict(median_ms=med, share=share, peak=peak)
 
@@ -4158,6 +4218,450 @@ def ranks_path(smi, host_results, small_cpu, one_cpu, digests):
                                 for p in papers) for n in KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# Decode over a (data, model) mesh of ranks
+# ---------------------------------------------------------------------------
+
+DECODE_MESHES = {"1x4": {"data": 1, "model": 4}, "2x2": {"data": 2, "model": 2}}
+# (a) cut from DECODE_SMALL and DECODE_SMALL_SERVE for time (a collective
+# of four ranks sharing the card over gloo takes 3-8 ms,
+# tools/collective_bench.py): 8 teacher-forced steps on 2-token pages (a
+# sequence's 4 pages on 4 channels), and two waves of a serve whose second
+# leaves two slots idle on stale block tables
+DECODE_RANK_SMALL = (2, 8, 2)
+DECODE_RANK_SMALL_SERVE = dict(DECODE_SMALL_SERVE, requests=6, max_new=4,
+                               horizon=8)
+DECODE_RANK_MESH = "1x4"         # (b): Qwen3-8B's heads, KV heads, d_ff and
+                                 # vocab split four ways
+
+
+def small_rank_cases() -> list:
+    """(a): [(name, arch, mesh, config overrides)]: the four dense archs at
+    smoke widths (``small_config``) on both meshes, and qwen3 with 2 KV
+    heads on (1, 4), whose ``wk``/``wv`` the rules replicate."""
+    cases = [(f"{arch}@{m}", arch, m, {}) for arch in DECODE_ARCHS
+             for m in DECODE_MESHES]
+    return cases + [("qwen3-8b-kv2@1x4", "qwen3-8b", "1x4",
+                     {"num_kv_heads": 2})]
+
+
+def small_config(arch, over):
+    """(a)'s config: the arch's smoke widths in float32, at 2 of its 4
+    layers (every layer costs five collectives a step)."""
+    from repro_torch import configs
+    return configs.smoke_config(arch).replace(dtype="float32", num_layers=2,
+                                              **over)
+
+
+def digest(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def small_rank_references() -> dict:
+    """(a) on one card, for each case: the sha256 of every rank's block of
+    ``init_params(cfg, 0, "cuda")``, the teacher-forced logits (S, B, V)
+    and KV pools of ``DECODE_RANK_SMALL`` on a one-card block table, and
+    the outputs of ``serve()`` at ``DECODE_RANK_SMALL_SERVE`` on one card
+    with the
+    mesh's geometry and arenas (its idle slots append through stale block
+    tables into recycled pages, as JAX's do: the same pages as the
+    ranks')."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import ModelMesh, mesh_coords
+    from repro_torch.models import model
+    B, S, pt = DECODE_RANK_SMALL
+    out = {}
+    for name, arch, mname, over in small_rank_cases():
+        cfg = small_config(arch, over)
+        params = model.init_params(cfg, 0, "cuda")
+        shape = DECODE_MESHES[mname]
+        axes = model.leaf_axes(params)
+        digests = []
+        for r in range(RANKS):
+            mesh = ModelMesh(shape, r, mesh_coords(shape, r),
+                             torch.device("cuda"), "", {})
+            digests.append({n: digest(sharding.local_block(
+                p, sharding.spec_for(shape, axes[n], p.shape), mesh))
+                for n, p in params.named_parameters()})
+        rng = np.random.default_rng(len(name))
+        tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+        ctx = decode_ctx(model, configs, cfg, B, S, pt)
+        bt = np.arange(B * ctx.n_pages, dtype=np.int32).reshape(B, -1)
+        lg, states = teacher_forced(model, params, cfg, tokens, bt, ctx)
+        done, _, steps = serve.serve(cfg, mesh=shape, seed=0, verbose=False,
+                                     device="cuda", **DECODE_RANK_SMALL_SERVE)
+        out[name] = dict(
+            digests=digests, tokens=tokens, bt=bt, logits=lg.cpu().numpy(),
+            pools=[(s["k_pool"].cpu().numpy(), s["v_pool"].cpu().numpy())
+                   for s in states],
+            outs={r["id"]: r["out"] for r in done}, steps=steps)
+        del params, states, lg
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_small_decode(meshes, refs):
+    """(a) on one rank: each case's ``init_params_sharded`` digests, its
+    teacher-forced logits rows and pool slices through the serve step on a
+    grouped block table from the rank's ``PageTableManager``, and a
+    ``serve()`` over the mesh."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import hashmap
+    from repro_torch.core.paged_kv import PageTableManager
+    from repro_torch.distributed import steps
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    B, S, pt = DECODE_RANK_SMALL
+    out = {}
+    for name, arch, mname, over in small_rank_cases():
+        mesh = meshes[mname]
+        cfg = small_config(arch, over)
+        params = model.init_params_sharded(cfg, 0, mesh)
+        scfg = configs.ServeConfig(model=cfg, shape=configs.ShapeConfig(
+            "t", S, B, "decode"), kv_page_tokens=pt)
+        step, ctx = steps.build_serve_step(cfg, scfg, mesh=mesh)
+        groups = mesh.size(ctx.batch_axes)
+        mgr = PageTableManager(ctx.pool_pages,
+                               num_channels=mesh.size(ctx.channel_axes),
+                               num_groups=groups, backend="perf",
+                               device=mesh.device)
+        phys = mgr.alloc_seqs([(b, ctx.n_pages, b // (B // groups))
+                               for b in range(B)])
+        bt = np.stack([phys[b] for b in range(B)])
+        rows = ctx.local_batch(B)
+        states = model.init_decode_states(params, cfg, rows.stop - rows.start,
+                                          ctx, kv_dtype=torch.float32)
+        tok = torch.from_numpy(refs[name]["tokens"][rows]).to(mesh.device)
+        bt_d = torch.from_numpy(bt[rows]).to(mesh.device)
+        lg = []
+        for i in range(S):
+            pos = torch.full((rows.stop - rows.start,), i, dtype=torch.int32,
+                             device=mesh.device)
+            _, logits, states = step(params, states, tok[:, i:i + 1], pos,
+                                     bt_d)
+            lg.append(logits[:, 0].cpu())
+        done, smgr, n_steps = serve.serve(
+            cfg, mesh=mesh, seed=0, verbose=False, **DECODE_RANK_SMALL_SERVE)
+        out[name] = dict(
+            digests={n: digest(p) for n, p in params.named_parameters()},
+            rows=(rows.start, rows.stop), bt=bt,
+            flat=mesh.index(ctx.batch_axes + ctx.channel_axes),
+            logits=torch.stack(lg).numpy(),
+            pools=[(s["k_pool"].cpu().numpy(), s["v_pool"].cpu().numpy())
+                   for s in states],
+            outs={r["id"]: r["out"] for r in done}, steps=n_steps,
+            table=(table_digests(hashmap, smgr.hm),
+                   [list(a) for a in smgr.free]))
+        del params, states
+    torch.cuda.empty_cache()
+    return out
+
+
+def table_digests(hashmap, hm) -> dict:
+    """{leaf: sha256} of a table (its block tables, every entry)."""
+    import hashlib
+    return {n: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+            for n, a in hashmap.to_numpy(hm).items()}
+
+
+def rank_paper_decode(mesh, k):
+    """(b) on one rank: Qwen3-8B at its published widths, this rank's block
+    drawn by ``init_params_sharded``; float32 teacher-forced logits of the
+    first ``DECODE_RANK_TF`` steps of ``DECODE_TF`` against phase 10's;
+    then ``DECODE_RANK_SERVE`` served and timed (``DecodeTimer``), with
+    the collectives, launches and peak memory of the serve."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import hashmap
+    from repro_torch.core.paged_kv import PageTableManager
+    from repro_torch.distributed import steps
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    dev = mesh.device
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmuls are on: float32 decode would not be float32")
+    cfg32 = configs.get_config(DECODE_ARCH).replace(dtype="float32")
+    B, S, pt = DECODE_TF
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(k)
+    params, init_s = host_s(lambda: model.init_params_sharded(cfg32, 0,
+                                                              mesh))
+    n_local = sum(p.numel() for p in params.parameters())
+    scfg = configs.ServeConfig(model=cfg32, shape=configs.ShapeConfig(
+        "t", S, B, "decode"), kv_page_tokens=pt)
+    step, ctx = steps.build_serve_step(cfg32, scfg, mesh=mesh)
+    check(not ctx.batch_axes, "(b) expects every rank on every row")
+    mgr = PageTableManager(ctx.pool_pages,
+                           num_channels=mesh.size(ctx.channel_axes),
+                           backend="perf", device=dev)
+    phys = mgr.alloc_seqs([(b, ctx.n_pages, 0) for b in range(B)])
+    bt = mgr.block_table(list(range(B)), ctx.n_pages)
+    check(all(np.array_equal(bt[b], phys[b]) for b in range(B)),
+          "the probed block table differs from the allocation")
+    tokens = np.random.default_rng(1).integers(
+        0, cfg32.vocab_size, (B, S)).astype(np.int32)
+    want = torch.from_numpy(np.load(DECODE_RANK_DATA / "tf_logits.npy"))
+    states = model.init_decode_states(params, cfg32, B, ctx,
+                                      kv_dtype=torch.float32)
+    tok, bt_d = torch.from_numpy(tokens).to(dev), torch.from_numpy(bt).to(dev)
+
+    def forced():
+        nonlocal states
+        got = []
+        for i in range(DECODE_RANK_TF):
+            pos = torch.full((B,), i, dtype=torch.int32, device=dev)
+            _, lg, states = step(params, states, tok[:, i:i + 1], pos, bt_d)
+            got.append(lg[:, 0].cpu())
+        return torch.stack(got)
+    got, tf_s = host_s(forced)
+    ok = torch.isclose(got, want, rtol=DECODE_TOL, atol=DECODE_TOL)
+    tf = dict(err=float((got - want).abs().max()), bad=int((~ok).sum()),
+              finite=bool(torch.isfinite(got).all()), seconds=tf_s,
+              largest=float(want.abs().max()))
+    tf_launches = read_launches(k)["probe_perf"]
+    del params, states, got
+    torch.cuda.empty_cache()
+
+    cfg = configs.get_config(DECODE_ARCH)
+    reset_launches(k)
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = dict(mesh.collectives)
+    with DecodeTimer() as timer:
+        done, smgr, n_steps = serve.serve(cfg, mesh=mesh, seed=0,
+                                          verbose=False, **DECODE_RANK_SERVE)
+        sync()
+        wall = time.perf_counter() - timer.t_first
+    coll = {key: mesh.collectives[key] - before[key] for key in before}
+    return dict(init_s=init_s, n_local=n_local, tf=tf,
+                tf_launches=tf_launches, outs={r["id"]: r["out"]
+                                               for r in done},
+                steps=n_steps, step_ms=timer.step_ms, wall=wall,
+                table_ms=timer.table_ms, collectives=coll,
+                launches=read_launches(k)["probe_perf"],
+                peak=torch.cuda.max_memory_allocated(dev) / 2**30,
+                live=smgr.live_pages(), table=table_digests(hashmap, smgr.hm))
+
+
+def decode_rank_main(world, refs, parts):
+    """Phase 15 on one rank: (a) and (b), or (b) alone (``parts``)."""
+    from repro_torch.launch.mesh import make_model_mesh
+    t_enter = time.time()
+    k = rank_kernels()
+    meshes = {n: make_model_mesh(world, s) for n, s in DECODE_MESHES.items()}
+    out = dict(device=str(world.device), backend=world.backend,
+               coords={n: m.coords for n, m in meshes.items()})
+    if "small" in parts:
+        reset_launches(k)
+        t0 = time.perf_counter()
+        out["small"] = rank_small_decode(meshes, refs)
+        out["small_s"] = time.perf_counter() - t0
+        out["small_launches"] = read_launches(k)["probe_perf"]
+    if "paper" in parts:
+        t0 = time.perf_counter()
+        out["paper"] = rank_paper_decode(meshes[DECODE_RANK_MESH], k)
+        out["paper_s"] = time.perf_counter() - t0
+    out["span"] = (t_enter, time.time())
+    return out
+
+
+def check_small_ranks(refs, outs):
+    """(a): every rank's digests, logits rows, pools, served tokens and
+    page table against the one-card run and each other."""
+    n = 0
+    for name, arch, mname, _ in small_rank_cases():
+        ref = refs[name]
+        res = [o["small"][name] for o in outs]
+        for r, got in enumerate(res):
+            check(got["digests"] == ref["digests"][r],
+                  f"ranks {name}: rank {r}'s shard differs from the slice of "
+                  f"the one-card draw")
+            a, b = got["rows"]
+            err = float(np.abs(got["logits"] - ref["logits"][:, a:b]).max())
+            check(err <= DECODE_TOL, f"ranks {name}: rank {r}'s logits "
+                  f"{err} from the one-card run's")
+            check(got["outs"] == ref["outs"] and got["steps"] == ref["steps"],
+                  f"ranks {name}: rank {r}'s served tokens differ")
+            check(got["table"] == res[0]["table"]
+                  and np.array_equal(got["bt"], res[0]["bt"]),
+                  f"ranks {name}: rank {r}'s page table differs from rank "
+                  f"0's")
+        check(sorted(g["flat"] for g in res) == list(range(RANKS)),
+              f"ranks {name}: pool slices")
+        order = sorted(range(RANKS), key=lambda r: res[r]["flat"])
+        bt4, bt1 = res[0]["bt"], ref["bt"]
+        kv = 0.0
+        for layer, (k1, v1) in enumerate(ref["pools"]):
+            for which, one in ((0, k1), (1, v1)):
+                whole = np.concatenate([res[r]["pools"][layer][which]
+                                        for r in order])
+                kv = max(kv, float(np.abs(whole[bt4] - one[bt1]).max()))
+                used = np.zeros(len(whole), bool)
+                used[bt4.reshape(-1)] = True
+                check(np.array_equal(whole[bt4].any(axis=(2, 3, 4)),
+                                     one[bt1].any(axis=(2, 3, 4)))
+                      and not whole[~used].any(),
+                      f"ranks {name}: pages with keys differ (layer "
+                      f"{layer})")
+        check(kv <= DECODE_TOL, f"ranks {name}: pools {kv} from one card's")
+        n += 1
+    return n
+
+
+def first_divergence(ref, outs, prompt_len):
+    """[(request, output index, one-card token, ranks' token, one-card
+    margin, bound)] at each request's first differing token: the margin
+    l(a) - l(b) of the one-card logits and the bound BF16_U (S_a + S_b)
+    (``TopLogits``); the ranks' token must be among the one-card top."""
+    out = []
+    for i, one in enumerate(ref["outs"]):
+        got = outs[i]
+        diff = [j for j, (x, y) in enumerate(zip(one, got)) if x != y]
+        if not diff:
+            continue
+        j = diff[0]
+        vals, idx, s_v = ref["top"][prompt_len - 1 + j][:, i]
+        a, b = int(one[j]), int(got[j])
+        check(int(idx[0]) == a, f"request {i}: the kept top logit is not "
+              f"the one-card token")
+        where = np.nonzero(idx.astype(np.int64) == b)[0]
+        check(where.size == 1, f"request {i} output {j}: the ranks' token "
+              f"{b} is not among the one-card top {TOP_LOGITS}")
+        w = int(where[0])
+        out.append((i, j, a, b, float(vals[0] - vals[w]),
+                    float(BF16_U * (s_v[0] + s_v[w]))))
+    return out
+
+
+def check_paper_ranks(outs, label, smi, one_card_ms):
+    """(b): the float32 logits, the served tokens against phase 10's
+    reference, and the timing line."""
+    papers = [o["paper"] for o in outs]
+    for r, p in enumerate(papers):
+        tf = p["tf"]
+        check(p["tf_launches"] > 0 and p["launches"] > 0,
+              f"{label}: rank {r} launched no probe_perf")
+        check(tf["finite"] and tf["bad"] == 0, f"{label}: rank {r}'s float32 "
+              f"logits differ from phase 10's at {tf['bad']} logits, max "
+              f"|diff| {tf['err']}")
+        check(p["outs"] == papers[0]["outs"] and p["table"] ==
+              papers[0]["table"] and p["live"] == 0,
+              f"{label}: rank {r}'s tokens or page table differ from rank "
+              f"0's")
+    ref = np.load(DECODE_RANK_DATA / "serve_ref.npz")
+    kw = DECODE_RANK_SERVE
+    outs0 = papers[0]["outs"]
+    check(sorted(outs0) == list(range(kw["requests"])) and all(
+        len(v) == kw["max_new"] for v in outs0.values()),
+        f"{label}: requests ended short")
+    div = first_divergence(ref, [outs0[i] for i in range(kw["requests"])],
+                           kw["prompt_len"])
+    for i, j, a, b, margin, bound in div:
+        print(f"{label}_divergence: request {i} output {j}: one card {a}, "
+              f"ranks {b}; one-card margin {margin:.6f} against the bf16 "
+              f"rounding bound {bound:.6f}")
+        check(margin <= bound, f"{label}: request {i} diverges at output {j} "
+              f"with a one-card margin {margin} above the bound {bound}")
+    same = sum(int(x == y) for i in range(kw["requests"])
+               for x, y in zip(ref["outs"][i], outs0[i]))
+    st = np.asarray(papers[0]["step_ms"])
+    med = float(np.median(st))
+    steps = papers[0]["steps"]
+    gen = kw["requests"] * kw["max_new"]
+    wall = max(p["wall"] for p in papers)
+    colls = [p["collectives"] for p in papers]
+    tf = papers[0]["tf"]
+    print(f"{label}_tf {DECODE_ARCH}: {DECODE_RANK_TF} teacher-forced steps "
+          f"x {DECODE_TF[0]} sequences in float32 on {DECODE_RANK_MESH}, "
+          f"every rank's logits within {DECODE_TOL} of phase 10's one-card "
+          f"logits: max |diff| "
+          f"{max(p['tf']['err'] for p in papers):.3e} (largest |logit| "
+          f"{tf['largest']:.3f}); {tf['seconds']:.3f} s; "
+          f"{papers[0]['n_local']} params a rank drawn in "
+          f"{max(p['init_s'] for p in papers):.3f} s")
+    print(f"{label}_serve {DECODE_ARCH} (params float32, activations "
+          f"bfloat16, KV float32) over {RANKS} ranks on {DECODE_RANK_MESH}: "
+          f"{kw['requests']} requests of prompt {kw['prompt_len']} + "
+          f"{kw['max_new']} new at batch {kw['batch']}, horizon "
+          f"{kw['horizon']}; {steps} steps, {gen} tokens in {wall:.3f} s = "
+          f"{gen / wall:.1f} tokens/s; step ms median {med:.3f} (min "
+          f"{st.min():.3f}, max {st.max():.3f}); one card (phase 10, same "
+          f"settings) median {one_card_ms:.3f} ms; tokens equal to the "
+          f"one-card run {same}/{gen}, {len(div)} requests diverge, each "
+          f"within the bf16 bound; collectives a step "
+          f"{colls[0]['calls'] / steps:.1f}, {colls[0]['bytes'] / steps / 1e3:.1f} "
+          f"kB sent by rank 0, host ms in them a step by rank "
+          f"{[round(c['seconds'] / steps * 1e3, 3) for c in colls]} "
+          f"({colls[0]['seconds'] / papers[0]['wall'] * 100:.1f}% of rank "
+          f"0's serve); "
+          f"page-table host ms a step {papers[0]['table_ms'] / steps:.3f}; "
+          f"probe_perf launches by rank "
+          f"{[p['tf_launches'] + p['launches'] for p in papers]}; peak a "
+          f"rank {max(p['peak'] for p in papers):.2f} GiB; card: {smi}")
+    return sum(p["tf_launches"] + p["launches"] for p in papers)
+
+
+def decode_ranks_path(smi):
+    """Phase 15: decode over (data, model) meshes of ``RANKS`` rank
+    processes (``spawn_ranks``, as phase 14): (a) the small meshes against
+    one card, (b) Qwen3-8B at its published widths on (1, 4) against phase
+    10; (c) (b) again over NCCL with a card a rank where there are four.
+    Returns the ranks' ``probe_perf`` launches."""
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks
+    t_phase = time.perf_counter()
+    refs = small_rank_references()
+    ref_s = time.perf_counter() - t_phase
+    one_card_ms = float(np.median(np.load(
+        DECODE_RANK_DATA / "serve_ref.npz")["step_ms"]))
+    torch.cuda.empty_cache()
+    print(f"decode_ranks: parent holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB before spawning")
+    t0, w0 = time.perf_counter(), time.time()
+    outs = spawn_ranks(decode_rank_main, RANKS, refs, ("small", "paper"),
+                       backend="gloo", device="cuda:0", timeout=RANK_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    start_s = max(o["span"][0] for o in outs) - w0
+    end_s = time.time() - max(o["span"][1] for o in outs)
+    n = check_small_ranks(refs, outs)
+    small_l = sum(o["small_launches"] for o in outs)
+    print(f"decode_ranks_small: {n} cases (the four dense archs at smoke "
+          f"size on {' and '.join(DECODE_MESHES)}, qwen3 with 2 KV heads on "
+          f"1x4) over {RANKS} ranks (gloo, all on cuda:0) equal one card: "
+          f"shards = slices of the one-card draw (sha256), "
+          f"{DECODE_RANK_SMALL[1]} "
+          f"teacher-forced steps' logits and the pools within {DECODE_TOL} "
+          f"(the same pages hold keys), served tokens equal, every rank's "
+          f"page table equal; probe_perf launches over the ranks {small_l}; "
+          f"one-card references {ref_s:.3f} s, ranks "
+          f"{max(o['small_s'] for o in outs):.3f} s")
+    launches = small_l + check_paper_ranks(outs, "decode_ranks", smi,
+                                           one_card_ms)
+    lines = [f"gloo {spawn_s:.3f} s (the ranks started {start_s:.3f} s "
+             f"after the spawn and were joined {end_s:.3f} s after their "
+             f"last return)"]
+    if torch.cuda.device_count() >= RANKS:
+        t0 = time.perf_counter()
+        nccl = spawn_ranks(decode_rank_main, RANKS, refs, ("paper",),
+                           backend="nccl", device=None, timeout=RANK_TIMEOUT)
+        check([o["device"] for o in nccl] ==
+              [f"cuda:{r}" for r in range(RANKS)], "nccl: a card a rank")
+        launches += check_paper_ranks(nccl, "decode_ranks_nccl", smi,
+                                      one_card_ms)
+        lines.append(f"nccl {time.perf_counter() - t0:.3f} s")
+    print(f"decode_ranks_time: phase 15 took "
+          f"{time.perf_counter() - t_phase:.3f} s (one-card references "
+          f"{ref_s:.3f} s; {', '.join(lines)}, spawn to the last rank's "
+          f"exit; in the ranks (a) {max(o['small_s'] for o in outs):.3f} s, "
+          f"(b) {max(o['paper_s'] for o in outs):.3f} s); card: {smi}")
+    return launches
+
+
 def main() -> int:
     t_script = time.perf_counter()
     import torch
@@ -4180,6 +4684,13 @@ def main() -> int:
     from repro_torch.kernels.probe_perf import probe_pages_perf
     k = {"probe_perf": probe_pages_perf, "probe_area": probe_pages_area,
          "probe_bitserial": probe_pages_bitserial}
+    laps, t_lap = {}, [t_script]
+
+    def lap(phases):
+        """Seconds since the last lap, kept under ``phases``."""
+        now = time.perf_counter()
+        laps[phases] = round(now - t_lap[0], 1)
+        t_lap[0] = now
 
     # -- 1. device -----------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -4201,6 +4712,7 @@ def main() -> int:
     check_small_engines_vs_cpu(serving, hashmap, HashMemConfig, k)
     _, small_cpu, one_cpu = check_small_mesh_vs_cpu(serving, hashmap,
                                                     HashMemConfig, k)
+    lap("1-3")
 
     # -- 4. the perf path at PAPER_HASHMEM --------------------------------------
     cfg = PAPER_HASHMEM
@@ -4290,6 +4802,7 @@ def main() -> int:
           f"{TIMED_RUNS} runs after warm-up; card: {smi}")
     profile_probe(lambda: hashmap.probe(hm, qd))
     del hm, pool, pages, out, plain
+    lap("4")
 
     # -- 5. the bit-serial path at PAPER_HASHMEM ---------------------------------
     bcfg = dataclasses.replace(PAPER_HASHMEM, backend="bitserial")
@@ -4445,40 +4958,54 @@ def main() -> int:
           f"{planes_gb:.3f} GB; build {bs_build_s:.3f} s; compact "
           f"{compact_s:.3f} s; peak device memory {peak:.2f} GiB")
     del hb, pool, planes, pages, calls, plains
+    lap("5-6")
 
     # -- 7. the displaced path at PAPER_HASHMEM ---------------------------------
     data = dict(keys=keys, vals=vals, held_k=held_k, held_v=held_v,
                 probes=probes, pidx=pidx, qd=qd, qbits=qbits)
     d_path = displaced_path(hashmap, k, ref, data, smi)
     del qd, qbits, data["qd"], data["qbits"]
+    lap("7")
 
     # -- 8. serving at paper scale ----------------------------------------------
     s_path, host_results = serving_path(serving, hashmap, k, smi)
+    lap("8")
 
     # -- 9. the mesh path at paper scale -------------------------------------
     m_probe, m_serve, m_digests = mesh_path(serving, hashmap, k, data, smi,
                                             host_rate, host_results)
     save_rank_data(data)
     del data
+    lap("9")
 
     # -- 10. decode serving over the HashMem page table -------------------------
     with torch.no_grad():
         decode_launches, _, _ = decode_path(k, ref, smi)
+    lap("10")
 
     # -- 11. training and the checkpoint -------------------------------------
     ckpt_launches, _ = training_path(hashmap, PAPER_HASHMEM, keys, vals,
                                      probes, pidx, k, smi)
     del keys, vals, probes, pidx
+    lap("11")
 
     # -- 12. the moe and hybrid families ---------------------------------------
     family_launches, _, _ = family_path(k, ref, smi)
+    lap("12")
 
     # -- 13. the ssm, encdec and vlm families -----------------------------------
     rest_launches, _ = rest_path(k, ref, smi)
+    lap("13")
 
     # -- 14. the sharded table over ranks -----------------------------------
     rank_launches = ranks_path(smi, host_results, small_cpu, one_cpu,
                                m_digests)
+    lap("14")
+
+    # -- 15. decode over a (data, model) mesh of ranks ----------------------
+    with torch.no_grad():
+        decode_rank_launches = decode_ranks_path(smi)
+    lap("15")
 
     replaces = {"probe_perf": "src/repro/kernels/probe_perf.py:34",
                 "probe_area": "src/repro/kernels/probe_area.py:32",
@@ -4491,13 +5018,13 @@ def main() -> int:
           "the mesh path did not launch probe_perf")
     launches = {"probe_perf": perf_path["probe_perf"] + decode_launches
                 + ckpt_launches + family_launches + rest_launches
-                + rank_launches["probe_perf"],
+                + rank_launches["probe_perf"] + decode_rank_launches,
                 "probe_area": bs_path["probe_area"]
                 + rank_launches["probe_area"],
                 "probe_bitserial": bs_path["probe_bitserial"]
                 + rank_launches["probe_bitserial"]}
-    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_script:.1f} "
-          f"s; card: {smi}")
+    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_script:.1f} "
+          f"s (by phase, s: {json.dumps(laps)}); card: {smi}")
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{kname}.cu",

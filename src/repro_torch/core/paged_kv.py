@@ -23,10 +23,20 @@ lands on the CPU, so the result does not depend on the order the device
 applies the writes in.  Page ids must lie in the pool (the allocator's);
 JAX would drop an out-of-range write.
 
-The channel-sharded variants (``decode_attention_sharded``,
-``append_sharded``) need channels across cards and wait for ROADMAP Queue 1
-item 16b.  At one channel they compute what the gather path does
-(``tests/test_torch_paged_kv.py``).
+Pool layout (grouped), as JAX's: the flat page pool is sharded jointly
+over ALL mesh axes.  Rank (batch group g, channel m) of a
+``launch.mesh.ModelMesh`` owns physical pages [flat*pps, (flat+1)*pps),
+flat = g*Dm + m, and holds only those (``pages_per_shard`` = pps pages a
+pool).  Sequence b belongs to batch group g(b); its logical page j lives on
+channel j mod Dm.  The channel-parallel variants run on such a rank:
+``append_sharded`` writes a token on the rank that owns its page, and
+``decode_attention_sharded`` attends over the rank's pages and combines the
+channels' partial softmax with a log-sum-exp (JAX's ``pmax`` of the maxima,
+then ``psum`` of the rescaled numerators and denominators; the port
+gathers every channel's (m, l, acc) in one ``all_gather`` and reduces on
+each rank, one collective where two all-reduces cost twice the latency):
+the paper's §2.5 parallel probing of pages spread over channels, as
+flash-decoding.
 """
 from __future__ import annotations
 
@@ -132,6 +142,76 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, pos, cfg):
     m, l, acc = _partial_decode(qg, k, v, positions, pos.to(torch.int64),
                                 cfg.sliding_window)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Channel-parallel (on a rank of a ModelMesh: JAX's shard_map body)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def append_sharded(k_pool, v_pool, block_table, pos, k_new, v_new, mesh,
+                   batch_axes, channel_axes, pages_per_shard: int):
+    """Owner-channel append, in place: the local pools hold this rank's
+    ``pages_per_shard`` pages; block_table (B_loc, n_pages) holds global
+    page ids.  A row whose page another rank owns, or whose ``pos`` lies
+    past the table, writes nothing."""
+    P, pt = k_pool.shape[:2]
+    me_flat = mesh.index(tuple(batch_axes) + tuple(channel_axes))
+    pos = pos.to(torch.int64)
+    j = pos // pt
+    keep = j < block_table.shape[1]
+    page = block_table.gather(1, torch.where(keep, j, 0)[:, None])[:, 0]
+    page = page.to(torch.int64)
+    keep &= (page // pages_per_shard) == me_flat
+    idx = (page % pages_per_shard) * pt + pos % pt
+    _write_rows(k_pool.view(P * pt, *k_pool.shape[2:]), idx, k_new[:, 0],
+                keep)
+    _write_rows(v_pool.view(P * pt, *v_pool.shape[2:]), idx, v_new[:, 0],
+                keep)
+    return k_pool, v_pool
+
+
+def decode_attention_sharded(q, k_pool, v_pool, block_table, pos, cfg, mesh,
+                             batch_axes, channel_axes, pages_per_shard: int):
+    """q (B_loc,1,H,hd) the local batch, every head; the pools this rank's
+    page slice; block_table (B_loc, n_pages) global page ids.  The rank
+    reads its logical pages j = me_m (mod Dm), masks those it does not own,
+    and the channels' (m, l, acc) combine over ``channel_axes``."""
+    B, _, H, hd = q.shape
+    K = k_pool.shape[2]
+    G = H // K
+    pt = k_pool.shape[1]
+    qg = q.reshape(B, K, G, hd)
+    n_pages = block_table.shape[1]
+    Dm = mesh.size(channel_axes)
+    me_m = mesh.index(channel_axes)
+    me_flat = mesh.index(tuple(batch_axes) + tuple(channel_axes))
+    nl = max(n_pages // Dm, 1)
+    dev = q.device
+    # logical pages j = me_m (mod Dm)
+    local_bt = block_table[:, :nl * Dm].reshape(B, nl, Dm)[:, :, me_m] \
+        .to(torch.int64)
+    mine = (local_bt // pages_per_shard) == me_flat      # allocator guarantee
+    slot = torch.where(mine, local_bt % pages_per_shard, 0)
+    k = k_pool[slot].reshape(B, nl * pt, K, hd)
+    v = v_pool[slot].reshape(B, nl * pt, K, hd)
+    j_log = torch.arange(nl, device=dev) * Dm + me_m
+    positions = j_log[:, None] * pt + torch.arange(pt, device=dev)[None, :]
+    positions = torch.where(mine[:, :, None], positions[None], -1) \
+        .reshape(B, nl * pt)
+    m, l, acc = _partial_decode(qg, k, v, positions, pos.to(torch.int64),
+                                cfg.sliding_window)
+    # LSE combine across channels only (batch axes hold distinct sequences):
+    # every channel's (m, l, acc) in one all_gather, then JAX's pmax and
+    # psum on each rank, in channel order
+    parts = mesh.all_gather(torch.cat([m[..., None], l[..., None], acc],
+                                      dim=-1)[None], channel_axes)
+    m, l, acc = parts[..., 0], parts[..., 1], parts[..., 2:]
+    r = torch.exp(m - m.amax(0))
+    num = (acc * r[..., None]).sum(0)
+    den = (l * r).sum(0)
+    out = num / torch.clamp(den, min=1e-30)[..., None]
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 

@@ -4,15 +4,19 @@
 optional gradient compression, then the AdamW update, in place.
 ``build_serve_step`` gives the decode step the serving loop calls: one
 ``decode_step`` and the greedy next token, under ``torch.no_grad()``.  JAX
-jits both with their parameter and state shardings; the port runs them
-eagerly on one card, with no shardings, and refuses a mesh of more than one
-shard (ROADMAP Queue 1 item 16b).
+jits both with their parameter and state shardings.  The port runs them
+eagerly: the serve step on one device, or on each rank of a
+``launch.mesh.ModelMesh`` (the dense family; ``decode_state_specs`` places
+the states as JAX's); the train step on one card, refusing a mesh of more
+than one shard (ROADMAP Queue 1 item 16b-ii).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.compression import compress_tree
 from repro_torch.models import model
 from repro_torch.optim import adamw_update, init_opt_state
@@ -21,11 +25,12 @@ from repro_torch.optim import adamw_update, init_opt_state
 def _one_card(mesh):
     """``mesh`` is None or a JAX mesh's shape, {axis name: size}; the port
     trains on one card."""
-    if mesh is not None and int(np.prod(list(mesh.values()))) > 1:
+    shape = sharding.mesh_shape(mesh) if mesh is not None else {}
+    if int(np.prod(list(shape.values()))) > 1:
         raise NotImplementedError(
-            f"a training mesh of {dict(mesh)} shards the parameters and the "
-            f"batch over several cards; the port trains on one card (ROADMAP "
-            f"Queue 1 item 16b)")
+            f"a training mesh of {shape} shards the parameters and the "
+            f"batch over several cards; the port trains on one card "
+            f"(training over ranks: ROADMAP Queue 1 item 16b-ii)")
 
 
 # ---------------------------------------------------------------------------
@@ -73,18 +78,63 @@ def init_train_state(cfg, oc, mesh=None, seed: int = 0, device=None):
 # ---------------------------------------------------------------------------
 
 
+_STATE_AXES = {
+    # name, ndim -> logical axes (JAX's table, less the stacked layer dim)
+    ("k_pool", 4): ("kv_pages", "seq", "kv_heads", "head_dim"),
+    ("v_pool", 4): ("kv_pages", "seq", "kv_heads", "head_dim"),
+    ("conv", 3): ("batch", "conv", "mlp"),
+    ("ssm", 3): ("batch", "mlp", "state"),
+    ("C", 4): ("batch", "heads", "head_dim", "head_dim"),
+    ("n", 3): ("batch", "heads", "head_dim"),
+    ("m", 2): ("batch", "heads"),
+    ("c", 3): ("batch", "heads", "head_dim"),
+    ("h", 3): ("batch", "heads", "head_dim"),
+    ("m", 3): ("batch", "heads", "head_dim"),
+    ("ek", 4): ("batch", "seq", "kv_heads", "head_dim"),
+    ("ev", 4): ("batch", "seq", "kv_heads", "head_dim"),
+}
+
+
+def decode_state_specs(states, mesh) -> list:
+    """[{state name: spec}] a layer, for the whole decode states
+    (``model.init_decode_states`` on one device, or their shapes): a pool
+    splits its pages over every mesh axis (grouped: rank g*Dm + m holds
+    pages [flat*pps, (flat+1)*pps)), a recurrent state its batch; JAX's
+    ``decode_state_specs`` less the layer dimension, which no rule
+    shards."""
+    return [{name: sharding.spec_for(mesh, _STATE_AXES[(name, x.dim())],
+                                     x.shape)
+             if (name, x.dim()) in _STATE_AXES else ()
+             for name, x in layer.items()} for layer in states]
+
+
 def build_serve_step(cfg, serve_cfg, mesh=None):
     """Returns (serve_step, ctx).  ``serve_step(params, states, tokens, pos,
-    block_table) -> (next_tok (B,) int32, logits (B,1,V), states)``;
-    ``mesh`` as in ``model.make_decode_ctx``."""
+    block_table, full_logits=True) -> (next_tok (B,) int32, logits (B,1,V),
+    states)``; ``mesh`` as in ``model.make_decode_ctx``.  On a
+    ``ModelMesh`` the step takes this rank's model (``model.shard_params``)
+    and states, and its batch group's rows (``ctx.local_batch``); the next
+    tokens, all-gathered over the batch groups, are the whole batch's; the
+    logits are the rank's rows, over the whole vocabulary with
+    ``full_logits``, else its vocabulary block (no collective)."""
     B = serve_cfg.shape.global_batch
+    model.refuse_sharded_decode(cfg, mesh)
     ctx = model.make_decode_ctx(cfg, serve_cfg, B, mesh=mesh)
 
     @torch.no_grad()
-    def serve_step(params, states, tokens, pos, block_table):
+    def serve_step(params, states, tokens, pos, block_table,
+                   full_logits=True):
         logits, new_states = model.decode_step(
             params, cfg, states, tokens, pos, block_table, ctx)
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        if not ctx.ranked:
+            next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            return next_tok, logits, new_states
+        head = params.embed if cfg.tie_embeddings else params.head
+        next_tok = tp.greedy(logits[:, -1], head, ctx.mesh)
+        next_tok = ctx.mesh.all_gather(next_tok.to(torch.int32),
+                                       ctx.batch_axes)
+        if full_logits:
+            logits = tp.gather_vocab(logits, head, ctx.mesh)
         return next_tok, logits, new_states
 
     return serve_step, ctx

@@ -11,20 +11,28 @@ the channel ('model') axis.  The port has two forms of that mesh:
     inside ``shard_map`` for one device.  ``spawn_ranks`` starts such a
     world on one host.
 
-The model meshes of ``make_mesh`` are not ported: the training and decode
-steps take a mesh as its shape, {axis name: size}, and refuse more than one
-shard (ROADMAP Queue 1 item 16b).
+The model meshes of ``make_mesh`` are ``ModelMesh``es: a world of ranks laid
+out row-major over named axes (``("data", "model")`` or ``("pod", "data",
+"model")``), one process group per axis subset, over which decode reduces
+and gathers (``make_model_mesh``).  The sharding rules and the decode
+geometry also take a bare shape, {axis name: size}
+(``make_production_mesh`` gives the production one), which builds no
+world.
 """
 from __future__ import annotations
 
 import datetime
+import itertools
+import math
 import os
 import pickle
 import tempfile
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core.layout import resolve_device
 
@@ -141,9 +149,148 @@ def sub_mesh(mesh: RankMesh, num_shards: int) -> Optional[RankMesh]:
                     mesh.backend, group)
 
 
-def _rank_main(rank, fn, world_size, init_method, backend, device, axis,
-               timeout, out_dir, args):
+def make_production_mesh(*, multi_pod: bool = False) -> dict:
+    """The shape of JAX's production mesh, {axis: size}: ``(16, 16)``
+    ``("data", "model")``, or ``(2, 16, 16)`` with a ``"pod"`` axis.  A
+    shape for the sharding rules and the decode geometry; it builds no
+    world."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+@dataclass(frozen=True)
+class ModelMesh:
+    """This rank's place in a mesh of ranks over named axes: ``shape``, an
+    ordered {axis: size} whose product is the world size; ``coords``, this
+    rank's {axis: index}, numbered row-major as JAX numbers a mesh's
+    devices (the last axis fastest); ``groups``, a process group for every
+    subset of the axes that spans more than one rank (the ranks that share
+    the other axes' coordinates, in row-major order).  A collective over
+    axes of size 1 is skipped.  ``collectives`` counts this rank's calls,
+    bytes sent and host seconds inside them."""
+
+    shape: dict
+    rank: int
+    coords: dict
+    device: torch.device
+    backend: str
+    groups: dict = field(compare=False)
+    collectives: dict = field(default_factory=lambda: {
+        "calls": 0, "bytes": 0, "seconds": 0.0}, compare=False)
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.shape)
+
+    @property
+    def num_shards(self) -> int:
+        return math.prod(self.shape.values())
+
+    def size(self, axes) -> int:
+        """The number of ranks along ``axes``."""
+        return math.prod(self.shape[a] for a in axes)
+
+    def index(self, axes) -> int:
+        """This rank's row-major index along ``axes`` (in the order given:
+        JAX's flat index over them)."""
+        i = 0
+        for a in axes:
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+    def _group(self, axes):
+        return self.groups[tuple(a for a in self.shape if a in axes)]
+
+    def _count(self, t: torch.Tensor, t0: float):
+        st = self.collectives
+        st["calls"] += 1
+        st["bytes"] += t.numel() * t.element_size()
+        st["seconds"] += time.perf_counter() - t0
+
+    def all_reduce(self, t: torch.Tensor, axes):
+        """``t`` summed over the ranks along ``axes``; in place when a
+        collective runs."""
+        import torch.distributed as dist
+        if self.size(axes) == 1:
+            return t
+        t = t.contiguous()
+        t0 = time.perf_counter()
+        with record_function("mesh.all_reduce"):
+            dist.all_reduce(t, group=self._group(axes))
+        self._count(t, t0)
+        return t
+
+    def all_gather(self, t: torch.Tensor, axes, dim: int = 0):
+        """The ranks' ``t`` along ``axes`` joined on ``dim`` in their
+        row-major order."""
+        import torch.distributed as dist
+        n = self.size(axes)
+        if n == 1:
+            return t
+        t = t.contiguous()
+        out = [torch.empty_like(t) for _ in range(n)]
+        t0 = time.perf_counter()
+        with record_function("mesh.all_gather"):
+            dist.all_gather(out, t, group=self._group(axes))
+        self._count(t, t0)
+        return torch.cat(out, dim=dim)
+
+
+def mesh_coords(shape: dict, rank: int) -> dict:
+    """Rank ``rank``'s {axis: index} on a mesh of ``shape``, row-major (the
+    last axis fastest)."""
+    coords = {}
+    for a in reversed(tuple(shape)):
+        coords[a] = rank % shape[a]
+        rank //= shape[a]
+    return {a: coords[a] for a in shape}
+
+
+def make_model_mesh(world: RankMesh, shape: dict) -> ModelMesh:
+    """Lay the ranks of ``world`` (the whole world, ``spawn_ranks``'s mesh)
+    out over ``shape``, {axis: size} in mesh order, and make the process
+    groups of every axis subset.  Every rank must call it, with the same
+    shape (every rank makes every group, in the same order)."""
     import torch.distributed as dist
+    shape = {a: int(n) for a, n in shape.items()}
+    world_size = math.prod(shape.values())
+    if world_size != world.num_shards or \
+            world.num_shards != dist.get_world_size():
+        raise ValueError(f"a mesh of {shape} needs a world of {world_size} "
+                         f"ranks; this one has {world.num_shards} of "
+                         f"{dist.get_world_size()}")
+    names = tuple(shape)
+    coords = mesh_coords(shape, world.rank)
+    strides = {a: math.prod(shape[b] for b in names[i + 1:])
+               for i, a in enumerate(names)}
+    groups = {}
+    for k in range(1, len(names) + 1):
+        for axes in itertools.combinations(names, k):
+            if math.prod(shape[a] for a in axes) == 1:
+                continue
+            if len(axes) == len(names):
+                groups[axes] = world.group
+                continue
+            rest = [a for a in names if a not in axes]
+            for fixed in itertools.product(*(range(shape[a]) for a in rest)):
+                base = sum(strides[a] * i for a, i in zip(rest, fixed))
+                ranks = sorted(
+                    base + sum(strides[a] * i for a, i in zip(axes, idx))
+                    for idx in itertools.product(
+                        *(range(shape[a]) for a in axes)))
+                g = dist.new_group(ranks)
+                if world.rank in ranks:
+                    groups[axes] = g
+    return ModelMesh(shape, world.rank, coords, world.device, world.backend,
+                     groups)
+
+
+def _rank_main(rank, world_size, init_method, backend, device, axis,
+               timeout, out_dir):
+    import torch.distributed as dist
+    with open(os.path.join(out_dir, "call.pkl"), "rb") as f:
+        fn, args = pickle.load(f)
     if device is not None and torch.device(device).type == "cpu":
         torch.set_num_threads(1)            # ranks on the CPU share it
     mesh = make_rank_mesh(world_size, rank, init_method, backend=backend,
@@ -164,14 +311,18 @@ def spawn_ranks(fn, world_size: int, *args, backend: str = "gloo",
     ``spawn`` method (CUDA cannot follow a fork) and meet at a file store in
     a new temporary directory, so concurrent worlds never compete for a
     port.  ``fn`` and ``args`` must pickle (``fn`` at the top level of an
-    importable module).  A rank that raises stops the others and makes
-    this call raise."""
+    importable module); they reach the ranks through a file in that
+    directory, not the start-up pipe, whose 64 kB buffer would hold back
+    each start until the rank before has imported its modules.  A rank
+    that raises stops the others and makes this call raise."""
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory(prefix="ranks-") as tmp:
         init = "file://" + os.path.join(tmp, "store")
+        with open(os.path.join(tmp, "call.pkl"), "wb") as f:
+            pickle.dump((fn, args), f)
         mp.start_processes(
-            _rank_main, args=(fn, world_size, init, backend, device, axis,
-                              timeout, tmp, args),
+            _rank_main, args=(world_size, init, backend, device, axis,
+                              timeout, tmp),
             nprocs=world_size, join=True, start_method="spawn")
         out = []
         for r in range(world_size):

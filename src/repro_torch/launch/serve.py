@@ -20,6 +20,8 @@
     python -m repro_torch.launch.serve --arch llama3-8b --smoke \\
         --requests 12 --batch 4 --max-new 16        # on the card
     python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu \\
+        --mesh 1 4                                  # 4 rank processes
     python -m repro_torch.launch.serve --arch olmoe-1b-7b --smoke --device cpu
     python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke --device cpu
     python -m repro_torch.launch.serve --mode kv --workloads A,B,E \\
@@ -29,8 +31,11 @@
     python -m repro_torch.launch.serve --mode kv --device cpu \\
         --mesh-shards 2 --ranks                     # 2 rank processes
 
-The flags are the JAX CLI's, plus ``--device``, less ``--mesh``: decode
-runs on one card, with the geometry of JAX's default ``(1, 1)`` mesh.
+The flags are the JAX CLI's, plus ``--device``.  ``--mesh D M`` decodes
+over a ``("data", "model")`` mesh: with D x M > 1, D x M rank processes
+over ``torch.distributed`` (``serve_ranks``), each holding its shard of the
+parameters and its slice of every KV pool, the dense family only; without
+it, one device, with the geometry of JAX's default ``(1, 1)`` mesh.
 ``--backend`` defaults to ``perf`` here (``ref`` in the JAX CLI): on the
 card ``ref`` is the plain PyTorch compare and launches no kernel.
 ``--mesh-shards N`` stacks N shards on the one device (``launch/mesh.py``);
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 
 import numpy as np
@@ -50,13 +56,16 @@ from repro_torch.configs import ServeConfig, ShapeConfig, get_config, \
     smoke_config
 from repro_torch.core.layout import resolve_device
 from repro_torch.core.paged_kv import PageTableManager
+from repro_torch.distributed import sharding
 from repro_torch.distributed import steps as dsteps
+from repro_torch.launch.mesh import ModelMesh, make_model_mesh, spawn_ranks
 from repro_torch.models import model
 from repro_torch.serving import SlotPool, build_ycsb_engine
 
 # JAX's serving CLI decodes on a (1, 1) ("data", "model") mesh; the port
-# takes its geometry (one batch group, one channel) on one card.
+# takes its geometry (one batch group, one channel) on one device.
 DECODE_MESH = {"data": 1, "model": 1}
+MESH_AXES = ("data", "model")
 
 
 def _host_buffer(shape, dev):
@@ -87,28 +96,54 @@ def refuse_encdec(cfg):
 
 
 @torch.no_grad()
-def serve(cfg, *, batch=4, horizon=256, page_tokens=32, requests=8,
-          max_new=16, prompt_len=8, seed=0, backend="perf", verbose=True,
-          compact_chain_len=None, device=None):
-    """Continuous-batching greedy decode of ``requests`` random prompts on
-    ``device`` (None: the card), step for step as the JAX package's
-    ``serve``: a model drawn from ``seed``, float32 KV pools, a page table
-    on a ``backend`` HashMem.  Each step runs the model on every slot
-    (idle ones too), then frees the finished sequences in one batched
-    delete, refills the slots with one batched insert and ticks the page
-    table.  Builds no autograd graph.  Returns (done requests, the
-    PageTableManager, steps run).  Refuses encdec (``refuse_encdec``)."""
+def serve(cfg, *, mesh=None, batch=4, horizon=256, page_tokens=32,
+          requests=8, max_new=16, prompt_len=8, seed=0, backend="perf",
+          verbose=True, compact_chain_len=None, device=None):
+    """Continuous-batching greedy decode of ``requests`` random prompts,
+    step for step as the JAX package's ``serve``: a model drawn from
+    ``seed``, float32 KV pools, a page table on a ``backend`` HashMem.
+    Each step runs the model on every slot (idle ones too), then frees the
+    finished sequences in one batched delete, refills the slots with one
+    batched insert and ticks the page table.  Builds no autograd graph.
+
+    ``mesh`` None decodes on ``device`` (None: the card) with
+    ``DECODE_MESH``'s geometry; a shape {axis: size} on ``device`` with
+    that mesh's geometry and page-table arenas (JAX's ``serve`` on such a
+    mesh, the channels' work done by the gather path).  A
+    ``launch.mesh.ModelMesh`` decodes over its ranks, each calling
+    ``serve`` alike (SPMD) on its own device: its block of the parameters
+    (``model.init_params_sharded``), its slice of every pool, its batch
+    group's rows; every rank runs the same host loop and
+    ``PageTableManager`` (arenas by channel and batch group, a sequence's
+    group ``slot // b_loc``), the next tokens gathered whole on every rank;
+    rank 0 prints.  Returns (done requests, the
+    PageTableManager, steps run).  Refuses encdec (``refuse_encdec``), and
+    on a mesh of ranks every family but dense."""
+    model.refuse_sharded_decode(cfg, mesh)
     refuse_encdec(cfg)
-    dev = resolve_device(device)
+    mesh = DECODE_MESH if mesh is None else mesh
+    ranked = isinstance(mesh, ModelMesh)
+    dev = mesh.device if ranked else resolve_device(device)
+    sizes = sharding.mesh_shape(mesh)
     shape = ShapeConfig("serve", horizon, batch, "decode")
     scfg = ServeConfig(model=cfg, shape=shape, kv_page_tokens=page_tokens)
-    serve_step, ctx = dsteps.build_serve_step(cfg, scfg, mesh=DECODE_MESH)
+    serve_step, ctx = dsteps.build_serve_step(cfg, scfg, mesh=mesh)
+    n_groups = math.prod(sizes[a] for a in ctx.batch_axes)
+    b_loc = batch // n_groups
+    rows = ctx.local_batch(batch)
 
-    params = model.init_params(cfg, seed, dev)
-    states = model.init_decode_states(params, cfg, batch, ctx,
-                                      kv_dtype=torch.float32)
-    mgr = PageTableManager(ctx.pool_pages, backend=backend,
-                           compact_chain_len=compact_chain_len, device=dev)
+    if ranked:
+        params = model.init_params_sharded(cfg, seed, mesh, dev)
+    else:
+        params = model.init_params(cfg, seed, dev)
+    states = model.init_decode_states(params, cfg, rows.stop - rows.start,
+                                      ctx, kv_dtype=torch.float32)
+    mgr = PageTableManager(
+        ctx.pool_pages,
+        num_channels=math.prod(sizes[a] for a in ctx.channel_axes),
+        num_groups=n_groups, backend=backend,
+        compact_chain_len=compact_chain_len, device=dev)
+    verbose = verbose and (not ranked or mesh.rank == 0)
     rng = np.random.default_rng(seed)
 
     pool = SlotPool(batch)
@@ -127,8 +162,8 @@ def serve(cfg, *, batch=4, horizon=256, page_tokens=32, requests=8,
         sequence's into the new one (ROADMAP Queue 3)."""
         if not newly:
             return
-        phys = mgr.alloc_seqs([(req["id"], ctx.n_pages, 0)
-                               for _, req in newly])
+        phys = mgr.alloc_seqs([(req["id"], ctx.n_pages, slot // b_loc)
+                               for slot, req in newly])
         for slot, req in newly:
             block_tables[slot] = phys[req["id"]]
             pos[slot] = 0
@@ -144,9 +179,9 @@ def serve(cfg, *, batch=4, horizon=256, page_tokens=32, requests=8,
 
     while not pool.idle():
         nt, _, states = serve_step(
-            params, states, tok_t.to(dev, non_blocking=True),
-            pos_t.to(dev, non_blocking=True),
-            bt_t.to(dev, non_blocking=True))
+            params, states, tok_t[rows].to(dev, non_blocking=True),
+            pos_t[rows].to(dev, non_blocking=True),
+            bt_t[rows].to(dev, non_blocking=True), full_logits=False)
         nt = nt.cpu().numpy()
         steps_run += 1
         finished = []
@@ -178,6 +213,33 @@ def serve(cfg, *, batch=4, horizon=256, page_tokens=32, requests=8,
             print(f"  req {req['id']}: prompt {req['prompt'][:4]}... -> "
                   f"out {req['out'][:8]}")
     return done, mgr, steps_run
+
+
+def serve_ranks(cfg, mesh_shape, *, device=None, **kw) -> list:
+    """``serve(cfg, mesh=...)`` over ``prod(mesh_shape)`` new rank
+    processes (``launch.mesh.spawn_ranks``), laid out over ``mesh_shape``
+    ({axis: size}) by ``make_model_mesh``.  ``device`` "cpu" runs every
+    rank on the CPU (gloo); None a card a rank where there are enough
+    (nccl), else every rank on the one card (gloo).  Returns each rank's
+    (outputs {id: tokens}, steps, live pages, grows, compactions)."""
+    world = math.prod(mesh_shape.values())
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    if not on_cpu:
+        from repro_torch.kernels import build
+        build.build_all()       # here, not in every rank at once
+        if device is None and torch.cuda.device_count() < world:
+            device = "cuda:0"
+    backend = "gloo" if on_cpu or device is not None else "nccl"
+    return spawn_ranks(_serve_rank, world, cfg, dict(mesh_shape), kw,
+                       backend=backend, device=device)
+
+
+def _serve_rank(world, cfg, mesh_shape, kw):
+    """One rank of ``serve_ranks``."""
+    mesh = make_model_mesh(world, mesh_shape)
+    done, mgr, steps = serve(cfg, mesh=mesh, **kw)
+    return ({r["id"]: r["out"] for r in done}, steps, mgr.live_pages(),
+            mgr.grow_events, mgr.compact_events)
 
 
 def serve_kv(*, workloads="A", tenants=None, requests=64, slots=16,
@@ -288,6 +350,12 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--horizon", type=int, default=256)
     ap.add_argument("--page-tokens", type=int, default=32)
+    ap.add_argument("--mesh", type=int, nargs=2, default=None,
+                    metavar=("D", "M"),
+                    help="(decode mode) a (data, model) mesh: with D x M > "
+                         "1, D x M rank processes over torch.distributed "
+                         "(nccl with a card a rank, else gloo), the dense "
+                         "family; only rank 0 prints")
     ap.add_argument("--compact-chain-len", type=int, default=None,
                     help="page-table compaction when any bucket chain "
                          "exceeds this many pages (skewed frees); default: "
@@ -326,14 +394,20 @@ def main(argv=None):
         if args.arch is None:
             ap.error("--arch is required in decode mode")
         cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+        shape = dict(zip(MESH_AXES, args.mesh or (1, 1)))
         try:
+            model.refuse_sharded_decode(cfg, shape)
             refuse_encdec(cfg)
-        except ValueError as e:
+        except (ValueError, NotImplementedError) as e:
             ap.error(str(e))
-        serve(cfg, batch=args.batch, requests=args.requests,
-              max_new=args.max_new, horizon=args.horizon,
-              page_tokens=args.page_tokens, backend=args.backend,
-              compact_chain_len=args.compact_chain_len, device=args.device)
+        kw = dict(batch=args.batch, requests=args.requests,
+                  max_new=args.max_new, horizon=args.horizon,
+                  page_tokens=args.page_tokens, backend=args.backend,
+                  compact_chain_len=args.compact_chain_len)
+        if math.prod(shape.values()) > 1:
+            serve_ranks(cfg, shape, device=args.device, **kw)
+        else:
+            serve(cfg, device=args.device, **kw)
         return
     serve_kv(workloads=args.workloads, requests=args.requests,
              slots=args.slots, shards=args.shards,

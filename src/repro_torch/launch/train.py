@@ -38,12 +38,13 @@ def train(cfg, shape, oc, mesh=None, *, num_steps, ckpt_dir, ckpt_every=50,
           verbose=True, device=None):
     """Train ``num_steps`` steps on ``device`` (None: the card), resuming
     from the latest checkpoint in ``ckpt_dir`` (else a model drawn from
-    ``seed``), saving every ``ckpt_every`` steps and at the end.  An
+    ``seed``), saving every ``ckpt_every`` steps and at the end; with
+    ``ckpt_dir=None`` nothing is saved or restored.  An
     ``InjectedFailure`` at a step of ``inject`` restarts from the latest
     checkpoint.  Returns (params, opt_state, {step: loss}, the
     StragglerMonitor, the RestartPolicy)."""
     dev = resolve_device(device)
-    ckpt = Checkpointer(ckpt_dir)
+    ckpt = Checkpointer(ckpt_dir) if ckpt_dir is not None else None
     injector = FailureInjector(tuple(inject or ()))
     policy = RestartPolicy(max_restarts=4)
     monitor = StragglerMonitor()
@@ -56,9 +57,10 @@ def train(cfg, shape, oc, mesh=None, *, num_steps, ckpt_dir, ckpt_every=50,
         try:
             # a restart rebuilds params and moments from the checkpoint: the
             # failed attempt updated its tensors in place
-            params = opt_state = None
-            ckpt.wait()
-            start = ckpt.latest_step()
+            params = opt_state = start = None
+            if ckpt is not None:
+                ckpt.wait()
+                start = ckpt.latest_step()
             if start is None:
                 params, opt_state = dsteps.init_train_state(
                     cfg, oc, mesh, seed, dev)
@@ -83,11 +85,13 @@ def train(cfg, shape, oc, mesh=None, *, num_steps, ckpt_dir, ckpt_every=50,
                     print(f"step {step:5d} loss {loss:8.4f} "
                           f"grad_norm {float(metrics['grad_norm']):7.3f} "
                           f"lr {float(metrics['lr']):.2e} {dt_s*1e3:7.1f} ms")
-                if ckpt_every and (step + 1) % ckpt_every == 0:
+                if ckpt is not None and ckpt_every and \
+                        (step + 1) % ckpt_every == 0:
                     ckpt.save(step + 1, {"params": params, "opt": opt_state})
-            ckpt.save(num_steps, {"params": params, "opt": opt_state},
-                      blocking=True)
-            ckpt.wait()
+            if ckpt is not None:
+                ckpt.save(num_steps, {"params": params, "opt": opt_state},
+                          blocking=True)
+                ckpt.wait()
             return params, opt_state, losses, monitor, policy
         except InjectedFailure as e:
             if verbose:

@@ -25,6 +25,12 @@ class Attention(nn.Module):
     """``{"wq": (d, H, hd), "wk", "wv": (d, K, hd), "wo": (H, hd, d)}`` and,
     with QK-norm, ``q_scale``/``k_scale`` (hd,)."""
 
+    AXES = {"wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed"),
+            "q_scale": ("head_dim",), "k_scale": ("head_dim",)}
+
     def __init__(self, cfg, device=None, dtype=F32):
         super().__init__()
         d, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \

@@ -56,6 +56,8 @@ def _normal_(p: torch.Tensor, generator: torch.Generator, scale: float):
 class RMSNorm(nn.Module):
     """The ``{"scale": (d,)}`` norm of the JAX tree."""
 
+    AXES = {"scale": ("embed",)}
+
     def __init__(self, d: int, device=None, dtype=F32):
         super().__init__()
         self.scale = param((d,), device, dtype)
@@ -68,6 +70,8 @@ class RMSNorm(nn.Module):
 class LayerNorm(RMSNorm):
     """The centred norm of the JAX tree, ``norm_init(d, centered=True)``:
     ``{"scale": (d,) ones, "bias": (d,) zeros}``."""
+
+    AXES = {"scale": ("embed",), "bias": ("embed",)}
 
     def __init__(self, d: int, device=None, dtype=F32):
         super().__init__(d, device, dtype)

@@ -25,6 +25,12 @@ class Mamba(nn.Module):
     "x_proj": (di, dt_rank + 2N), "dt_proj": (dt_rank, di), "dt_bias",
     "D": (di,), "A_log": (di, N), "out_proj": (di, d)}``."""
 
+    AXES = {"wx": ("embed", "mlp"), "wz": ("embed", "mlp"),
+            "conv_w": ("conv", "mlp"), "conv_b": ("mlp",),
+            "x_proj": ("mlp", "dt_rank"), "dt_proj": ("dt_rank", "mlp"),
+            "dt_bias": ("mlp",), "A_log": ("mlp", "state"), "D": ("mlp",),
+            "out_proj": ("mlp", "embed")}
+
     def __init__(self, cfg, device=None, dtype=F32):
         super().__init__()
         d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state_dim

@@ -14,6 +14,9 @@ from repro_torch.models.layers import F32, dense_init_, param, project
 class SwiGLU(nn.Module):
     """``{"gate": (d, ff), "up": (d, ff), "down": (ff, d)}``."""
 
+    AXES = {"gate": ("embed", "mlp"), "up": ("embed", "mlp"),
+            "down": ("mlp", "embed")}
+
     def __init__(self, d: int, ff: int, device=None, dtype=F32):
         super().__init__()
         self.gate = param((d, ff), device, dtype)
@@ -43,6 +46,8 @@ def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
 
 class GeluMLP(nn.Module):
     """``{"up": (d, ff), "down": (ff, d)}``."""
+
+    AXES = {"up": ("embed", "mlp"), "down": ("mlp", "embed")}
 
     def __init__(self, d: int, ff: int, device=None, dtype=F32):
         super().__init__()

@@ -21,8 +21,18 @@ checkpoint read it.  The loss is JAX's sequence-chunked cross-entropy
 JAX's, it reads only ``final_norm``'s scale, so whisper's
 ``final_norm/bias`` gets a zero gradient.  ``input_specs`` gives the
 inputs of each shape kind as meta tensors.
+
+Over a ``launch.mesh.ModelMesh`` a rank holds its block of every leaf
+(``shard_params``, ``init_params_sharded``: the blocks of
+``distributed.sharding.param_specs``, each tensor with its ``.spec``) and
+decodes the dense family tensor-parallel
+(``distributed/tensor_parallel.py``): a vocab-parallel embedding, the
+layers (``transformer.decode_stack``), vocab-sharded logits.
+``param_axes`` gives each leaf's logical axes, as JAX's init records them.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -31,6 +41,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.layout import resolve_device
+from repro_torch.distributed import sharding
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import (F32, LayerNorm, RMSNorm, embed_init_,
                                        flatten_tree, param, rms_norm,
@@ -42,10 +54,16 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 class Model(nn.Module):
     """The LM's parameters.  With ``generator`` they are drawn on
     ``device`` as JAX's ``init_params`` draws them (other numbers: another
-    generator); without, they are left uninitialised for loading."""
+    generator); without, they are left uninitialised for loading.  ``mesh``
+    is the ``ModelMesh`` whose rank's blocks it holds (``shard_params``),
+    else None."""
+
+    AXES = {"embed": ("vocab", "embed"), "head": ("vocab", "embed")}
 
     def __init__(self, cfg, device=None, generator=None):
         super().__init__()
+        self.cfg = cfg
+        self.mesh = None
         pdt = DTYPES[cfg.param_dtype]
         V, d = cfg.padded_vocab, cfg.d_model
         self.embed = param((V, d), device, pdt)
@@ -87,6 +105,38 @@ def count_params(cfg, active_only: bool = False) -> int:
             n = int(n * scale)
         total += n
     return total
+
+
+def _owner(m: nn.Module, name: str):
+    """(the module that holds parameter ``name``, its attribute name)."""
+    mod, _, attr = name.rpartition(".")
+    return (m.get_submodule(mod) if mod else m), attr
+
+
+def leaf_axes(m: "Model") -> dict:
+    """{parameter name: logical axes} of a ``Model``: each module class
+    names its leaves' axes (``AXES``), as JAX's init functions do."""
+    return {name: type(owner).AXES[attr]
+            for name, (owner, attr) in (
+                (n, _owner(m, n)) for n, _ in m.named_parameters())}
+
+
+def param_axes(cfg) -> dict:
+    """{JAX leaf path: logical axes}, ``"layers"`` first for a stacked
+    leaf, from a model on the meta device (JAX's ``param_axes``)."""
+    m = Model(cfg, "meta")
+    axes = leaf_axes(m)
+    return {path: (("layers",) if stacked else ()) + tuple(axes[names[0]])
+            for path, (names, stacked) in jax_leaves(m).items()}
+
+
+def param_shapes(cfg) -> dict:
+    """{JAX leaf path: shape}, a stacked leaf with its leading unit axis."""
+    m = Model(cfg, "meta")
+    named = dict(m.named_parameters())
+    return {path: ((len(names),) if stacked else ())
+            + tuple(named[names[0]].shape)
+            for path, (names, stacked) in jax_leaves(m).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +226,99 @@ def params_to_numpy(params: Model) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# A rank's block of the parameters
+# ---------------------------------------------------------------------------
+
+def _rank_model(cfg, mesh):
+    """A ``Model`` on the meta device for ``mesh``'s rank to fill, and
+    {parameter name: spec} (a layer leaf's without its ``"layers"``
+    entry, which no rule shards)."""
+    out = Model(cfg, "meta")
+    out.mesh = mesh
+    specs = {name: sharding.spec_for(mesh, axes, p.shape)
+             for (name, axes), p in zip(leaf_axes(out).items(),
+                                        out.parameters())}
+    return out, specs
+
+
+def _keep(out, specs, name, full, device):
+    """Parameter ``name`` of ``out``: this rank's block of ``full``, copied
+    to ``device``, with its spec."""
+    owner, attr = _owner(out, name)
+    spec = specs[name]
+    block = sharding.local_block(full.detach(), spec, out.mesh)
+    p = nn.Parameter(block.to(device, copy=True).contiguous())
+    p.spec = spec
+    setattr(owner, attr, p)
+
+
+def _check_filled(out):
+    left = [n for n, p in out.named_parameters() if p.is_meta]
+    if left:
+        raise RuntimeError(f"no block for {left[:4]}")
+
+
+def shard_params(params: Model, mesh) -> Model:
+    """This rank's block of every leaf of a whole ``Model`` (one from
+    ``init_params`` or from ``params_from_numpy`` of JAX's tree), as
+    ``sharding.param_specs`` places it on ``mesh`` (a
+    ``launch.mesh.ModelMesh``), on the mesh's device."""
+    out, specs = _rank_model(params.cfg, mesh)
+    for name, p in params.named_parameters():
+        _keep(out, specs, name, p, mesh.device)
+    _check_filled(out)
+    return out
+
+
+def init_params_sharded(cfg, seed: int, mesh, device=None) -> Model:
+    """This rank's block of ``init_params(cfg, seed, device)``: the same
+    generator on ``device`` (None: the mesh's) draws leaf by leaf in the
+    one-card order (the embeddings, then layer by layer), and only the
+    rank's block of each is kept, so no rank holds the whole model."""
+    dev = resolve_device(device or mesh.device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out, specs = _rank_model(cfg, mesh)
+    pdt = DTYPES[cfg.param_dtype]
+    V, d = cfg.padded_vocab, cfg.d_model
+    for name in ("embed",) if cfg.tie_embeddings else ("embed", "head"):
+        full = torch.empty((V, d), device=dev, dtype=pdt)
+        embed_init_(full, g)
+        _keep(out, specs, name, full, dev)
+        del full
+    norm = LayerNorm(d, dev) if cfg.is_encoder_decoder else RMSNorm(d, dev)
+    for name, p in norm.named_parameters():
+        _keep(out, specs, f"final_norm.{name}", p, dev)
+    if cfg.is_encoder_decoder:
+        for stack, layers in zip(("encoder", "decoder"),
+                                 encdec.init_stacks(cfg, dev, pdt, g)):
+            for name, p in layers.named_parameters():
+                _keep(out, specs, f"{stack}.{name}", p, dev)
+    else:
+        unit = transformer.scan_unit_size(cfg)
+        for i in range(cfg.num_layers):
+            layer = transformer.Layer(cfg, i, dev, pdt, g)
+            for name, p in layer.named_parameters():
+                _keep(out, specs, f"units.{i // unit}.j{i % unit}.{name}", p,
+                      dev)
+            del layer
+    _check_filled(out)
+    return out
+
+
+def refuse_sharded_decode(cfg, mesh):
+    """Raise unless ``cfg``'s family decodes over ``mesh`` (a shape, a
+    ``ModelMesh`` or None): on a mesh of more than one shard only the dense
+    family does."""
+    shape = sharding.mesh_shape(mesh) if mesh is not None else {}
+    if cfg.family != "dense" and math.prod(shape.values()) > 1:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): decode over a mesh of {shape} needs "
+            f"tensor parallelism of its expert, mamba and xLSTM leaves and "
+            f"expert parallelism, ROADMAP Queue 1 item 16b-ii (the second "
+            f"half of item 16b); the dense family decodes over ranks")
+
+
+# ---------------------------------------------------------------------------
 # Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
@@ -183,7 +326,11 @@ def _embed(params: Model, cfg, tokens):
     """The token rows of the embedding.  ``F.embedding``, whose backward on
     the card sums each row's gradients in a fixed order (an indexed gather's
     backward accumulates them with atomics), so training is bit for bit
-    repeatable."""
+    repeatable.  A rank's model looks its tokens up vocab-parallel."""
+    if params.mesh is not None:
+        table = tp.view(params, params.mesh, recurse=False).embed
+        return tp.embed_lookup(table, tokens, params.mesh).to(
+            DTYPES[cfg.dtype])
     return F.embedding(tokens.to(torch.int64), params.embed).to(
         DTYPES[cfg.dtype])
 
@@ -223,7 +370,14 @@ def _head(params: Model, cfg):
 
 
 def logits_fn(params: Model, cfg, x):
-    """Full float32 logits over the padded vocabulary."""
+    """Full float32 logits over the padded vocabulary; a rank's model gives
+    its vocabulary block (``tp.gather_vocab`` joins them)."""
+    if params.mesh is not None:
+        top = tp.view(params, params.mesh, recurse=False)
+        norm = tp.view(params.final_norm, params.mesh)
+        head = top.embed if cfg.tie_embeddings else top.head
+        h = rms_norm(x, norm.scale, cfg.norm_eps)
+        return h.to(F32) @ head.to(F32).T
     h = rms_norm(x, params.final_norm.scale, cfg.norm_eps)
     return h.to(F32) @ _head(params, cfg).to(F32).T
 
@@ -281,15 +435,17 @@ def loss_fn(params: Model, cfg, batch):
 # ---------------------------------------------------------------------------
 
 def make_decode_ctx(cfg, serve_cfg, B, mesh=None):
-    """Page-pool geometry for a decode batch, as JAX's ``make_decode_ctx``
-    computes it.
+    """Page-pool geometry and channel topology for a decode batch, as JAX's
+    ``make_decode_ctx`` computes them.
 
-    ``mesh`` is None or a JAX mesh's shape, an ordered {axis name: size}
-    mapping (``dict(mesh.shape)``).  With a mesh, JAX groups sequences by
-    batch shard and spreads a sequence's pages over the channel axes; the
-    port holds one card, so it takes meshes of one batch group and one
-    channel (JAX's serving CLI default, ``(1, 1)``), whose geometry equals
-    the unsharded one, and refuses the rest (ROADMAP Queue 1 item 16b).
+    ``mesh`` is None, a shape {axis: size} in mesh order, or a
+    ``launch.mesh.ModelMesh`` (the ctx then decodes over its ranks).
+    Grouped layout (``core/paged_kv.py``): sequences are grouped by their
+    batch shard and a sequence's pages spread over the channel axes; where
+    the batch cannot shard (long-context B=1, or one batch group), every
+    mesh axis is a channel, and the page halves (down to 16 tokens) while
+    the channels outnumber a sequence's pages.  The pages a sequence round
+    up to a multiple of the channels, and the pool to the shard count.
     Sliding-window archs bound the live horizon to the window."""
     pt = serve_cfg.kv_page_tokens
     horizon = serve_cfg.shape.seq_len
@@ -299,25 +455,27 @@ def make_decode_ctx(cfg, serve_cfg, B, mesh=None):
         n_pages = max(1, (horizon + pt - 1) // pt)
         return transformer.DecodeCtx(page_tokens=pt, n_pages=n_pages,
                                      pool_pages=B * n_pages)
-    names = tuple(mesh)
-    baxes = tuple(a for a in ("pod", "data") if a in names)
-    d_batch = int(np.prod([mesh[a] for a in baxes]))
+    shape = sharding.mesh_shape(mesh)
+    names = tuple(shape)
+    baxes = tuple(a for a in sharding.BATCH_AXES if a in names)
+    d_batch = math.prod(shape[a] for a in baxes)
     if B % d_batch == 0 and d_batch > 1:
         batch_axes, channel_axes = baxes, ("model",)
     else:
         batch_axes, channel_axes = (), names
-    dm = int(np.prod([mesh[a] for a in channel_axes]))
-    n_shards = d_batch * dm if batch_axes else dm
-    if n_shards > 1:
-        raise NotImplementedError(
-            f"a decode mesh of {dict(mesh)} spreads the KV pages over "
-            f"{n_shards} shards; the port decodes on one card (channels "
-            f"across cards: ROADMAP Queue 1 item 16b)")
+    dm = math.prod(shape[a] for a in channel_axes)
+    # adapt page size so every channel holds >=1 page without overallocation
+    while pt > 16 and (horizon + pt - 1) // pt < dm:
+        pt //= 2
     n_pages = max(1, (horizon + pt - 1) // pt)
+    n_pages = ((n_pages + dm - 1) // dm) * dm
+    n_shards = d_batch * dm if batch_axes else dm
+    pool = B * n_pages
+    pool = ((pool + n_shards - 1) // n_shards) * n_shards
     return transformer.DecodeCtx(
-        page_tokens=pt, n_pages=n_pages, pool_pages=B * n_pages,
+        page_tokens=pt, n_pages=n_pages, pool_pages=pool,
         batch_axes=batch_axes, channel_axes=channel_axes,
-        pages_per_shard=B * n_pages)
+        pages_per_shard=pool // n_shards, mesh=mesh)
 
 
 def init_decode_states(params: Model, cfg, B, ctx, kv_dtype=torch.bfloat16,
@@ -344,7 +502,11 @@ def decode_step(params: Model, cfg, states, tokens, pos, block_table, ctx):
     """One token for every sequence.  tokens (B,1) -> logits (B,1,V); the
     states' pools are written in place, and the new states (the pools, the
     recurrent layers' new states, encdec's cross K/V) returned.  A vlm
-    decodes tokens only, as JAX's does."""
+    decodes tokens only, as JAX's does.  On a rank (``ctx.ranked``, a model
+    from ``shard_params``) the inputs are its batch group's rows, the
+    states its pool slices, and the logits its vocabulary block; the dense
+    family only (``refuse_sharded_decode``)."""
+    refuse_sharded_decode(cfg, ctx.mesh)
     x = _embed(params, cfg, tokens)
     if cfg.is_encoder_decoder:
         x, new_states = encdec.decode_step_stack(

@@ -21,7 +21,7 @@ token's k contributions in ascending expert order, JAX's CPU scatter-add
 order, one rounding an addition.
 
 JAX's expert-parallel dispatch (``_local_route``, ``apply_ep``) needs a mesh
-across cards and waits for ROADMAP Queue 1 item 16b.
+across cards and waits for ROADMAP Queue 1 item 16b-ii.
 """
 from __future__ import annotations
 
@@ -37,6 +37,11 @@ class MoE(nn.Module):
     """``{"router": (d, E), "gate", "up": (E, d, ff), "down": (E, ff, d)}``
     and, with shared experts, ``shared``: a SwiGLU of width ff x their
     number."""
+
+    AXES = {"router": ("embed", "expert"),
+            "gate": ("expert", "embed", "mlp"),
+            "up": ("expert", "embed", "mlp"),
+            "down": ("expert", "mlp", "embed")}
 
     def __init__(self, cfg, device=None, dtype=F32):
         super().__init__()

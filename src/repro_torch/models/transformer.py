@@ -14,10 +14,14 @@ pools of an attention layer, the conv and SSM states of a mamba layer, the
 (C, n, m) of an mLSTM and the (c, n, h, m) of an sLSTM) through the same
 loop; attention layers read and write the HashMem-managed paged cache
 (``core/paged_kv.py``) through its gather path.  JAX decodes through
-``shard_map`` when the decode context is sharded; the port runs on one
-card, where a context has one channel and one batch group and the sharded
-path computes what the gather path does.  The encoder-decoder family has
-stacks of its own (``models/encdec.py``).
+``shard_map`` when the decode context is sharded; the port does so when the
+context's mesh is a ``ModelMesh`` of ranks (``DecodeCtx.ranked``): each
+rank appends to and attends over its slice of every pool
+(``paged_kv.append_sharded``, ``decode_attention_sharded``), and runs the
+dense layers tensor-parallel (``distributed/tensor_parallel.py``).  On one
+device a context of any mesh shape decodes through the gather path, which
+computes what the channels do.  The encoder-decoder family has stacks of
+its own (``models/encdec.py``).
 """
 from __future__ import annotations
 
@@ -30,6 +34,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import paged_kv
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.launch.mesh import ModelMesh
 from repro_torch.models import attention, mamba, mlp, moe, xlstm
 from repro_torch.models.layers import F32, RMSNorm, rms_norm
 
@@ -68,18 +74,40 @@ def ffn_kind(cfg, i: int) -> Optional[str]:
 
 @dataclass(frozen=True)
 class DecodeCtx:
-    """Paged-decode context: page pool geometry and the JAX channel
-    topology it was derived from.
+    """Paged-decode context: page pool geometry and channel topology.
 
-    ``batch_axes``/``channel_axes``/``pages_per_shard`` are those JAX's
-    ``make_decode_ctx`` gives for the same mesh shape; the port holds one
-    channel and one batch group (``models.model.make_decode_ctx``)."""
+    batch_axes: mesh axes the decode batch is sharded over (sequences are
+    grouped per shard); channel_axes: mesh axes pages are spread over (the
+    paper's memory channels).  Empty batch_axes (long-context B=1) makes
+    every mesh axis a channel.  pages_per_shard follows the grouped pool
+    layout in ``core/paged_kv.py``.  ``mesh``: the shape or ``ModelMesh``
+    it was built for (``models.model.make_decode_ctx``); None, one device's
+    gather path."""
     page_tokens: int
     n_pages: int          # block-table width (logical pages per sequence)
     pool_pages: int       # physical pool size (global)
     batch_axes: tuple = ()
     channel_axes: tuple = ()
     pages_per_shard: int = 0
+    mesh: Optional[object] = None
+
+    @property
+    def sharded(self) -> bool:
+        return self.mesh is not None and bool(self.channel_axes)
+
+    @property
+    def ranked(self) -> bool:
+        """Decodes over the ranks of a ``ModelMesh``: each rank its batch
+        group's rows and its slice of every pool."""
+        return isinstance(self.mesh, ModelMesh)
+
+    def local_batch(self, B: int) -> slice:
+        """The rows of a batch of ``B`` that this rank decodes."""
+        if not self.ranked or not self.batch_axes:
+            return slice(0, B)
+        n = B // self.mesh.size(self.batch_axes)
+        g = self.mesh.index(self.batch_axes)
+        return slice(g * n, (g + 1) * n)
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +238,9 @@ def init_decode_states(cfg, B: int, ctx: DecodeCtx, kv_dtype=torch.bfloat16,
     position): an attention layer's ``{"k_pool", "v_pool"}``, each
     (pool_pages, page_tokens, K, hd) zeros; for ``B`` sequences a mamba
     layer's ``{"conv", "ssm"}`` (``mamba.init_state``), an mLSTM's ``{"C",
-    "n", "m"}`` and an sLSTM's ``{"c", "n", "h", "m"}``, float32 zeros."""
+    "n", "m"}`` and an sLSTM's ``{"c", "n", "h", "m"}``, float32 zeros.
+    On a rank (``ctx.ranked``) a pool is its slice, ``pages_per_shard``
+    pages."""
     states = {"mamba": mamba.init_state, "mlstm": xlstm.init_mlstm_state,
               "slstm": xlstm.init_slstm_state}
     out = []
@@ -220,29 +250,59 @@ def init_decode_states(cfg, B: int, ctx: DecodeCtx, kv_dtype=torch.bfloat16,
             out.append(states[kind](cfg, B, device=device))
             continue
         k_pool, v_pool = paged_kv.init_pool(
-            ctx.pool_pages, ctx.page_tokens, cfg.num_kv_heads, cfg.head_dim,
-            kv_dtype, device)
+            ctx.pages_per_shard if ctx.ranked else ctx.pool_pages,
+            ctx.page_tokens, cfg.num_kv_heads, cfg.head_dim, kv_dtype,
+            device)
         out.append({"k_pool": k_pool, "v_pool": v_pool})
     return out
 
 
 def _paged_attn_sub(p_attn, cfg, h, state, block_table, pos, ctx):
-    """Single-token attention sublayer against the paged cache (the
-    unsharded branch of JAX's; the pools are written in place)."""
-    del ctx
+    """Single-token attention sublayer against the paged cache; the pools
+    are written in place.  On a rank (JAX's ``shard_map`` branch): ``q``,
+    ``k_new`` and ``v_new`` come out with the rank's heads and are
+    gathered whole by head, enter the channel body whole for the local
+    batch, and ``o`` is cut to the rank's heads for the row-parallel
+    ``wo``.  ``ctx`` None is one device's."""
+    ranked = ctx is not None and ctx.ranked
     positions = pos[:, None]                                    # (B,1)
     q, k_new, v_new = attention.qkv(p_attn, cfg, h, positions)
+    if ranked:
+        q, k_new, v_new = tp.gather_heads(
+            ctx.mesh, [(q, p_attn.wq), (k_new, p_attn.wk),
+                       (v_new, p_attn.wv)])
     kd = state["k_pool"].dtype
     k_new, v_new = k_new.to(kd), v_new.to(kd)
-    k_pool, v_pool = paged_kv.append(
-        state["k_pool"], state["v_pool"], block_table, pos, k_new, v_new)
-    o = paged_kv.paged_decode_attention(
-        q, k_pool, v_pool, block_table, pos, cfg)
-    sub = attention.out_proj(p_attn, cfg, o)
+    if not ranked:
+        k_pool, v_pool = paged_kv.append(
+            state["k_pool"], state["v_pool"], block_table, pos, k_new, v_new)
+        o = paged_kv.paged_decode_attention(
+            q, k_pool, v_pool, block_table, pos, cfg)
+        return attention.out_proj(p_attn, cfg, o), \
+            {"k_pool": k_pool, "v_pool": v_pool}
+    mesh, ba, ca = ctx.mesh, ctx.batch_axes, ctx.channel_axes
+    pps = ctx.pages_per_shard
+    k_pool, v_pool = paged_kv.append_sharded(
+        state["k_pool"], state["v_pool"], block_table, pos, k_new, v_new,
+        mesh, ba, ca, pps)
+    o = paged_kv.decode_attention_sharded(
+        q, k_pool, v_pool, block_table, pos, cfg, mesh, ba, ca, pps)
+    o = tp.narrow_to(o, 2, p_attn.wo, 0, mesh)
+    sub = tp.reduce_partial(attention.out_proj(p_attn, cfg, o), p_attn.wo,
+                            0, mesh)
     return sub, {"k_pool": k_pool, "v_pool": v_pool}
 
 
+def _swiglu(p, x, ctx):
+    """The SwiGLU, on a rank with ``gate``/``up`` column-parallel and
+    ``down`` row-parallel."""
+    y = mlp.swiglu(p, x)
+    return tp.reduce_partial(y, p.down, 0, ctx.mesh) if ctx.ranked else y
+
+
 def _apply_layer_decode(p: Layer, cfg, x, state, block_table, pos, ctx):
+    if ctx.ranked:
+        p = tp.view(p, ctx.mesh)   # the layer's FSDP dimensions whole
     h = rms_norm(x, p.norm1.scale, cfg.norm_eps)
     if hasattr(p, "attn"):
         sub, state = _paged_attn_sub(p.attn, cfg, h, state, block_table,
@@ -262,7 +322,7 @@ def _apply_layer_decode(p: Layer, cfg, x, state, block_table, pos, ctx):
         # of B tokens, as in JAX
         y, _ = moe.apply(p.ffn_moe, cfg, h2)
     else:
-        y = mlp.swiglu(p.ffn, h2)
+        y = _swiglu(p.ffn, h2, ctx)
     return x + y, state
 
 

@@ -38,6 +38,12 @@ class MLSTM(nn.Module):
     """``{"wup": (d, 2d), "wq", "wk", "wv": (d, H, dh), "wi", "wf": (d, H),
     "gn_scale": (H, dh), "wdown": (d, d)}``."""
 
+    AXES = {"wup": ("embed", "mlp"), "wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "heads", "head_dim"),
+            "wv": ("embed", "heads", "head_dim"), "wi": ("embed", "heads"),
+            "wf": ("embed", "heads"), "gn_scale": ("heads", "head_dim"),
+            "wdown": ("mlp", "embed")}
+
     def __init__(self, cfg, device=None, dtype=F32):
         super().__init__()
         d, H, dh = cfg.d_model, cfg.num_heads, cfg.head_dim
@@ -217,6 +223,12 @@ class SLSTM(nn.Module):
     """``{"wg": (d, 4, H, dh), "rg": (4, H, dh, dh), "bg": (4, H, dh),
     "gn_scale": (H, dh), "up1", "up2": (d, ff), "down": (ff, d)}``; the
     gates in the order i, f, z, o."""
+
+    AXES = {"wg": ("embed", "conv", "heads", "head_dim"),
+            "rg": ("conv", "heads", "head_dim", "head_dim"),
+            "bg": ("conv", "heads", "head_dim"),
+            "gn_scale": ("heads", "head_dim"), "up1": ("embed", "mlp"),
+            "up2": ("embed", "mlp"), "down": ("mlp", "embed")}
 
     def __init__(self, cfg, device=None, dtype=F32):
         super().__init__()

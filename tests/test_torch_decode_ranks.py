@@ -1,0 +1,200 @@
+"""Decode over a ("data", "model") mesh of ranks (``launch.mesh.ModelMesh``,
+``torch.distributed`` over gloo on the CPU) against the JAX package's
+decode on a mesh of four forced XLA devices, on (1, 4) and (2, 2).
+
+ONE world of 4 spawned CPU ranks runs every case of ``tests/decode_cases.py``
+on both meshes while ONE JAX subprocess runs JAX's side of them; both start
+from the same JAX parameters (drawn here, written to ``.npz``; the ranks
+carry them across with ``params_from_numpy`` and ``shard_params``):
+  * ``append_sharded`` and ``decode_attention_sharded`` on each rank
+    against JAX's inside ``shard_map``: the output rows within 1e-5, the
+    pools, joined in the grouped order, equal;
+  * 8 float32 ``decode_step``s through the serve step: every rank's logits
+    rows within 1e-5 of JAX's, the greedy tokens equal, the pools joined
+    within 1e-5 (qwen3-8b smoke at 2 layers on both meshes, and its
+    2-KV-head variant, whose ``wk``/``wv`` the rules replicate on 4
+    ranks);
+  * ``serve``: every rank's outputs and steps equal JAX's ``serve`` on
+    the same mesh, and every rank's page-table trace (so its block
+    tables), leaves and free lists equal rank 0's;
+  * ``init_params_sharded``: every rank's blocks equal the slices of
+    ``init_params`` on the same device;
+  * every family but dense refuses to decode over ranks, naming ROADMAP
+    item 16b-ii;
+  * the CLI's ``--mesh 2 2`` serves from four rank processes.
+float32 on both sides; the tolerance covers the order of the partial
+sums."""
+import os
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import smoke_config as j_smoke_config
+from repro.models import model as jmodel
+
+from repro_torch.configs import ServeConfig, ShapeConfig, smoke_config
+from repro_torch.distributed import sharding, steps
+from repro_torch.launch.mesh import ModelMesh, spawn_ranks
+from repro_torch.models import model
+from repro_torch.models.layers import flatten_tree
+
+import decode_cases as dc
+
+TOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """(JAX's outputs, each rank's results)."""
+    tmp = str(tmp_path_factory.mktemp("decode"))
+    models = {(dc.SERVE_ARCH, ())} | {
+        (arch, tuple(sorted(over.items())))
+        for arch, _, over in dc.LOGITS_CASES.values()}
+    init = jax.jit(jmodel.init_params, static_argnums=0)
+    for arch, over in sorted(models):
+        jcfg = j_smoke_config(arch).replace(dtype="float32", **dc.LAYERS,
+                                            **dict(over))
+        tree = jax.tree.map(np.asarray, init(jcfg, jax.random.PRNGKey(0)))
+        np.savez(dc.params_path(tmp, arch, dict(over)), **flatten_tree(tree))
+    proc = dc.start_jax_side(tmp)
+    try:
+        with ThreadPoolExecutor(1) as ex:
+            ranks = ex.submit(spawn_ranks, dc.decode_world, dc.WORLD, tmp,
+                              device="cpu", timeout=300).result()
+    except BaseException:
+        proc[0].kill()
+        raise
+    return dc.finish_jax_side(proc), ranks
+
+
+@pytest.mark.parametrize("name", list(dc.ATTN_CASES))
+def test_channel_parallel_cache_matches_jax(name, worlds):
+    jax_out, ranks = worlds
+    res = [r[f"attn/{name}"] for r in ranks]
+    # the grouped order, flat = g * Dm + m, is the rank's on a 2-D mesh
+    assert [r["flat"] for r in res] == list(range(dc.WORLD))
+    want = jax_out[f"attn/{name}/o"]
+    for r in res:
+        a, b = r["rows"]
+        np.testing.assert_allclose(r["o"], want[a:b], rtol=0, atol=TOL)
+    for pool in ("k_pool", "v_pool"):
+        np.testing.assert_array_equal(
+            np.concatenate([r[pool] for r in res]),
+            jax_out[f"attn/{name}/{pool}"])
+
+
+@pytest.mark.parametrize("name", list(dc.LOGITS_CASES))
+def test_decode_step_logits_match_jax(name, worlds):
+    jax_out, ranks = worlds
+    res = [r[f"logits/{name}"] for r in ranks]
+    want = jax_out[f"logits/{name}/logits"]
+    for r in res:
+        a, b = r["rows"]
+        assert r["logits"].shape == want[:, a:b].shape
+        np.testing.assert_allclose(r["logits"], want[:, a:b], rtol=0,
+                                   atol=TOL)
+        np.testing.assert_array_equal(r["next"],
+                                      jax_out[f"logits/{name}/next"])
+    for i in range(len(res[0]["pools"])):
+        got = np.concatenate([r["pools"][i] for r in res])
+        jp = jax_out[f"logits/{name}/pool{i}"]
+        np.testing.assert_allclose(got, jp, rtol=0, atol=TOL)
+        assert np.array_equal(got.any(axis=(1, 2, 3)),
+                              jp.any(axis=(1, 2, 3)))
+    arch, mesh, over, _, _ = dc.logits_inputs(name)
+    cfg = dc.torch_config(arch, over)
+    specs, shapes = res[0]["specs"], res[0]["shapes"]
+    M = dc.MESHES[mesh]["model"]
+    assert specs["units.0.j0.attn.wq"][1] == "model"
+    assert shapes["units.0.j0.attn.wq"][1] == cfg.num_heads // M
+    kv_split = cfg.num_kv_heads % M == 0
+    assert (specs["units.0.j0.attn.wk"][1:2] == ("model",)) == kv_split
+    assert shapes["units.0.j0.attn.wk"][1] == \
+        cfg.num_kv_heads // (M if kv_split else 1)
+    if name == "qwen3-kv2-1x4":
+        assert not kv_split
+
+
+@pytest.mark.parametrize("name", list(dc.SERVE_CASES))
+def test_serve_over_ranks_matches_jax(name, worlds):
+    jax_out, ranks = worlds
+    res = [r[f"serve/{name}"] for r in ranks]
+    want = {int(k.rsplit("out", 1)[1]): v.tolist()
+            for k, v in jax_out.items() if k.startswith(f"serve/{name}/out")}
+    assert len(want) == dc.SERVE["requests"]
+    for r, got in enumerate(res):
+        assert got["out"] == want, f"rank {r}"
+        assert got["steps"] == int(jax_out[f"serve/{name}/steps"])
+        assert got["events"][2] == 0
+        assert got["log"] == res[0]["log"], f"rank {r}: block tables differ"
+        assert got["free"] == res[0]["free"]
+        assert got["leaves"].keys() == res[0]["leaves"].keys()
+        for n, a in got["leaves"].items():
+            np.testing.assert_array_equal(a, res[0]["leaves"][n], err_msg=n)
+
+
+@pytest.mark.parametrize("name", list(dc.MESHES))
+def test_init_params_sharded_equals_slices(name, worlds):
+    _, ranks = worlds
+    cfg = dc.torch_config(dc.INIT_ARCH, {})
+    full = dict(model.init_params(cfg, 3, "cpu").named_parameters())
+    axes = model.leaf_axes(model.Model(cfg, "meta"))
+    shape = dc.MESHES[name]
+    for r, res in enumerate(ranks):
+        mesh = ModelMesh(shape, r, res["coords"][name], torch.device("cpu"),
+                         "gloo", {})
+        got = res[f"init/{name}"]
+        assert got.keys() == full.keys()
+        for n, w in full.items():
+            spec = sharding.spec_for(shape, axes[n], w.shape)
+            want = sharding.local_block(w.detach(), spec, mesh).numpy()
+            np.testing.assert_array_equal(got[n], want, err_msg=n)
+            assert got[n].size * mesh.size(
+                [a for e in spec for a in sharding.entry_axes(e)]) == w.numel()
+
+
+def test_other_families_refuse_to_decode_over_ranks(worlds):
+    _, ranks = worlds
+    for r in ranks:
+        assert set(r["refuse"]) == set(dc.REFUSED)
+        for arch, msg in r["refuse"].items():
+            assert msg.startswith("NotImplementedError") and "16b-ii" in msg, \
+                (arch, msg)
+    for arch in dc.REFUSED:
+        cfg = smoke_config(arch)
+        scfg = ServeConfig(model=cfg, shape=ShapeConfig("t", 16, 2, "decode"),
+                           kv_page_tokens=8)
+        with pytest.raises(NotImplementedError, match="16b-ii"):
+            steps.build_serve_step(cfg, scfg, mesh={"data": 1, "model": 2})
+        steps.build_serve_step(cfg, scfg, mesh={"data": 1, "model": 1})
+
+
+def test_collectives_are_counted(worlds):
+    _, ranks = worlds
+    for r in ranks:
+        for name, st in r["collectives"].items():
+            assert st["calls"] > 0 and st["bytes"] > 0, name
+
+
+def test_serve_cli_decodes_over_a_mesh_of_ranks():
+    """``--mesh 2 2``: four rank processes on the CPU (gloo) serve every
+    request and drain the page table; rank 0 alone prints.  (The smoke
+    config decodes in bfloat16, whose row-parallel partial sums round
+    apart from one device's; the float32 cases above hold the tokens.)"""
+    args = ["--arch", "qwen3-8b", "--smoke", "--device", "cpu", "--requests",
+            "3", "--batch", "2", "--max-new", "3", "--horizon", "32",
+            "--page-tokens", "8"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(dc.ROOT, "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                        *args, "--mesh", "2", "2"], capture_output=True,
+                       text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    assert sum(ln.startswith("served 3 requests") for ln in lines) == 1
+    assert "live pages after drain: 0" in r.stdout
+    assert sum("-> out [" in ln for ln in lines) == 3

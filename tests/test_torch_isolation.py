@@ -65,7 +65,8 @@ def test_importing_the_port_loads_no_jax():
         "        'repro_torch.launch.train', 'repro_torch.train_lm',\n"
         "        'repro_torch.serving.engine', 'repro_torch.launch.serve',\n"
         "        'repro_torch.data.kv_synth',\n"
-        "        'repro_torch.configs.hashmem_paper'}\n"
+        "        'repro_torch.configs.hashmem_paper',\n"
+        "        'repro_torch.distributed.tensor_parallel'}\n"
         "assert want <= set(mods), want - set(mods)\n"
         "from repro_torch.launch import mesh\n"
         "from repro_torch.core import rlu\n"
@@ -73,6 +74,8 @@ def test_importing_the_port_loads_no_jax():
         "from repro_torch.data import kv_synth\n"
         "from repro_torch.configs import hashmem_paper\n"
         "need = [(mesh, 'RankMesh'), (mesh, 'make_rank_mesh'),\n"
+        "        (mesh, 'ModelMesh'), (mesh, 'make_model_mesh'),\n"
+        "        (mesh, 'make_production_mesh'),\n"
         "        (mesh, 'spawn_ranks'), (mesh, 'sub_mesh'),\n"
         "        (rlu, '_exchange'), (rlu, '_send_back'),\n"
         "        (engine, '_RankShards'), (kv_synth, 'churn_workload'),\n"

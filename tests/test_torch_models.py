@@ -370,12 +370,27 @@ def test_make_decode_ctx_matches_jax(arch, horizon, pt, batch, with_mesh):
         assert ctx.n_pages <= (cfg.sliding_window + pt) // pt + 1
 
 
-def test_make_decode_ctx_refuses_more_than_one_shard():
-    cfg = smoke_config("llama3-8b")
-    scfg = ServeConfig(model=cfg, shape=ShapeConfig("t", 64, 4, "decode"),
-                       kv_page_tokens=8)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        model.make_decode_ctx(cfg, scfg, 4, mesh={"data": 2, "model": 1})
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2), (2, 2), (1, 4)])
+def test_make_decode_ctx_on_more_than_one_shard_matches_jax(shape):
+    """A mesh of more than one shard gives JAX's geometry: batch groups
+    where the batch divides, the page halved while the channels outnumber
+    a sequence's pages, pages and pool rounded up to the channels and
+    shards (``tests/test_torch_sharding.py`` covers more meshes)."""
+    from jax.sharding import AbstractMesh
+    jmesh = AbstractMesh(shape, ("data", "model"))
+    for arch, horizon, pt, batch in [("llama3-8b", 64, 8, 4),
+                                     ("llama3-8b", 100, 64, 3),
+                                     ("h2o-danube-1.8b", 40, 8, 2)]:
+        jcfg, cfg = j_smoke_config(arch), smoke_config(arch)
+        jctx = jmodel.make_decode_ctx(jcfg, JServeConfig(
+            model=jcfg, shape=JShapeConfig("t", horizon, batch, "decode"),
+            kv_page_tokens=pt), batch, mesh=jmesh)
+        ctx = model.make_decode_ctx(cfg, ServeConfig(
+            model=cfg, shape=ShapeConfig("t", horizon, batch, "decode"),
+            kv_page_tokens=pt), batch, mesh=dict(jmesh.shape))
+        assert {f: getattr(ctx, f) for f in CTX_FIELDS} == \
+            {f: getattr(jctx, f) for f in CTX_FIELDS}
+        assert ctx.sharded and jctx.sharded
 
 
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "whisper-tiny",

@@ -56,6 +56,24 @@ def test_failure_restart_resumes_identically(tmp_path):
         assert torch.equal(o_ref["v"][n], o_ft["v"][n]), n
 
 
+def test_train_without_a_checkpoint_dir(tmp_path, monkeypatch):
+    """``ckpt_dir=None`` trains the same steps and writes nothing."""
+    monkeypatch.chdir(tmp_path)
+    cfg = smoke_config("llama3-8b")
+    shape = ShapeConfig("t", 64, 4, "train")
+    oc = OptimConfig(lr=1e-3, warmup_steps=2, total_steps=6)
+    p_ref, _, losses_ref, _, _ = ttrain.train(
+        cfg, shape, oc, num_steps=6, ckpt_dir=str(tmp_path / "a"),
+        ckpt_every=2, verbose=False, device=CPU)
+    p, _, losses, _, _ = ttrain.train(
+        cfg, shape, oc, num_steps=6, ckpt_dir=None, ckpt_every=2,
+        verbose=False, device=CPU)
+    assert losses == losses_ref
+    for (n, a), (_, b) in zip(p_ref.named_parameters(), p.named_parameters()):
+        assert torch.equal(a, b), n
+    assert sorted(q.name for q in tmp_path.iterdir()) == ["a"]
+
+
 def test_grad_compression_trains(tmp_path):
     cfg = smoke_config("llama3-8b")
     oc = OptimConfig(lr=1e-3, warmup_steps=2, total_steps=12)
