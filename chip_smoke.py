@@ -178,7 +178,26 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      divergence must be within the bfloat16 rounding bound ``TopLogits``
      states); (c) with four cards, (b) again over NCCL, a card a rank; the
      ``kernels`` line adds every rank's launches;
- 16. prints the device line last.
+ 16. trains over ("data", "model") meshes of 4 rank processes (gloo with
+     every rank on the one card): (a) qwen3-8b at ``smoke_config`` widths,
+     2 layers, float32, on (2, 2) with ``seq_shard`` (2 steps), with 2 KV
+     heads on (1, 4) and int8 compression, olmoe-1b-7b with
+     ``moe_impl="gspmd"`` and with ``"ep"`` at capacity_factor = E (no
+     drops) on (2, 2), and internvl2-2b on (2, 2), each rank drawing its
+     blocks (``init_train_state``), against the port's one-card step from
+     the same draw: loss, grad norm and aux terms within 1e-5 relative,
+     ``moe_dropped`` equal, every gradient block within 1e-5 of its leaf's
+     largest, the stepped parameters; the first case's step-1 state saved
+     by the ranks' ``Checkpointer``, read back on one card (the gathered
+     blocks, bit for bit) and on (1, 4) (each rank's block), and the step
+     resumed from it bit-equal to the uninterrupted one; (b) OLMoE-1B-7B at
+     its published widths, 4 of 16 layers, with expert parallelism on
+     (2, 2), 3 steps at batch 4 x 4096 through ``launch.train.train``: ms
+     a step, tokens/s, FLOP share, collectives a step by kind, the MoE
+     terms by step, peak a rank, a finite and falling loss; (c) with four
+     cards, (b) at all 16 layers over NCCL, a card a rank.  It launches
+     no probe kernel;
+ 17. prints the device line last.
 
 Any failed check raises and the script exits non-zero.  Without a card, or
 without the rest of the repo beside it, it exits non-zero and prints no
@@ -4431,13 +4450,13 @@ def rank_paper_decode(mesh, k):
     cfg = configs.get_config(DECODE_ARCH)
     reset_launches(k)
     torch.cuda.reset_peak_memory_stats(dev)
-    before = dict(mesh.collectives)
+    before = collective_counts(mesh)
     with DecodeTimer() as timer:
         done, smgr, n_steps = serve.serve(cfg, mesh=mesh, seed=0,
                                           verbose=False, **DECODE_RANK_SERVE)
         sync()
         wall = time.perf_counter() - timer.t_first
-    coll = {key: mesh.collectives[key] - before[key] for key in before}
+    coll = collectives_since(mesh, before)
     return dict(init_s=init_s, n_local=n_local, tf=tf,
                 tf_launches=tf_launches, outs={r["id"]: r["out"]
                                                for r in done},
@@ -4598,7 +4617,8 @@ def check_paper_ranks(outs, label, smi, one_card_ms):
           f"kB sent by rank 0, host ms in them a step by rank "
           f"{[round(c['seconds'] / steps * 1e3, 3) for c in colls]} "
           f"({colls[0]['seconds'] / papers[0]['wall'] * 100:.1f}% of rank "
-          f"0's serve); "
+          f"0's serve; by kind a step on rank 0: "
+          f"{kinds_line(colls[0]['by_kind'], steps)}); "
           f"page-table host ms a step {papers[0]['table_ms'] / steps:.3f}; "
           f"probe_perf launches by rank "
           f"{[p['tf_launches'] + p['launches'] for p in papers]}; peak a "
@@ -4660,6 +4680,494 @@ def decode_ranks_path(smi):
           f"exit; in the ranks (a) {max(o['small_s'] for o in outs):.3f} s, "
           f"(b) {max(o['paper_s'] for o in outs):.3f} s); card: {smi}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 16. training over a (data, model) mesh of ranks
+# ---------------------------------------------------------------------------
+
+def collective_counts(mesh) -> dict:
+    """A copy of ``mesh.collectives``: the totals and each kind's."""
+    import copy
+    return copy.deepcopy(mesh.collectives)
+
+
+def collectives_since(mesh, before) -> dict:
+    """``mesh.collectives`` less ``before``: totals and by kind."""
+    now = mesh.collectives
+    out = {k: now[k] - before[k] for k in ("calls", "bytes", "seconds")}
+    zero = {"calls": 0, "bytes": 0, "seconds": 0.0}
+    out["by_kind"] = {kind: {k: v[k] - before["by_kind"].get(kind, zero)[k]
+                             for k in zero}
+                      for kind, v in now["by_kind"].items()}
+    out["by_kind"] = {k: v for k, v in out["by_kind"].items() if v["calls"]}
+    return out
+
+
+def kinds_line(by_kind, steps) -> str:
+    """Calls, MB sent and host ms a step of each kind/pass."""
+    return ", ".join(
+        f"{k} {v['calls'] / steps:.1f} x {v['bytes'] / max(v['calls'], 1) / 1e6:.3f} "
+        f"MB, {v['seconds'] / steps * 1e3:.1f} ms"
+        for k, v in sorted(by_kind.items()))
+
+
+TRAIN_RANK_SMALL = dict(batch=4, seq=64)
+TRAIN_RANK_TOL = 1e-5
+TRAIN_RANK_CKPT = "qwen3-8b@2x2"
+# (b): OLMoE-1B-7B at its published widths on (2, 2) with expert
+# parallelism, cut to 4 of 16 layers (1.885G params: 30.2 GB of float32
+# parameters, gradients and moments over the 4 ranks) at phase 12's
+# 4 x 4096, 3 steps (the first untimed), no checkpoint
+TRAIN_RANK_FULL = dict(arch="olmoe-1b-7b", mesh="2x2", depth=4, seq=4096,
+                       batch=4, steps=3)
+TRAIN_RANK_NCCL_DEPTH = 16       # (c): all 16 layers, a card a rank
+
+
+def train_rank_cases() -> list:
+    """(a): [(name, arch, mesh, config overrides, seq_shard, compression,
+    steps)] at smoke widths, 2 layers, float32.  EP at capacity_factor = E
+    drops nothing, so it equals the one-card (global) dispatch up to the
+    order of the additions."""
+    E = 8                                   # smoke_config's experts
+    return [
+        ("qwen3-8b@2x2", "qwen3-8b", "2x2", {}, True, "none", 2),
+        ("qwen3-8b-kv2@1x4", "qwen3-8b", "1x4", {"num_kv_heads": 2}, False,
+         "int8", 1),
+        ("olmoe-gspmd@2x2", "olmoe-1b-7b", "2x2", {}, True, "none", 1),
+        ("olmoe-ep@2x2", "olmoe-1b-7b", "2x2",
+         {"moe_impl": "ep", "capacity_factor": float(E)}, True, "none", 1),
+        ("internvl2-2b@2x2", "internvl2-2b", "2x2", {}, True, "none", 1)]
+
+
+def train_rank_batches(cfg, steps):
+    """The global batches of (a), pads in rows 0 and 2, as torch tensors on
+    the host."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import SyntheticLMData
+    data = SyntheticLMData(cfg, ShapeConfig("t", TRAIN_RANK_SMALL["seq"],
+                                            TRAIN_RANK_SMALL["batch"],
+                                            "train"))
+    out = []
+    for s in range(steps):
+        b = data.batch_at(s)
+        b["labels"][0, :10] = -100
+        b["labels"][2, -5:] = -100
+        out.append({k: torch.from_numpy(v) for k, v in b.items()})
+    return out
+
+
+def small_train_rank_references() -> dict:
+    """(a) on one card: each case's metrics, gradient and parameters after
+    every step of the port's one-card step from ``init_params(cfg, 0)``,
+    float32 with TF32 off (numpy, by parameter name)."""
+    import torch
+    from repro_torch.configs import OptimConfig
+    from repro_torch.distributed import steps
+    from repro_torch.models import model
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmuls are on: float32 training would not be float32")
+    out = {}
+    for name, arch, _, over, _, comp, n in train_rank_cases():
+        cfg = small_config(arch, over)
+        oc = OptimConfig(**TRAIN_OC)
+        params = model.init_params(cfg, 0, "cuda")
+        opt = steps.init_opt_state(params, oc)
+        step = steps.build_train_step(cfg, oc, grad_compression=comp)
+        batches = [{k: v.cuda() for k, v in b.items()}
+                   for b in train_rank_batches(cfg, n)]
+        _, _, grads = step.loss_and_grads(params, batches[0])
+        ref = dict(grads=_np_blocks(grads), metrics=[], params=[])
+        for b in batches:
+            params, opt, m = step(params, opt, b)
+            ref["metrics"].append({k: float(v) for k, v in m.items()})
+            ref["params"].append(_np_blocks(dict(params.named_parameters())))
+        out[name] = ref
+        del params, opt, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _np_blocks(named) -> dict:
+    """Host copies (never views of the tensors, which steps update in
+    place)."""
+    return {k: v.detach().cpu().numpy().copy() for k, v in named.items()}
+
+
+def rank_small_train(meshes):
+    """(a) on one rank: each case's gradient and steps from
+    ``init_params_sharded``; the checkpoint case saves its step-1 state,
+    restores it on (1, 4), and resumes its step 2 on its mesh."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import OptimConfig
+    from repro_torch.distributed import steps
+    from repro_torch.launch.train import _restore_tree_shapes
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmuls are on in a rank")
+    ckpt_dir = CKPT_ROOT / "train_ranks"
+    out = {}
+    for name, arch, mname, over, seq_shard, comp, n in train_rank_cases():
+        mesh = meshes[mname]
+        cfg = small_config(arch, over)
+        oc = OptimConfig(**TRAIN_OC)
+        params, opt = steps.init_train_state(cfg, oc, mesh, 0)
+        step = steps.build_train_step(cfg, oc, mesh, seq_shard=seq_shard,
+                                      grad_compression=comp)
+        batches = train_rank_batches(cfg, n)
+        _, _, grads = step.loss_and_grads(params, batches[0])
+        res = dict(grads=_np_blocks(grads), metrics=[], params=[],
+                   specs={k: p.spec for k, p in params.named_parameters()})
+        for s, b in enumerate(batches):
+            params, opt, m = step(params, opt, b)
+            res["metrics"].append({k: float(v) for k, v in m.items()})
+            res["params"].append(_np_blocks(dict(params.named_parameters())))
+            if name == TRAIN_RANK_CKPT and s == 0:
+                if mesh.rank == 0 and ckpt_dir.exists():
+                    shutil.rmtree(ckpt_dir)
+                t0 = time.perf_counter()
+                ck = Checkpointer(str(ckpt_dir), mesh=mesh)
+                ck.save(1, {"params": params, "opt": opt})
+                ck.wait()
+                res["save_s"] = time.perf_counter() - t0
+        if name == TRAIN_RANK_CKPT:
+            other = meshes["1x4"]
+            st = Checkpointer(str(ckpt_dir), mesh=other).restore(
+                1, _restore_tree_shapes(cfg, oc, other), mesh.device)
+            res["restored_1x4"] = _np_blocks(dict(
+                st["params"].named_parameters()))
+            res["specs_1x4"] = {k: p.spec for k, p in
+                                st["params"].named_parameters()}
+            ck = Checkpointer(str(ckpt_dir), mesh=mesh)
+            st = ck.restore(ck.latest_step(),
+                            _restore_tree_shapes(cfg, oc, mesh), mesh.device)
+            p2, _, m2 = step(st["params"], st["opt"], batches[1])
+            res["resumed"] = (_np_blocks(dict(p2.named_parameters())),
+                              {k: float(v) for k, v in m2.items()})
+        out[name] = res
+        del params, opt, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+class RankStepMeter:
+    """``steps.build_train_step`` wrapped for the length of a ``with``
+    block on a rank: each step timed between synchronises, its metrics
+    kept, and the mesh's collectives counted over it."""
+
+    def __init__(self, mesh, keys):
+        self.mesh, self.keys, self.rows = mesh, keys, []
+
+    def __enter__(self):
+        from repro_torch.distributed import steps
+        self._build = steps.build_train_step
+        meter = self
+
+        def build(*a, **kw):
+            fn = meter._build(*a, **kw)
+
+            def step(*sa, **skw):
+                sync()
+                before = collective_counts(meter.mesh)
+                t0 = time.perf_counter()
+                out = fn(*sa, **skw)
+                sync()
+                ms = (time.perf_counter() - t0) * 1e3
+                meter.rows.append(dict(
+                    ms=ms, coll=collectives_since(meter.mesh, before),
+                    **{k: float(out[2][k]) for k in meter.keys}))
+                return out
+            return step
+        steps.build_train_step = build
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed import steps
+        steps.build_train_step = self._build
+
+
+def rank_full_train(mesh, depth):
+    """(b) on one rank: OLMoE-1B-7B at its published widths, ``depth``
+    layers, expert parallelism, ``TRAIN_RANK_FULL``'s steps through
+    ``launch.train.train`` (no checkpoint)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch.train import train
+    f = TRAIN_RANK_FULL
+    cfg = configs.get_config(f["arch"]).replace(num_layers=depth,
+                                                moe_impl="ep")
+    shape = configs.ShapeConfig("train_4k_cut", f["seq"], f["batch"],
+                                "train")
+    oc = configs.OptimConfig(lr=3e-4, warmup_steps=f["steps"] // 5 + 1,
+                             total_steps=f["steps"])
+    keys = ("loss", "ce_loss", "moe_aux", "moe_z", "moe_dropped",
+            "grad_norm")
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    t0 = time.perf_counter()
+    with RankStepMeter(mesh, keys) as meter:
+        params, opt, losses, _, _ = train(
+            cfg, shape, oc, mesh, num_steps=f["steps"], ckpt_dir=None,
+            verbose=False)
+    run_s = time.perf_counter() - t0
+    n_local = sum(p.numel() for p in params.parameters())
+    p_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    state_gb = (2 * p_bytes + sum(   # the parameters, their gradients
+        t.numel() * t.element_size() for t in
+        list(opt["m"].values()) + list(opt["v"].values()))) / 1e9
+    del params, opt
+    torch.cuda.empty_cache()
+    return dict(rows=meter.rows, losses=[losses[s] for s in sorted(losses)],
+                run_s=run_s, n_local=n_local, state_gb=state_gb,
+                peak=torch.cuda.max_memory_allocated(mesh.device) / 2**30)
+
+
+def train_rank_main(world, parts, depth):
+    """Phase 16 on one rank: (a) and (b), or (b) alone (``parts``)."""
+    from repro_torch.launch.mesh import make_model_mesh
+    t_enter = time.time()
+    meshes = {n: make_model_mesh(world, s) for n, s in DECODE_MESHES.items()}
+    out = dict(device=str(world.device), backend=world.backend,
+               coords={n: m.coords for n, m in meshes.items()})
+    if "small" in parts:
+        t0 = time.perf_counter()
+        out["small"] = rank_small_train(meshes)
+        out["small_s"] = time.perf_counter() - t0
+    if "full" in parts:
+        t0 = time.perf_counter()
+        out["full"] = rank_full_train(meshes[TRAIN_RANK_FULL["mesh"]], depth)
+        out["full_s"] = time.perf_counter() - t0
+    out["span"] = (t_enter, time.time())
+    return out
+
+
+def _close_step(got, want, what):
+    check(set(got) == set(want), f"{what}: metrics {sorted(got)} are not "
+          f"one card's {sorted(want)}")
+    for k in ("loss", "ce_loss", "grad_norm", "lr", "moe_aux", "moe_z"):
+        if k in want:
+            check(abs(got[k] - want[k]) <= TRAIN_RANK_TOL * abs(want[k]),
+                  f"{what}: {k} {got[k]} against one card's {want[k]}")
+    if "moe_dropped" in want:
+        check(got["moe_dropped"] == want["moe_dropped"],
+              f"{what}: moe_dropped {got['moe_dropped']} against one card's "
+              f"{want['moe_dropped']}")
+
+
+def check_small_train_ranks(refs, outs):
+    """(a): every rank's metrics, gradient blocks and stepped parameter
+    blocks against the one-card references; the checkpoint's restore on
+    (1, 4) and on one card, and the resumed step.  Returns (cases, worst
+    gradient error over its leaf's largest, worst parameter error where
+    |g| >= 1e-6)."""
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import OptimConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import ModelMesh
+    from repro_torch.launch.train import _restore_tree_shapes
+    worst_g = worst_p = 0.0
+    flips = 0
+    for name, arch, mname, over, _, comp, n in train_rank_cases():
+        ref = refs[name]
+        for r, o in enumerate(outs):
+            got = o["small"][name]
+            mesh = ModelMesh(DECODE_MESHES[mname], r, o["coords"][mname],
+                             torch.device("cpu"), "", {})
+            for s in range(n):
+                _close_step(got["metrics"][s], ref["metrics"][s],
+                            f"{name} rank {r} step {s}")
+            lr = ref["metrics"][0]["lr"]
+            for k, g in got["grads"].items():
+                spec = got["specs"][k]
+                wg = ref["grads"][k]
+                scale = max(float(np.abs(wg).max()), 1e-30)
+                blk = sharding.local_block(torch.from_numpy(wg), spec,
+                                           mesh).numpy()
+                err = float(np.abs(g - blk).max()) / scale
+                worst_g = max(worst_g, err)
+                check(err <= TRAIN_RANK_TOL, f"{name} rank {r}: gradient of "
+                      f"{k} off by {err:.3e} of its largest")
+                for s in range(n):
+                    wp = sharding.local_block(torch.from_numpy(
+                        ref["params"][s][k]), spec, mesh).numpy()
+                    d = np.abs(got["params"][s][k] - wp)
+                    sure = np.abs(blk) >= 1e-6
+                    off = d[sure] > TRAIN_RANK_TOL
+                    if comp == "int8":
+                        # a gradient within rounding of a half step of the
+                        # int8 grid quantizes one step apart: AdamW's first
+                        # step then moves its element by lr or by nothing
+                        flips += int(off.sum())
+                    else:
+                        worst_p = max(worst_p, float(d[sure].max(initial=0)))
+                        check(not off.any(), f"{name} rank {r} step {s}: "
+                              f"parameter {k} off by {d[sure].max():.3e}")
+                    check(d.max() <= 2 * lr, f"{name} rank {r} step {s}: "
+                          f"parameter {k} off by {d.max():.3e}")
+    # the checkpoint: read back on one card it is the gathered blocks; on
+    # (1, 4) each rank's block of it; resumed, the step is bit-equal
+    name = TRAIN_RANK_CKPT
+    arch, over = [(c[1], c[3]) for c in train_rank_cases() if c[0] == name][0]
+    cfg = small_config(arch, over)
+    one = Checkpointer(str(CKPT_ROOT / "train_ranks")).restore(
+        1, _restore_tree_shapes(cfg, OptimConfig(**TRAIN_OC)), "cuda")
+    whole = {k: p.detach().cpu() for k, p in one["params"].named_parameters()}
+    mname = [c[2] for c in train_rank_cases() if c[0] == name][0]
+    for r, o in enumerate(outs):
+        got = o["small"][name]
+        for m, blocks, specs in ((mname, got["params"][0], got["specs"]),
+                                 ("1x4", got["restored_1x4"],
+                                  got["specs_1x4"])):
+            mesh = ModelMesh(DECODE_MESHES[m], r, o["coords"][m],
+                             torch.device("cpu"), "", {})
+            for k, a in blocks.items():
+                check(np.array_equal(a, sharding.local_block(
+                    whole[k], specs[k], mesh).numpy()),
+                    f"checkpoint: rank {r}'s {m} block of {k} is not the "
+                    f"one-card restore's")
+        p2, m2 = got["resumed"]
+        check(m2 == got["metrics"][1] and all(
+            np.array_equal(a, got["params"][1][k]) for k, a in p2.items()),
+            f"checkpoint: rank {r}'s resumed step differs from the "
+            f"uninterrupted one")
+    return len(refs), worst_g, worst_p, flips
+
+
+def check_full_train_ranks(outs, label, smi, depth, cards):
+    """(b)/(c): the losses finite and falling, the same on every rank; the
+    timing, FLOP, collective and MoE lines."""
+    from repro_torch import configs
+    from repro_torch.models import model
+    f = TRAIN_RANK_FULL
+    fulls = [o["full"] for o in outs]
+    for r, fu in enumerate(fulls):
+        check(fu["losses"] == fulls[0]["losses"],
+              f"{label}: rank {r}'s losses differ from rank 0's")
+    losses = fulls[0]["losses"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{label}: the loss is not finite and falling: {losses}")
+    rows = fulls[0]["rows"]
+    check([r_["loss"] for r_ in rows] == losses,
+          f"{label}: the metered steps are not train's")
+    cfg = configs.get_config(f["arch"]).replace(num_layers=depth,
+                                                moe_impl="ep")
+    B, S = f["batch"], f["seq"]
+    mm, attn, n_params, n_active = train_flops(cfg, B, S)
+    # the routed experts' weights at their active share (top_k / E) of the
+    # tokens instead of at capacity
+    meta = model.Model(cfg, "meta")
+    routed = sum(p.numel() for n, p in meta.named_parameters()
+                 if ".ffn_moe." in n and ".shared." not in n
+                 and not n.endswith("router"))
+    C = max(int(B * S * cfg.top_k / cfg.num_experts * cfg.capacity_factor),
+            cfg.top_k)
+    mm_active = mm - 8 * routed * C + 8 * routed * B * S * cfg.top_k \
+        / cfg.num_experts
+    timed = [r_["ms"] for r_ in rows[1:]]
+    med = float(np.median(timed))
+    tokens = B * S
+    flops = mm_active + attn
+    share = flops / (med / 1e3) / (BF16_RATE * cards)
+    colls = [fu["rows"][1:] for fu in fulls]
+    nsteps = len(timed)
+    by_kind: dict = {}
+    for row in colls[0]:
+        for k, v in row["coll"]["by_kind"].items():
+            acc = by_kind.setdefault(k, {"calls": 0, "bytes": 0,
+                                         "seconds": 0.0})
+            for q in acc:
+                acc[q] += v[q]
+    host = [sum(r_["coll"]["seconds"] for r_ in c) / nsteps * 1e3
+            for c in colls]
+    print(f"{label} {f['arch']}: {depth} of 16 layers at its published "
+          f"widths (d_model {cfg.d_model}, {cfg.num_heads} heads, "
+          f"{cfg.num_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}, "
+          f"padded vocab {cfg.padded_vocab}), moe_impl ep over "
+          f"{f['mesh']} ({outs[0]['backend']}, {len(outs)} ranks on "
+          f"{cards} card(s)); {n_params} params ({n_active} active), "
+          f"{fulls[0]['n_local']} a rank, state (params, gradients, "
+          f"moments) {fulls[0]['state_gb']:.2f} GB a rank; params float32, "
+          f"activations {cfg.dtype}, AdamW float32, remat {cfg.remat}; batch "
+          f"{B} x {S} through launch.train.train; step ms "
+          f"{[round(r_['ms'], 1) for r_ in rows]} (the first untimed); "
+          f"median {med:.1f} ms = {tokens / med * 1e3:.1f} tokens/s; "
+          f"{flops / 1e12:.2f} TFLOP a step (the routed experts at their "
+          f"active share, + {attn / 1e12:.2f} attention) = "
+          f"{share * 100:.3f}% of {cards} x the {BF16_RATE / 1e12:.0f} "
+          f"TFLOP/s bf16 peak; peak a rank "
+          f"{max(fu['peak'] for fu in fulls):.2f} GiB; run "
+          f"{max(fu['run_s'] for fu in fulls):.1f} s; card: {smi}")
+    print(f"{label}_collectives: a timed step, rank 0: "
+          f"{sum(r_['coll']['calls'] for r_ in colls[0]) / nsteps:.1f} "
+          f"calls, {sum(r_['coll']['bytes'] for r_ in colls[0]) / nsteps / 1e9:.3f} "
+          f"GB sent; host ms in them a step by rank "
+          f"{[round(h, 1) for h in host]} ({host[0] / med * 100:.1f}% of the "
+          f"step); by kind: {kinds_line(by_kind, nsteps)}")
+    for k in ("loss", "ce_loss", "moe_aux", "moe_z", "moe_dropped",
+              "grad_norm"):
+        print(f"{label} {k} by step: {[round(r_[k], 6) for r_ in rows]}")
+    return med
+
+
+def train_ranks_path(smi):
+    """Phase 16: training over (data, model) meshes of ``RANKS`` rank
+    processes (``spawn_ranks``, gloo with every rank on the one card, as
+    phases 14 and 15): (a) the small cases and the checkpoint against one
+    card, (b) OLMoE-1B-7B at its published widths with expert parallelism;
+    (c) with four cards, (b) at all 16 layers over NCCL, a card a rank."""
+    import shutil
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks
+    t_phase = time.perf_counter()
+    refs = small_train_rank_references()
+    ref_s = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    t0, w0 = time.perf_counter(), time.time()
+    outs = spawn_ranks(train_rank_main, RANKS, ("small", "full"),
+                       TRAIN_RANK_FULL["depth"], backend="gloo",
+                       device="cuda:0", timeout=RANK_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    start_s = max(o["span"][0] for o in outs) - w0
+    # (b)'s numbers first: a failed check of (a) stops the script
+    check_full_train_ranks(outs, "train_ranks_full", smi,
+                           TRAIN_RANK_FULL["depth"], 1)
+    n, worst_g, worst_p, flips = check_small_train_ranks(refs, outs)
+    shutil.rmtree(CKPT_ROOT / "train_ranks", ignore_errors=True)
+    save_s = outs[0]["small"][TRAIN_RANK_CKPT]["save_s"]
+    print(f"train_ranks_small: {n} cases (qwen3-8b on 2x2 with seq_shard "
+          f"and 2 steps, with 2 KV heads on 1x4 and int8 compression, "
+          f"olmoe-1b-7b gspmd and ep at capacity_factor = E on 2x2, "
+          f"internvl2-2b on 2x2; smoke widths, 2 layers, float32) over "
+          f"{RANKS} ranks (gloo, all on cuda:0) equal one card: loss, grad "
+          f"norm and aux terms within {TRAIN_RANK_TOL} relative, "
+          f"moe_dropped equal, every gradient block within "
+          f"{worst_g:.3e} of its leaf's largest, parameters within "
+          f"{worst_p:.3e} where |g| >= 1e-6 (with int8 compression "
+          f"{flips} elements a quantization step apart, each within 2 lr); "
+          f"the {TRAIN_RANK_CKPT} state "
+          f"saved after step 1 ({save_s:.3f} s) and restored on one card "
+          f"(the gathered blocks, bit for bit) and on 1x4 (each rank's "
+          f"block), the step resumed from it bit-equal; one-card references "
+          f"{ref_s:.3f} s, ranks {max(o['small_s'] for o in outs):.3f} s")
+    lines = [f"gloo {spawn_s:.3f} s (the ranks started {start_s:.3f} s "
+             f"after the spawn)"]
+    if torch.cuda.device_count() >= RANKS:
+        t0 = time.perf_counter()
+        nccl = spawn_ranks(train_rank_main, RANKS, ("full",),
+                           TRAIN_RANK_NCCL_DEPTH, backend="nccl",
+                           device=None, timeout=RANK_TIMEOUT)
+        check([o["device"] for o in nccl] ==
+              [f"cuda:{r}" for r in range(RANKS)], "nccl: a card a rank")
+        check_full_train_ranks(nccl, "train_ranks_nccl", smi,
+                               TRAIN_RANK_NCCL_DEPTH, RANKS)
+        lines.append(f"nccl {time.perf_counter() - t0:.3f} s")
+    print(f"train_ranks_time: phase 16 took "
+          f"{time.perf_counter() - t_phase:.3f} s (one-card references "
+          f"{ref_s:.3f} s; {', '.join(lines)}; in the ranks (a) "
+          f"{max(o['small_s'] for o in outs):.3f} s, (b) "
+          f"{max(o['full_s'] for o in outs):.3f} s); card: {smi}")
 
 
 def main() -> int:
@@ -5007,6 +5515,16 @@ def main() -> int:
         decode_rank_launches = decode_ranks_path(smi)
     lap("15")
 
+    # -- 16. training over a (data, model) mesh of ranks ---------------------
+    reset_launches(k)
+    train_ranks_path(smi)
+    train_rank_launches = read_launches(k)
+    check(not any(train_rank_launches.values()),
+          f"phase 16 launched a probe kernel: {train_rank_launches}")
+    print(f"train_ranks_launches: {train_rank_launches} (training launches "
+          f"no probe kernel; the kernels line adds 0)")
+    lap("16")
+
     replaces = {"probe_perf": "src/repro/kernels/probe_perf.py:34",
                 "probe_area": "src/repro/kernels/probe_area.py:32",
                 "probe_bitserial": "src/repro/kernels/probe_bitserial.py:36"}
@@ -5023,7 +5541,7 @@ def main() -> int:
                 + rank_launches["probe_area"],
                 "probe_bitserial": bs_path["probe_bitserial"]
                 + rank_launches["probe_bitserial"]}
-    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_script:.1f} "
+    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_script:.1f} "
           f"s (by phase, s: {json.dumps(laps)}); card: {smi}")
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",

@@ -25,6 +25,15 @@ written by either package restores in the other.
     table saved with a leading shard axis restores as a stacked table (JAX
     restores it elastically onto a mesh; the port stacks shards on one
     card).
+  * over the ranks of a ``ModelMesh`` (``Checkpointer(dir, mesh=...)``,
+    every rank making the same calls): a state whose tensors are blocks
+    (each with its ``.spec``) is saved in the same format, one whole
+    ``.npy`` a leaf: each tensor is all-gathered on the card one at a time
+    and rank 0 alone copies it to the host and writes; ``wait`` ends with a
+    barrier, so every rank then sees the same ``latest_step``.  Restore
+    onto any mesh (``model.rank_model_meta`` and ``init_opt_state`` of it
+    as the target): every rank reads and verifies each leaf and keeps its
+    block, JAX's elastic restore.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from torch import nn
 
 from repro_torch.core import hashmap
 from repro_torch.core.layout import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models.model import ParamDict, jax_leaves, named_tensors
 
 BF16_DESCR = "<V2"       # how numpy writes JAX's bfloat16 (ml_dtypes)
@@ -83,13 +93,24 @@ def _flatten(tree, prefix: str = "") -> list:
     return [(prefix, [torch.as_tensor(tree)], False)]
 
 
+def _with_spec(t, like):
+    if hasattr(like, "spec"):
+        t.spec = like.spec
+    return t
+
+
 def _empty_like(tree, dev):
     """``tree``'s structure with uninitialised tensors of its shapes and
-    dtypes on ``dev``: where a restore writes."""
+    dtypes on ``dev``: where a restore writes.  Each tensor keeps its
+    source's ``.spec``."""
     if isinstance(tree, nn.Module):
-        return copy.deepcopy(tree).to_empty(device=dev)
+        out = copy.deepcopy(tree).to_empty(device=dev)
+        src = dict(tree.named_parameters())
+        for n, t in out.named_parameters():
+            _with_spec(t, src[n])
+        return out
     if isinstance(tree, ParamDict):
-        return ParamDict({n: torch.empty_like(t, device=dev)
+        return ParamDict({n: _with_spec(torch.empty_like(t, device=dev), t)
                           for n, t in tree.items()})
     if isinstance(tree, hashmap.HashMem):
         return hashmap._map_leaves(
@@ -113,14 +134,26 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
 
 
-def _host_copy(name: str, ts: list, stacked: bool):
-    """(host array, manifest dtype) of one leaf: a copy, never a view."""
+def _host_copy(name: str, ts: list, stacked: bool, mesh=None):
+    """(host array, manifest dtype) of one leaf: a copy, never a view.  Over
+    ``mesh`` each tensor is made whole on the card (``sharding.
+    full_tensor``) and copied out before the next; ranks other than 0 take
+    part in the gathers and return None."""
     dtype = _dtype_name(name, ts[0])
-    ts = [_bits(t.detach()) for t in ts]
-    shape = ((len(ts),) if stacked else ()) + tuple(ts[0].shape)
-    out = torch.empty(shape, dtype=ts[0].dtype)
+    out = None
     for i, t in enumerate(ts):
+        if mesh is not None:
+            with torch.no_grad():
+                t = sharding.full_tensor(t, mesh)
+            if mesh.rank != 0:
+                continue
+        t = _bits(t.detach())
+        if out is None:
+            out = torch.empty(((len(ts),) if stacked else ()) +
+                              tuple(t.shape), dtype=t.dtype)
         (out[i] if stacked else out).copy_(t)
+    if out is None:
+        return None, dtype
     arr = out.numpy()
     return (arr.view(np.uint32) if dtype == "uint32" else arr), dtype
 
@@ -152,20 +185,40 @@ def _sha256(arr: np.ndarray) -> str:
 
 
 class Checkpointer:
-    def __init__(self, directory: str, async_save: bool = True):
+    def __init__(self, directory: str, async_save: bool = True, mesh=None):
         self.dir = Path(directory)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.mesh = mesh
+        if self._writer:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier()
+
+    @property
+    def _writer(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _barrier(self, failed: bool = False):
+        """Over a mesh: wait for every rank, and raise on every rank if one
+        failed."""
+        if self.mesh is None:
+            return
+        flag = torch.full((1,), float(failed), device=self.mesh.device)
+        if float(self.mesh.all_reduce(flag, self.mesh.axis_names)[0]) and \
+                not failed:
+            raise IOError("checkpoint: another rank failed to write")
 
     # ----------------------------------------------------------------- save
     def save(self, step: int, tree: Any, *, blocking: bool = False):
         """Snapshot ``tree`` to host memory, then write it: in a thread,
-        unless ``blocking`` or the checkpointer is synchronous."""
+        unless ``blocking`` or the checkpointer is synchronous.  Over a mesh
+        every rank calls it; rank 0 writes."""
         self.wait()
-        host = [(name, *_host_copy(name, ts, st))
+        host = [(name, *_host_copy(name, ts, st, self.mesh))
                 for name, ts, st in _flatten(tree)]
+        if not self._writer:
+            return
         if self.async_save and not blocking:
             self._thread = threading.Thread(target=self._write_async,
                                             args=(step, host), daemon=True)
@@ -206,12 +259,14 @@ class Checkpointer:
         self._gc(keep=3)
 
     def wait(self):
-        """Join the writer thread; raise what it raised."""
+        """Join the writer thread; raise what it raised (over a mesh, on
+        every rank, after a barrier)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        self._barrier(err is not None)
+        if err is not None:
             raise err
 
     def _gc(self, keep: int):
@@ -232,11 +287,18 @@ class Checkpointer:
         """The tree saved at ``step`` in ``target_tree``'s structure, on
         ``device`` (None: the card).  Raises IOError on a leaf whose sha256
         differs from the manifest's and ValueError on a shape or dtype the
-        target does not have."""
+        target does not have.  Over a mesh the target's tensors are blocks
+        with their ``.spec``, and each rank keeps its block of each leaf."""
         d = self.dir / f"step_{step:08d}"
         manifest = json.loads((d / "manifest.json").read_text())
         out = _empty_like(target_tree, resolve_device(device))
         leaves = _flatten(out)
+        mesh = self.mesh
+
+        def whole(t):
+            if mesh is None:
+                return tuple(t.shape)
+            return sharding.whole_shape(t.shape, getattr(t, "spec", ()), mesh)
 
         def read_leaf(leaf):
             name, ts, stacked = leaf
@@ -244,7 +306,7 @@ class Checkpointer:
             arr = _load_npy(d / meta["file"], meta["dtype"])
             if verify and _sha256(arr) != meta["sha256"]:
                 raise IOError(f"checkpoint corruption in {name}")
-            shape = ((len(ts),) if stacked else ()) + tuple(ts[0].shape)
+            shape = ((len(ts),) if stacked else ()) + whole(ts[0])
             if arr.shape != shape:
                 raise ValueError(f"shape mismatch for {name}: "
                                  f"{arr.shape} vs {shape}")
@@ -258,5 +320,9 @@ class Checkpointer:
                                                 pool.map(read_leaf, leaves)):
                 src = torch.from_numpy(arr)
                 for i, t in enumerate(ts):
-                    _bits(t).copy_(src[i] if stacked else src)
+                    a = src[i] if stacked else src
+                    if mesh is not None:
+                        a = sharding.local_block(a, getattr(t, "spec", ()),
+                                                 mesh)
+                    _bits(t).copy_(a)
         return out

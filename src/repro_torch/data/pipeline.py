@@ -1,8 +1,7 @@
 """Deterministic sharded synthetic data pipeline of the port, copied from the
 JAX package's ``data/pipeline.py`` (plain numpy: the same batches bit for bit
-for every step, seed and shard).  ``make_batch_specs``, which builds JAX
-shardings, is left out: the train loop moves each batch to the step's
-device.
+for every step, seed and shard).  ``make_batch_specs`` gives the spec of
+each input of a batch on a mesh, as JAX's gives its shardings.
 
 Production-shaped: each host generates ONLY its shard of the global batch
 (indexed by (step, shard) so restarts are reproducible and elastic re-shards
@@ -105,3 +104,13 @@ class SyntheticLMData:
     def close(self):
         self._stop.set()
 
+
+
+def make_batch_specs(mesh, batch: dict) -> dict:
+    """{input name: spec} of a global batch on ``mesh`` (a ``ModelMesh`` or
+    a shape): the leading dimension on the batch axes where they divide it
+    (``distributed.sharding.batch_specs``).  JAX's trainer draws the whole
+    batch (``shard_index=0``, ``num_shards=1``) and places it so; a rank
+    keeps its block with ``sharding.local_block``."""
+    from repro_torch.distributed.sharding import batch_specs
+    return batch_specs(None, mesh, batch)

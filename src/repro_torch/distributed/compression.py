@@ -12,7 +12,9 @@ Modes:
 Gradients are ``ParamDict``s keyed like the model's parameters.  JAX takes
 one int8 scale per leaf of its stacked tree, so a layer weight's scale is
 the largest magnitude over every layer; the port groups its per-layer
-tensors by JAX leaf (``models.model.jax_leaves``) and takes the same scale.
+tensors by JAX leaf (``models.model.jax_leaves``) and takes the same scale;
+over the ranks of a ``ModelMesh`` the largest magnitude is the whole
+leaf's, a MAX over the mesh of every rank's blocks.
 """
 from __future__ import annotations
 
@@ -22,25 +24,30 @@ from repro_torch.models.model import ParamDict, _jax_path, named_tensors
 from repro_torch.optim.adamw import scalar
 
 
-def compress_tree(grads, mode: str) -> ParamDict:
+def compress_tree(grads, mode: str, mesh=None) -> ParamDict:
     if mode == "bf16":
         return ParamDict({n: g.to(torch.bfloat16).to(g.dtype)
                           for n, g in named_tensors(grads).items()})
     if mode == "int8":
-        return _int8_roundtrip(grads)
+        return _int8_roundtrip(grads, mesh)
     raise ValueError(mode)
 
 
-def _int8_roundtrip(grads) -> ParamDict:
+def _int8_roundtrip(grads, mesh=None) -> ParamDict:
     """Quantize each JAX leaf to int8 with one scale, max |g| / 127 over the
-    leaf (all its layers), and back."""
+    leaf (all its layers, and over ``mesh`` every rank's blocks: one MAX
+    all-reduce of every leaf's largest), and back."""
     named = named_tensors(grads)
     leaves: dict = {}
     for n in named:
         leaves.setdefault(_jax_path(n)[0], []).append(n)
+    amaxes = torch.stack([torch.stack([named[n].abs().max()
+                                       for n in names]).max()
+                          for names in leaves.values()])
+    if mesh is not None:
+        amaxes = mesh.all_reduce(amaxes, mesh.axis_names, op="max")
     out = ParamDict()
-    for names in leaves.values():
-        amax = torch.stack([named[n].abs().max() for n in names]).max()
+    for amax, names in zip(amaxes, leaves.values()):
         scale = torch.clamp(amax, min=1e-12) / scalar(127.0, amax)
         for n in names:
             g = named[n]

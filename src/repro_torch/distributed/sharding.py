@@ -12,9 +12,9 @@ They are pure functions of a mesh's shape, {axis: size} (a ``ModelMesh``,
 or a bare shape such as ``launch.mesh.make_production_mesh()``); a spec
 is a tuple with one entry a dimension, None, an axis or a tuple of axes,
 trailing Nones dropped, as ``tuple(PartitionSpec)``.  ``local_block``
-cuts a whole tensor to a rank's block of its spec.  ``ShardCtx``
-(training's activation constraints) belongs to training over ranks
-(ROADMAP Queue 1 item 16b-ii).
+cuts a whole tensor to a rank's block of its spec.  ``ShardCtx`` is
+training's activation layout over a ``ModelMesh`` (JAX's activation
+constraints).
 
 JAX shards every leaf of a stacked HashMem over the mesh axis, one shard a
 device.  On a ``ServingMesh`` the D shards stay stacked on its device:
@@ -135,11 +135,31 @@ def local_block(t: torch.Tensor, spec, mesh) -> torch.Tensor:
     return t
 
 
+def full_tensor(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's block under its
+    ``.spec``: each sharded dimension all-gathered over its axes (every
+    rank of the mesh must call it; no gradient)."""
+    for dim, entry in enumerate(getattr(t, "spec", ())):
+        axes = entry_axes(entry)
+        if axes and mesh.size(axes) > 1:
+            t = mesh.all_gather(t, axes, dim)
+    return t
+
+
 def local_shape(shape, spec, mesh) -> tuple:
     """The shape of a rank's block of an array of ``shape``."""
     sizes = mesh_shape(mesh)
     spec = tuple(spec) + (None,) * (len(shape) - len(spec))
     return tuple(d // math.prod(sizes[a] for a in entry_axes(e))
+                 for d, e in zip(shape, spec))
+
+
+def whole_shape(shape, spec, mesh) -> tuple:
+    """The shape of the array of which a rank's block has ``shape`` (the
+    inverse of ``local_shape``)."""
+    sizes = mesh_shape(mesh)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(d * math.prod(sizes[a] for a in entry_axes(e))
                  for d, e in zip(shape, spec))
 
 
@@ -167,3 +187,82 @@ def shard_stacked_hashmem(mesh, hm_stacked, axis: str = "model"):
             lambda ts: ts[0][r:r + 1].to(mesh.device).contiguous())
     return hashmap._map_leaves(
         [hm_stacked], lambda ts: ts[0].to(mesh.device).contiguous())
+
+
+class ShardCtx:
+    """Training's activation layout over a ``launch.mesh.ModelMesh`` (JAX's
+    ``ShardCtx``, ``src/repro/distributed/sharding.py:118-140``).  JAX's
+    ``residual`` is a sharding constraint GSPMD meets; here it is the
+    layout each rank holds.  ``bind(B, S)`` fixes it for a global batch of
+    B sequences of S positions:
+
+      * ``batch_axes``: the batch axes the batch shards over
+        (``batch_spec``), or none where they do not divide it (every batch
+        group then holds the whole batch);
+      * ``seq``: with ``seq_shard`` and S a multiple of the ``"model"``
+        size, the residual stream between units is this rank's (B_loc,
+        S / |model|, d) block (Megatron's sequence parallelism), gathered
+        before the column-parallel products and reduce-scattered after the
+        row-parallel ones; otherwise it is (B_loc, S, d), the same on every
+        ``"model"`` rank, and the row-parallel products are all-reduced.
+    """
+
+    def __init__(self, mesh, seq_shard: bool = False):
+        self.mesh = mesh
+        self.seq_shard = seq_shard
+        self._baxes = tuple(a for a in BATCH_AXES if a in mesh.shape)
+        self.model_size = mesh.shape.get("model", 1)
+        self.batch_axes: tuple = ()
+        self.seq = False
+
+    def bind(self, B: int, S: int) -> "ShardCtx":
+        ctx = ShardCtx(self.mesh, self.seq_shard)
+        ctx.batch_axes = self._baxes if batch_spec(self.mesh, B) else ()
+        ctx.seq = bool(self.seq_shard and self.model_size > 1
+                       and S % self.model_size == 0)
+        return ctx
+
+    @property
+    def copies(self) -> int:
+        """The ranks that hold the same tokens (the loss's replicas)."""
+        return self.mesh.num_shards // self.mesh.size(self.batch_axes)
+
+    def local_batch(self, batch: dict) -> dict:
+        """Each input's block of this rank's batch group, on the mesh's
+        device (the whole batch where it does not shard)."""
+        entry = self.batch_axes or None
+        return {k: local_block(torch.as_tensor(v), (entry,), self.mesh)
+                .to(self.mesh.device) for k, v in batch.items()}
+
+    def seq_block(self, x):
+        """This rank's block of the sequence of a (B_loc, S, d) activation."""
+        n = x.shape[1] // self.model_size
+        return x.narrow(1, self.mesh.index(("model",)) * n, n)
+
+    def to_residual(self, x):
+        """A (B_loc, S, d) activation the ``"model"`` ranks hold alike, as
+        the residual layout."""
+        return self.seq_block(x) if self.seq else x
+
+    def gather_seq(self, x):
+        """A residual-layout activation made (B_loc, S, d)."""
+        from repro_torch.distributed import tensor_parallel as tp
+        return tp.all_gather(x, self.mesh, ("model",), 1) if self.seq else x
+
+    def enter_tp(self, h):
+        """The input of a column-parallel product: the whole sequence."""
+        return self.gather_seq(h)
+
+    def leave_tp(self, y, w, w_dim: int):
+        """The output of the product with ``w`` (contracting its dimension
+        ``w_dim``) back in the residual layout: a row-parallel partial sum
+        added over ``"model"`` in float32 and rounded once (reduce-scattered
+        by sequence block in the sequence layout), else cut to the block."""
+        from repro_torch.distributed import tensor_parallel as tp
+        if not tp._tp(w, w_dim, self.mesh):
+            return self.to_residual(y)
+        y32 = y.to(torch.float32)
+        if self.seq:
+            return tp.reduce_scatter(y32, self.mesh, ("model",), 1).to(
+                y.dtype)
+        return tp.all_reduce(y32, self.mesh, ("model",)).to(y.dtype)

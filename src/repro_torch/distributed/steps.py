@@ -5,71 +5,123 @@ optional gradient compression, then the AdamW update, in place.
 ``build_serve_step`` gives the decode step the serving loop calls: one
 ``decode_step`` and the greedy next token, under ``torch.no_grad()``.  JAX
 jits both with their parameter and state shardings.  The port runs them
-eagerly: the serve step on one device, or on each rank of a
-``launch.mesh.ModelMesh`` (the dense family; ``decode_state_specs`` places
-the states as JAX's); the train step on one card, refusing a mesh of more
-than one shard (ROADMAP Queue 1 item 16b-ii).
+eagerly, on one device or on each rank of a ``launch.mesh.ModelMesh``: the
+serve step for the dense family (``decode_state_specs`` places the states
+as JAX's); the train step for the dense, moe and vlm families, each rank
+with its blocks of the parameters and moments (``param_specs``) and its
+rows of the batch.  The hybrid, ssm and encdec families train over one
+shard only (their mamba, xLSTM and encoder leaves wait for ROADMAP Queue 1
+item 16b-iii).
 """
 from __future__ import annotations
 
-import numpy as np
+import math
+
 import torch
 
 from repro_torch.distributed import sharding
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.distributed.compression import compress_tree
+from repro_torch.launch.mesh import ModelMesh
 from repro_torch.models import model
 from repro_torch.optim import adamw_update, init_opt_state
 
+UNSHARDED_FAMILIES = ("hybrid", "ssm", "encdec")
 
-def _one_card(mesh):
-    """``mesh`` is None or a JAX mesh's shape, {axis name: size}; the port
-    trains on one card."""
-    shape = sharding.mesh_shape(mesh) if mesh is not None else {}
-    if int(np.prod(list(shape.values()))) > 1:
+
+def train_mesh(cfg, mesh):
+    """The ``ModelMesh`` to train over, or None for one device: ``mesh`` is
+    None, a ``ModelMesh``, or a shape {axis: size} of one shard.  A bare
+    shape of more than one shard builds no world, and the hybrid, ssm and
+    encdec families do not train over more than one shard: both raise."""
+    if mesh is None:
+        return None
+    shape = sharding.mesh_shape(mesh)
+    n = math.prod(shape.values())
+    if isinstance(mesh, ModelMesh):
+        if n > 1 and cfg.family in UNSHARDED_FAMILIES:
+            raise NotImplementedError(
+                f"{cfg.name} ({cfg.family}): training over a mesh of "
+                f"{shape} needs tensor parallelism of its mamba, xLSTM and "
+                f"encoder leaves, ROADMAP Queue 1 item 16b-iii; the dense, "
+                f"moe and vlm families train over ranks")
+        return mesh
+    if n > 1:
         raise NotImplementedError(
-            f"a training mesh of {shape} shards the parameters and the "
-            f"batch over several cards; the port trains on one card "
-            f"(training over ranks: ROADMAP Queue 1 item 16b-ii)")
+            f"a training mesh of {shape} as a bare shape builds no world: "
+            f"train over a launch.mesh.ModelMesh (make_model_mesh in every "
+            f"rank, or launch.train.train_ranks)")
+    return None
 
 
 # ---------------------------------------------------------------------------
 # Train
 # ---------------------------------------------------------------------------
 
-def build_train_step(cfg, oc, mesh=None, *, grad_compression: str = "none"):
+def build_train_step(cfg, oc, mesh=None, *, seq_shard: bool = True,
+                     grad_compression: str = "none"):
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "ce_loss", "grad_norm", "lr"})``: the loss and its gradient
     with respect to every parameter, ``compress_tree`` of the gradient when
     ``grad_compression`` is not ``"none"``, then ``adamw_update``, which
-    updates ``params`` and the moments in place.  ``batch`` holds
-    the family's inputs (``model.input_specs``) on the parameters'
-    device."""
-    _one_card(mesh)
+    updates ``params`` and the moments in place.  On one device
+    (``mesh`` None or of one shard) ``batch`` holds the family's inputs
+    (``model.input_specs``) on the parameters' device.  On a ``ModelMesh``
+    every rank calls it with its model (``init_train_state``) and the
+    whole batch, on any device: the step keeps its rows (``ShardCtx``;
+    ``seq_shard`` as JAX's), sums each gradient's parts over the axes that
+    replicate its leaf, and takes the norm, the int8 scale and the update
+    over the mesh; every tensor keeps its ``.spec``.  The step's halves
+    are ``train_step.loss_and_grads(params, batch) -> (loss, metrics,
+    grads)`` and ``train_step.apply_grads(params, opt_state, grads) ->
+    (params, opt_state, {"grad_norm", "lr"})``."""
+    mesh = train_mesh(cfg, mesh)
+    base = sharding.ShardCtx(mesh, seq_shard=seq_shard) if mesh else None
 
-    def train_step(params, opt_state, batch):
+    def loss_and_grads(params, batch):
         names, tensors = zip(*params.named_parameters())
+        kw = {}
+        if base is not None:
+            ctx = base.bind(*batch["labels"].shape)
+            batch = ctx.local_batch(batch)
+            kw = {"shard_ctx": ctx}
         with torch.enable_grad():
-            loss, metrics = model.loss_fn(params, cfg, batch)
+            loss, metrics = model.loss_fn(params, cfg, batch, **kw)
             # a leaf the loss never reads (whisper's final_norm/bias: the
             # loss takes final_norm's scale only) gets JAX's zero gradient
             grads = torch.autograd.grad(loss, tensors, allow_unused=True,
                                         materialize_grads=True)
-        grads = model.ParamDict(zip(names, grads))
-        if grad_compression != "none":
-            grads = compress_tree(grads, grad_compression)
-        params, opt_state, stats = adamw_update(params, grads, opt_state, oc)
+        grads = dict(zip(names, grads))
+        if base is not None:
+            grads = tp.reduce_grads(mesh, dict(zip(names, tensors)), grads)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return params, opt_state, {"loss": loss.detach(), **metrics, **stats}
+        return loss.detach(), metrics, model.ParamDict(grads)
 
+    def apply_grads(params, opt_state, grads):
+        if grad_compression != "none":
+            grads = compress_tree(grads, grad_compression, mesh)
+        return adamw_update(params, grads, opt_state, oc, mesh)
+
+    def train_step(params, opt_state, batch):
+        loss, metrics, grads = loss_and_grads(params, batch)
+        params, opt_state, stats = apply_grads(params, opt_state, grads)
+        return params, opt_state, {"loss": loss, **metrics, **stats}
+
+    train_step.loss_and_grads = loss_and_grads
+    train_step.apply_grads = apply_grads
     return train_step
 
 
 def init_train_state(cfg, oc, mesh=None, seed: int = 0, device=None):
     """(params, opt_state): a model drawn from ``seed`` on ``device`` (None:
-    the card) and zero AdamW moments beside it."""
-    _one_card(mesh)
-    params = model.init_params(cfg, seed, device)
+    the card) and zero AdamW moments beside it; on a ``ModelMesh`` this
+    rank's blocks of them (``model.init_params_sharded``), on the mesh's
+    device."""
+    mesh = train_mesh(cfg, mesh)
+    if mesh is not None:
+        params = model.init_params_sharded(cfg, seed, mesh)
+    else:
+        params = model.init_params(cfg, seed, device)
     return params, init_opt_state(params, oc)
 
 

@@ -159,6 +159,29 @@ def make_production_mesh(*, multi_pod: bool = False) -> dict:
     return {"data": 16, "model": 16}
 
 
+COLLECTIVE_KINDS = ("all_gather", "reduce_scatter", "all_reduce",
+                    "all_to_all")
+# How ``ModelMesh.all_gather`` runs on each backend: gloo's list
+# ``all_gather`` takes 1.6-3x as long as an ``all_to_all_single`` of n
+# copies of the tensor at 1-64 MB a rank (4 ranks on one H100,
+# ``tools/collective_bench.py --kinds``), so gloo gathers by all-to-all
+ALL_GATHER_FORM = {"gloo": "all_to_all", "nccl": "all_gather"}
+
+
+def _new_collectives() -> dict:
+    return {"calls": 0, "bytes": 0, "seconds": 0.0, "by_kind": {}}
+
+
+def _pass_of(backward: bool) -> str:
+    """"backward" inside a collective's own backward; "recompute" for a
+    forward collective that the autograd engine runs (a remat'ed unit
+    recomputed in the backward pass); else "forward"."""
+    if backward:
+        return "backward"
+    return "recompute" if torch._C._current_graph_task_id() != -1 \
+        else "forward"
+
+
 @dataclass(frozen=True)
 class ModelMesh:
     """This rank's place in a mesh of ranks over named axes: ``shape``, an
@@ -168,7 +191,10 @@ class ModelMesh:
     subset of the axes that spans more than one rank (the ranks that share
     the other axes' coordinates, in row-major order).  A collective over
     axes of size 1 is skipped.  ``collectives`` counts this rank's calls,
-    bytes sent and host seconds inside them."""
+    bytes sent and host seconds inside them, in all and under ``by_kind``
+    by "{kind}/{pass}" (``COLLECTIVE_KINDS``; the pass is "forward",
+    "recompute" or "backward").  A mesh is a handle on the world: a copy
+    of it is itself."""
 
     shape: dict
     rank: int
@@ -176,8 +202,11 @@ class ModelMesh:
     device: torch.device
     backend: str
     groups: dict = field(compare=False)
-    collectives: dict = field(default_factory=lambda: {
-        "calls": 0, "bytes": 0, "seconds": 0.0}, compare=False)
+    collectives: dict = field(default_factory=_new_collectives,
+                              compare=False)
+
+    def __deepcopy__(self, memo):
+        return self
 
     @property
     def axis_names(self) -> tuple:
@@ -202,39 +231,100 @@ class ModelMesh:
     def _group(self, axes):
         return self.groups[tuple(a for a in self.shape if a in axes)]
 
-    def _count(self, t: torch.Tensor, t0: float):
+    def _count(self, t: torch.Tensor, t0: float, kind: str, backward: bool):
+        dt = time.perf_counter() - t0
+        nbytes = t.numel() * t.element_size()
         st = self.collectives
         st["calls"] += 1
-        st["bytes"] += t.numel() * t.element_size()
-        st["seconds"] += time.perf_counter() - t0
+        st["bytes"] += nbytes
+        st["seconds"] += dt
+        k = st["by_kind"].setdefault(f"{kind}/{_pass_of(backward)}",
+                                     {"calls": 0, "bytes": 0, "seconds": 0.0})
+        k["calls"] += 1
+        k["bytes"] += nbytes
+        k["seconds"] += dt
 
-    def all_reduce(self, t: torch.Tensor, axes):
-        """``t`` summed over the ranks along ``axes``; in place when a
-        collective runs."""
+    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum",
+                   backward: bool = False):
+        """``t`` summed (``op="max"``: its largest) over the ranks along
+        ``axes``; in place when a collective runs."""
         import torch.distributed as dist
         if self.size(axes) == 1:
             return t
         t = t.contiguous()
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         t0 = time.perf_counter()
         with record_function("mesh.all_reduce"):
-            dist.all_reduce(t, group=self._group(axes))
-        self._count(t, t0)
+            dist.all_reduce(t, op=red, group=self._group(axes))
+        self._count(t, t0, "all_reduce", backward)
         return t
 
-    def all_gather(self, t: torch.Tensor, axes, dim: int = 0):
+    def all_gather(self, t: torch.Tensor, axes, dim: int = 0,
+                   backward: bool = False):
         """The ranks' ``t`` along ``axes`` joined on ``dim`` in their
-        row-major order."""
+        row-major order (in ``ALL_GATHER_FORM``'s form for the
+        backend)."""
         import torch.distributed as dist
         n = self.size(axes)
         if n == 1:
             return t
         t = t.contiguous()
-        out = [torch.empty_like(t) for _ in range(n)]
+        group = self._group(axes)
         t0 = time.perf_counter()
         with record_function("mesh.all_gather"):
-            dist.all_gather(out, t, group=self._group(axes))
-        self._count(t, t0)
+            if ALL_GATHER_FORM[self.backend] == "all_to_all":
+                x = t.expand(n, *t.shape).contiguous()
+                out = torch.empty_like(x)
+                dist.all_to_all_single(out, x, group=group)
+                out = out.unbind(0)
+            else:
+                out = [torch.empty_like(t) for _ in range(n)]
+                dist.all_gather(out, t, group=group)
+        self._count(t, t0, "all_gather", backward)
         return torch.cat(out, dim=dim)
+
+    def reduce_scatter(self, t: torch.Tensor, axes, dim: int = 0,
+                       backward: bool = False):
+        """``t`` summed over the ranks along ``axes``, and of the sum this
+        rank's block along ``dim`` (cut into equal blocks in their
+        row-major order): the conjugate of ``all_gather``.  gloo runs it on
+        CUDA tensors too (staged through the host)."""
+        import torch.distributed as dist
+        n = self.size(axes)
+        if n == 1:
+            return t
+        if t.shape[dim] % n:
+            raise ValueError(f"reduce_scatter of {t.shape[dim]} rows over "
+                             f"{n} ranks")
+        x = t.movedim(dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+        # the same collective under the name of the torch at hand
+        rs = getattr(dist, "reduce_scatter_single",
+                     dist.reduce_scatter_tensor)
+        t0 = time.perf_counter()
+        with record_function("mesh.reduce_scatter"):
+            rs(out, x, group=self._group(axes))
+        self._count(x, t0, "reduce_scatter", backward)
+        return out.movedim(0, dim)
+
+    def all_to_all(self, t: torch.Tensor, axes, backward: bool = False):
+        """``t`` (n, ...) over the n ranks along ``axes``: block j goes to
+        the j-th rank, and block j of the result is what the j-th rank sent
+        here (``jax.lax.all_to_all`` on dimension 0, untiled)."""
+        import torch.distributed as dist
+        n = self.size(axes)
+        if n == 1:
+            return t
+        if t.shape[0] != n:
+            raise ValueError(f"all_to_all of {t.shape[0]} blocks over {n} "
+                             f"ranks")
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        t0 = time.perf_counter()
+        with record_function("mesh.all_to_all"):
+            dist.all_to_all_single(out, t, group=self._group(axes))
+        self._count(t, t0, "all_to_all", backward)
+        return out
 
 
 def mesh_coords(shape: dict, rank: int) -> dict:

@@ -24,10 +24,13 @@ inputs of each shape kind as meta tensors.
 
 Over a ``launch.mesh.ModelMesh`` a rank holds its block of every leaf
 (``shard_params``, ``init_params_sharded``: the blocks of
-``distributed.sharding.param_specs``, each tensor with its ``.spec``) and
+``distributed.sharding.param_specs``, each tensor with its ``.spec``),
 decodes the dense family tensor-parallel
 (``distributed/tensor_parallel.py``): a vocab-parallel embedding, the
-layers (``transformer.decode_stack``), vocab-sharded logits.
+layers (``transformer.decode_stack``), vocab-sharded logits; and trains
+the dense, moe and vlm families: ``loss_fn`` with a ``ShardCtx`` (the
+layers tensor-parallel, the MoE over the mesh, the cross-entropy against
+the vocabulary blocks, ``vocab_cross_entropy``).
 ``param_axes`` gives each leaf's logical axes, as JAX's init records them.
 """
 from __future__ import annotations
@@ -305,6 +308,20 @@ def init_params_sharded(cfg, seed: int, mesh, device=None) -> Model:
     return out
 
 
+def rank_model_meta(cfg, mesh) -> Model:
+    """A rank's ``Model`` on the meta device: every parameter of its block's
+    shape, with its spec (a restore target)."""
+    out, specs = _rank_model(cfg, mesh)
+    for name, p in list(out.named_parameters()):
+        owner, attr = _owner(out, name)
+        q = nn.Parameter(torch.empty(
+            sharding.local_shape(p.shape, specs[name], mesh), device="meta",
+            dtype=p.dtype))
+        q.spec = specs[name]
+        setattr(owner, attr, q)
+    return out
+
+
 def refuse_sharded_decode(cfg, mesh):
     """Raise unless ``cfg``'s family decodes over ``mesh`` (a shape, a
     ``ModelMesh`` or None): on a mesh of more than one shard only the dense
@@ -313,9 +330,9 @@ def refuse_sharded_decode(cfg, mesh):
     if cfg.family != "dense" and math.prod(shape.values()) > 1:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}): decode over a mesh of {shape} needs "
-            f"tensor parallelism of its expert, mamba and xLSTM leaves and "
-            f"expert parallelism, ROADMAP Queue 1 item 16b-ii (the second "
-            f"half of item 16b); the dense family decodes over ranks")
+            f"tensor parallelism of its expert, mamba and xLSTM leaves, "
+            f"ROADMAP Queue 1 item 16b-iii; the dense family decodes over "
+            f"ranks")
 
 
 # ---------------------------------------------------------------------------
@@ -351,10 +368,12 @@ def _trunk_inputs(params: Model, cfg, batch):
     return x, _positions(x)
 
 
-def forward(params: Model, cfg, batch):
+def forward(params: Model, cfg, batch, shard_ctx=None):
     """Returns (final hidden (B,S,d), aux dict).  Causal LM trunk; for
     encdec the decoder's hidden states over ``batch["dec_tokens"]`` after
-    encoding ``batch["frames"]``, and no aux."""
+    encoding ``batch["frames"]``, and no aux.  With ``shard_ctx`` (a bound
+    ``sharding.ShardCtx``) ``params`` is a rank's model, ``batch`` its rows
+    and the hidden states come back in the context's residual layout."""
     if cfg.is_encoder_decoder:
         frames = batch["frames"].to(DTYPES[cfg.dtype])
         enc_out = encdec.encode(params.encoder, cfg, frames)
@@ -362,7 +381,8 @@ def forward(params: Model, cfg, batch):
         return encdec.decode_train(params.decoder, cfg, xd, enc_out,
                                    _positions(xd)), {}
     x, positions = _trunk_inputs(params, cfg, batch)
-    return transformer.apply_stack(params.units, cfg, x, positions)
+    return transformer.apply_stack(params.units, cfg, x, positions,
+                                   shard_ctx=shard_ctx)
 
 
 def _head(params: Model, cfg):
@@ -420,13 +440,65 @@ def chunked_cross_entropy(params: Model, cfg, x, labels, chunk: int = 512):
     return loss_sum / torch.clamp(tok_sum, min=1.0)
 
 
-def loss_fn(params: Model, cfg, batch):
+def vocab_cross_entropy(params: Model, cfg, x, labels, ctx,
+                        chunk: int = 512):
+    """``chunked_cross_entropy`` over the ranks of ``ctx``'s mesh: x (B_loc,
+    S, d), the rank's rows, against the vocabulary block of its head
+    (``tp.vocab_ce_chunk``: the log-sum-exp and the gold logit across the
+    blocks, the padded rows included); a chunk is recomputed in the
+    backward pass.  The sum over the rank's tokens is divided by the count
+    of unmasked labels over the whole batch (summed over the batch axes),
+    so the parts of the batch groups add up to JAX's loss."""
+    mesh = ctx.mesh
+    B, S, d = x.shape
+    top = tp.view(params, mesh, recurse=False)
+    norm = tp.view(params.final_norm, mesh)
+    head = top.embed if cfg.tie_embeddings else top.head
+    h = rms_norm(x, norm.scale, cfg.norm_eps).to(F32)
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the "
+                         f"{chunk}-token loss chunk")
+    vocab_tp = tp._tp(head, 0, mesh)
+    v0 = mesh.index(tp.TP_AXES) * head.shape[0] if vocab_tp else 0
+    head = head.to(F32)
+    remat = torch.is_grad_enabled()
+    loss_sum = torch.zeros((), dtype=F32, device=x.device)
+    tok_sum = torch.zeros((), dtype=F32, device=x.device)
+    for c0 in range(0, S, chunk):
+        hx, lx = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        args = (hx, lx, head, mesh, v0) if vocab_tp else (hx, lx, head)
+        fn = tp.vocab_ce_chunk if vocab_tp else _ce_chunk
+        if remat:
+            ls, ts = checkpoint(fn, *args, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            ls, ts = fn(*args)
+        loss_sum = loss_sum + ls
+        tok_sum = tok_sum + ts
+    tok_sum = mesh.all_reduce(tok_sum.detach().clone(), ctx.batch_axes)
+    return loss_sum / torch.clamp(tok_sum, min=1.0)
+
+
+def loss_fn(params: Model, cfg, batch, shard_ctx=None):
     """Scalar LM loss (+ the MoE aux terms ``moe_aux`` and ``moe_z``).
     batch['labels'] -100 = ignored.  Returns (loss, {"ce_loss", and a MoE
-    config's "moe_aux", "moe_z", "moe_dropped"})."""
-    x, aux = forward(params, cfg, batch)
-    loss = chunked_cross_entropy(params, cfg, x, batch["labels"])
+    config's "moe_aux", "moe_z", "moe_dropped"}).  With ``shard_ctx`` (a
+    bound ``sharding.ShardCtx``; ``params`` a rank's model, ``batch`` its
+    rows) the loss is JAX's over the whole batch on every rank, and its
+    backward starts each rank from its share (``tp.share``)."""
+    x, aux = forward(params, cfg, batch, shard_ctx)
     extra = sum(v for k_, v in aux.items() if k_ in ("moe_aux", "moe_z"))
+    if shard_ctx is None:
+        loss = chunked_cross_entropy(params, cfg, x, batch["labels"])
+        return loss + extra, {"ce_loss": loss, **aux}
+    ctx, mesh = shard_ctx, shard_ctx.mesh
+    part = vocab_cross_entropy(params, cfg, ctx.gather_seq(x),
+                               batch["labels"], ctx)
+    loss = tp.share(part, mesh, ctx.batch_axes, ctx.copies)
+    if aux:
+        # the aux terms are the same on every rank
+        extra = tp.share(extra, mesh, (), mesh.num_shards)
     return loss + extra, {"ce_loss": loss, **aux}
 
 

@@ -20,8 +20,12 @@ order), and the combine undoes the sort with a permutation and adds each
 token's k contributions in ascending expert order, JAX's CPU scatter-add
 order, one rounding an addition.
 
-JAX's expert-parallel dispatch (``_local_route``, ``apply_ep``) needs a mesh
-across cards and waits for ROADMAP Queue 1 item 16b-ii.
+Over the ranks of a ``ModelMesh`` in training (``apply_ranked``) the layer
+is JAX's ``apply`` under GSPMD (``moe_impl="gspmd"``: every rank gathers
+the layer's tokens and weights, runs the one-card dispatch and keeps its
+rows) or JAX's expert-parallel ``apply_ep`` (``moe_impl="ep"``: each rank
+routes its own tokens at a capacity of its own, one all-to-all takes them
+to the experts' owners and one brings them back).
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ import torch
 from torch import nn
 
 from repro_torch.core.hashing import murmur3_fmix
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import BATCH_AXES, entry_axes
 from repro_torch.models import mlp
 from repro_torch.models.layers import F32, dense_init_, param
 
@@ -168,10 +174,126 @@ def apply(p: MoE, cfg, x, *, router_mode: str = "learned"):
     contrib = out[dst] * (w_s * keep).to(x.dtype)[:, None]       # (T k, d)
     y = combine(contrib, order, T, k)
 
-    if p.shared is not None:
+    if getattr(p, "shared", None) is not None:
         y = y + mlp.swiglu(p.shared, xf[None]).reshape(T, d)
 
     frac_dropped = 1.0 - keep.sum().to(F32) / torch.full(
         (), T * k, dtype=F32, device=dev)
     return y.reshape(B, S, d), {"moe_aux": aux_loss, "moe_z": z_loss,
                                 "moe_dropped": frac_dropped}
+
+
+# ---------------------------------------------------------------------------
+# Over the ranks of a ModelMesh (training)
+# ---------------------------------------------------------------------------
+
+def apply_ranked(p: MoE, cfg, x, ctx):
+    """The layer over ranks, x in ``ctx``'s residual layout (a bound
+    ``sharding.ShardCtx``): ``apply_ep`` where ``cfg.moe_impl`` is "ep",
+    as JAX's training forward picks it, else the global dispatch."""
+    if cfg.moe_impl == "ep":
+        return apply_ep(p, cfg, x, ctx)
+    return apply_gathered(p, cfg, x, ctx)
+
+
+def apply_gathered(p: MoE, cfg, x, ctx, router_mode: str = "learned"):
+    """JAX's ``apply`` over the whole batch, as GSPMD runs it: the layer's
+    tokens gathered over the sequence and the batch axes, its weights
+    gathered whole, the one-card dispatch (capacity, sort and aux terms
+    over every token), and the rank's rows kept.  The gradient goes back
+    through the same collectives."""
+    mesh = ctx.mesh
+    xg = tp.all_gather(ctx.gather_seq(x), mesh, ctx.batch_axes, 0)
+    y, aux = apply(tp.view(p, mesh, tp=True), cfg, xg,
+                   router_mode=router_mode)
+    rows = x.shape[0]
+    y = y.narrow(0, mesh.index(ctx.batch_axes) * rows, rows)
+    return ctx.to_residual(y), aux
+
+
+def ep_axes(cfg, mesh) -> tuple:
+    """JAX's expert-parallel group: the largest suffix of the batch axes
+    whose size divides the experts (``src/repro/models/moe.py:149-151``)."""
+    axes = tuple(a for a in BATCH_AXES if a in mesh.shape)
+    while axes and cfg.num_experts % mesh.size(axes):
+        axes = axes[1:]
+    return axes
+
+
+def apply_ep(p: MoE, cfg, x, ctx):
+    """JAX's ``apply_ep``: each rank routes its own tokens (its rows and,
+    where the ``"model"`` size divides the sequence, its sequence block)
+    at a capacity of its own, ``C = max(int(T_loc k / E cf), 1)``, into an
+    (E C + 1, d) send buffer (the last row takes the drops); one
+    all-to-all over the expert-parallel group (``ep_axes``) takes each
+    expert's rows to its owner, which runs its E / |EP| experts whole
+    along ``ff`` (gathered over ``"model"``), and one brings them back.
+    ``moe_aux``, ``moe_z`` and ``moe_dropped`` are means over every rank
+    of the mesh; shared experts run tensor-parallel outside, on x."""
+    mesh = ctx.mesh
+    E, k = cfg.num_experts, cfg.top_k
+    d = x.shape[-1]
+    baxes = ep_axes(cfg, mesh)
+    Dd = mesh.size(baxes)
+    E_loc = E // Dd
+    if ctx.batch_axes != tuple(a for a in BATCH_AXES if a in mesh.shape):
+        raise ValueError(f"expert parallelism routes each batch shard's "
+                         f"tokens; a batch of {x.shape[0]} rows a rank is "
+                         f"not sharded over the batch axes of {mesh.shape}")
+    M = ctx.model_size
+    cut = not ctx.seq and M > 1 and x.shape[1] % M == 0
+    xl = ctx.seq_block(x) if cut else x
+
+    # the router in float32; the experts in the activation dtype they are
+    # cast to anyway, their expert dimension kept where it is the EP
+    # group's block
+    named = {n: getattr(p, n) for n in ("gate", "up", "down")}
+    w = tp.gather_sharded(named, mesh, dtype=x.dtype, keep=lambda n, dim,
+                          axes: dim == 0 and axes == baxes)
+    for n in named:
+        if Dd > 1 and entry_axes(tp.spec_of(named[n])[0]) != baxes:
+            w[n] = w[n].narrow(0, mesh.index(baxes) * E_loc, E_loc)
+    w.update(tp.gather_sharded({"router": p.router}, mesh))
+    w = tp._tree(w)
+
+    B_l, S_l, _ = xl.shape
+    T = B_l * S_l
+    dev = x.device
+    xf = xl.reshape(T, d)
+    logits, probs, gates, idx = route(w, cfg, xf)
+    me = probs.mean(0)
+    ce = torch.zeros(E, dtype=F32, device=dev).index_add_(
+        0, idx.reshape(-1), torch.full((T * k,), 1.0 / (T * k), dtype=F32,
+                                       device=dev))
+    z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+
+    C = max(int(T * k / E * cfg.capacity_factor), 1)
+    order, dst, keep = dispatch(cfg, idx, C)
+    w_s = gates.reshape(-1)[order]
+    xs = xf[:, None].expand(T, k, d).reshape(T * k, d)[order]
+    buf = xl.new_zeros((E * C + 1, d)).index_put((dst,), xs)
+    send = buf[:E * C].view(Dd, E_loc * C, d)
+    recv = tp.all_to_all(send, mesh, baxes)
+    eb = recv.view(Dd, E_loc, C, d).transpose(0, 1).reshape(E_loc, Dd * C, d)
+    out = experts(w, eb)
+    back = out.view(E_loc, Dd, C, d).transpose(0, 1).reshape(
+        Dd, E_loc * C, d)
+    got = tp.all_to_all(back, mesh, baxes).reshape(E * C, d)
+    got = torch.cat([got, got.new_zeros((1, d))])
+    contrib = got[dst] * (w_s * keep).to(x.dtype)[:, None]
+    y = combine(contrib, order, T, k).reshape(B_l, S_l, d)
+    if cut:
+        y = tp.all_gather(y, mesh, ("model",), 1)
+
+    kept = keep.sum().to(F32) / torch.full((), T * k, dtype=F32, device=dev)
+    stats = tp.all_reduce(torch.cat([me, ce, z[None], kept[None]]), mesh,
+                          mesh.axis_names) / torch.full(
+        (), mesh.num_shards, dtype=F32, device=dev)
+    aux = cfg.aux_loss_coef * E * torch.sum(stats[:E] * stats[E:2 * E])
+    zl = cfg.router_z_coef * stats[2 * E]
+    dropped = 1.0 - stats[2 * E + 1].detach()
+
+    if p.shared is not None:
+        sh = tp.view(p.shared, mesh)
+        y = y + ctx.leave_tp(mlp.swiglu(sh, ctx.enter_tp(x)), sh.down, 0)
+    return y, {"moe_aux": aux, "moe_z": zl, "moe_dropped": dropped}

@@ -169,14 +169,33 @@ def init_units(cfg, device=None, dtype=F32, generator=None) -> nn.ModuleList:
 # Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _apply_layer(p: Layer, cfg, x, positions, *, causal=True):
-    """One pre-norm block -> (x, its aux dict: the MoE's, else empty)."""
+def _attn_sub(pa, cfg, h, positions, causal, ctx):
+    """The attention sublayer.  Over ranks (``ctx``, a bound
+    ``sharding.ShardCtx``) the rank attends with its heads over the whole
+    sequence and ``wo``'s partial products leave in the residual layout."""
+    if ctx is not None:
+        h = ctx.enter_tp(h)
+    q, k, v = attention.qkv(pa, cfg, h, positions)
+    if ctx is not None:
+        k, v = tp.kv_for_local_heads(cfg, k, v, pa.wq, pa.wk, ctx.mesh)
+    o = attention.chunked_attention(q, k, v, cfg, causal=causal)
+    sub = attention.out_proj(pa, cfg, o)
+    return sub if ctx is None else ctx.leave_tp(sub, pa.wo, 0)
+
+
+def _apply_layer(p: Layer, cfg, x, positions, *, causal=True, ctx=None):
+    """One pre-norm block -> (x, its aux dict: the MoE's, else empty).
+    Over ranks (``ctx``) the layer's batch-axis dimensions are gathered in
+    one collective (``tp.view``; the MoE gathers its own), the dense
+    products run tensor-parallel, and the MoE routes over the mesh
+    (``moe.apply_ranked``)."""
     aux = {}
+    moe_p = getattr(p, "ffn_moe", None)
+    if ctx is not None:
+        p = tp.view(p, ctx.mesh, skip=("ffn_moe",))
     h = rms_norm(x, p.norm1.scale, cfg.norm_eps)
     if hasattr(p, "attn"):
-        q, k, v = attention.qkv(p.attn, cfg, h, positions)
-        o = attention.chunked_attention(q, k, v, cfg, causal=causal)
-        sub = attention.out_proj(p.attn, cfg, o)
+        sub = _attn_sub(p.attn, cfg, h, positions, causal, ctx)
     elif hasattr(p, "mamba"):
         sub = mamba.apply(p.mamba, cfg, h)
     elif hasattr(p, "mlstm"):
@@ -187,41 +206,50 @@ def _apply_layer(p: Layer, cfg, x, positions, *, causal=True):
     if not hasattr(p, "norm2"):
         return x, aux
     h2 = rms_norm(x, p.norm2.scale, cfg.norm_eps)
-    if hasattr(p, "ffn_moe"):
-        y, aux = moe.apply(p.ffn_moe, cfg, h2)
-    else:
+    if moe_p is not None:
+        y, aux = moe.apply(moe_p, cfg, h2) if ctx is None \
+            else moe.apply_ranked(moe_p, cfg, h2, ctx)
+    elif ctx is None:
         y = mlp.swiglu(p.ffn, h2)
+    else:
+        y = ctx.leave_tp(mlp.swiglu(p.ffn, ctx.enter_tp(h2)), p.ffn.down, 0)
     return x + y, aux
 
 
-def _apply_unit(unit, cfg, x, positions, causal):
+def _apply_unit(unit, cfg, x, positions, causal, ctx=None):
     """A unit's layers in order -> (x, their aux dicts)."""
     auxes = []
     for p in unit.values():
-        x, aux = _apply_layer(p, cfg, x, positions, causal=causal)
+        x, aux = _apply_layer(p, cfg, x, positions, causal=causal, ctx=ctx)
         auxes.append(aux)
     return x, auxes
 
 
-def apply_stack(units, cfg, x, positions, *, causal=True):
+def apply_stack(units, cfg, x, positions, *, causal=True, shard_ctx=None):
     """x (B,S,d) -> (x, aux sums): a loop over the units where JAX scans.
     With ``cfg.remat`` and autograd on, each unit is recomputed in the
     backward pass from its input alone, as JAX's ``jax.checkpoint`` of the
-    unit body does.  A MoE config sums ``moe_aux``, ``moe_z`` and
-    ``moe_dropped`` over its MoE layers in layer order, from float32
-    zeros."""
+    unit body does (over ranks the recompute issues the unit's collectives
+    again, in the same order on every rank).  A MoE config sums
+    ``moe_aux``, ``moe_z`` and ``moe_dropped`` over its MoE layers in layer
+    order, from float32 zeros.  With ``shard_ctx`` (a bound
+    ``sharding.ShardCtx``) x is the rank's (B_loc, S, d) rows and comes
+    back in the context's residual layout."""
     remat = cfg.remat and torch.is_grad_enabled()
     aux_sum = {}
     if cfg.num_experts:
         aux_sum = {k: torch.zeros((), dtype=F32, device=x.device)
                    for k in ("moe_aux", "moe_z", "moe_dropped")}
+    if shard_ctx is not None:
+        x = shard_ctx.to_residual(x)
     for unit in units:
         if remat:
             x, auxes = checkpoint(_apply_unit, unit, cfg, x, positions,
-                                  causal, use_reentrant=False,
+                                  causal, shard_ctx, use_reentrant=False,
                                   preserve_rng_state=False)
         else:
-            x, auxes = _apply_unit(unit, cfg, x, positions, causal)
+            x, auxes = _apply_unit(unit, cfg, x, positions, causal,
+                                   shard_ctx)
         for aux in auxes:
             for k, v in aux.items():
                 aux_sum[k] = aux_sum[k] + v

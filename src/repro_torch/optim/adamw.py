@@ -10,7 +10,10 @@ tensor on the parameters' device, so a step never waits for the card.
 
 The state is ``{"m": ParamDict, "v": ParamDict, "step": int32 tensor}``,
 the moments keyed like the model's parameters; the checkpoint writes them in
-JAX's stacked layout (``models.model.jax_leaves``).
+JAX's stacked layout (``models.model.jax_leaves``).  Over the ranks of a
+``ModelMesh`` the moments are the blocks of their parameters (with the
+same ``.spec``), the update is elementwise on them, and the gradient norm
+is the whole gradient's (``global_norm``).
 """
 from __future__ import annotations
 
@@ -49,18 +52,34 @@ def init_opt_state(params, oc: OptimConfig) -> dict:
     dt = STATE_DTYPES[oc.state_dtype]
     named = named_tensors(params)
     dev = next(iter(named.values())).device
-    return {
-        "m": ParamDict({n: torch.zeros(p.shape, dtype=dt, device=dev)
-                        for n, p in named.items()}),
-        "v": ParamDict({n: torch.zeros(p.shape, dtype=dt, device=dev)
-                        for n, p in named.items()}),
-        "step": torch.zeros((), dtype=torch.int32, device=dev),
-    }
+    def zeros():
+        out = ParamDict()
+        for n, p in named.items():
+            out[n] = torch.zeros(p.shape, dtype=dt, device=dev)
+            if hasattr(p, "spec"):
+                out[n].spec = p.spec
+        return out
+    return {"m": zeros(), "v": zeros(),
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(F32)))
-                          for x in named_tensors(tree).values()))
+def global_norm(tree, mesh=None, params=None) -> torch.Tensor:
+    """The norm of every tensor of ``tree`` together.  Over ``mesh`` (a
+    ``ModelMesh``; ``params``' tensors carry the blocks' specs) it is the
+    whole gradient's: each rank's sum of squares counts a block that
+    several ranks hold on the first of them only, and the sums are added
+    over the mesh."""
+    named = named_tensors(tree)
+    if mesh is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(F32)))
+                              for x in named.values()))
+    from repro_torch.distributed import tensor_parallel as tp
+    specs = named_tensors(params)
+    dev = next(iter(named.values())).device
+    local = sum((torch.sum(torch.square(x.to(F32))) for n, x in named.items()
+                 if tp.first_replica(specs[n], mesh)),
+                torch.zeros((), dtype=F32, device=dev))
+    return torch.sqrt(mesh.all_reduce(local, mesh.axis_names))
 
 
 def _decay_mask(name: str) -> bool:
@@ -72,13 +91,14 @@ def _decay_mask(name: str) -> bool:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, oc: OptimConfig):
+def adamw_update(params, grads, state, oc: OptimConfig, mesh=None):
     """One AdamW step.  ``params`` (a ``Model``) and the moments of
-    ``state`` are updated in place; ``grads`` is a ``ParamDict``.  Returns
+    ``state`` are updated in place; ``grads`` is a ``ParamDict``; ``mesh``
+    the ``ModelMesh`` whose rank's blocks they are, or None.  Returns
     (params, new state, {"grad_norm", "lr"})."""
     step = state["step"] + 1
     lr = lr_schedule(oc, step)
-    gn = global_norm(grads)
+    gn = global_norm(grads, mesh, params)
     clip = torch.clamp(scalar(oc.grad_clip, gn) / torch.clamp(gn, min=1e-9),
                        max=1.0) if oc.grad_clip else 1.0
     sdt = STATE_DTYPES[oc.state_dtype]

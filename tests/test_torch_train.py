@@ -122,6 +122,61 @@ def mesh():
     return make_mesh((1, 1), ("data", "model"))
 
 
+@pytest.fixture(scope="module")
+def jax_state(mesh):
+    """JAX's train state drawn from ``PRNGKey(0)``, once a config, as
+    numpy: ``test_train_step_matches_jax`` takes its parameters and
+    ``test_train_from_jax_checkpoint_follows_jax`` saves it at step 0."""
+    cache = {}
+
+    def get(jcfg, joc):
+        if (jcfg, joc) not in cache:
+            state = jsteps.init_train_state(jcfg, joc, mesh,
+                                            jax.random.PRNGKey(0))
+            cache[jcfg, joc] = jax.tree.map(np.asarray, state)
+        return cache[jcfg, joc]
+    return get
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_train_step_once():
+    """JAX's jitted train step of a config, compiled once for the module:
+    ``test_train_step_matches_jax`` and, through JAX's ``train``,
+    ``test_train_from_jax_checkpoint_follows_jax`` build the same step (the
+    same config, optimizer, mesh and batch shapes), and each build would
+    compile it again.  The arguments are placed with the step's shardings
+    first, as JAX's ``train`` places them, so both calls trace the same
+    types."""
+    from repro.data import make_batch_specs
+    build = jsteps.build_train_step
+    cache = {}
+
+    def build_once(cfg, oc, mesh, *, seq_shard=True,
+                   grad_compression="none"):
+        key = (cfg, oc, id(mesh), seq_shard, grad_compression)
+        if key not in cache:
+            step, jitted, pshard, oshard = build(
+                cfg, oc, mesh, seq_shard=seq_shard,
+                grad_compression=grad_compression)
+            jits = {}
+
+            def jitted_once(batch_tree):
+                shapes = tuple(sorted((k, tuple(v.shape))
+                                      for k, v in batch_tree.items()))
+                if shapes not in jits:
+                    fn = jitted(batch_tree)
+                    where = (pshard, oshard,
+                             make_batch_specs(mesh, batch_tree))
+                    jits[shapes] = lambda *args, fn=fn, where=where: fn(
+                        *jax.device_put(args, where))
+                return jits[shapes]
+            cache[key] = (step, jitted_once, pshard, oshard)
+        return cache[key]
+    jsteps.build_train_step = build_once
+    yield
+    jsteps.build_train_step = build
+
+
 def batch_np(cfg, step=0):
     b = SyntheticLMData(cfg, ShapeConfig("t", S, B, "train")).batch_at(step)
     b["labels"][0, :10] = -100          # pads
@@ -192,27 +247,29 @@ def test_input_specs_match_jax():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("c", CASES + MOE_CASES + REST_CASES, ids=case_id)
-def test_train_step_matches_jax(c, mesh):
+def test_train_step_matches_jax(c, mesh, jax_state):
     jcfg, cfg = configs(*c)
     joc, oc = JOptimConfig(**OC), OptimConfig(**OC)
-    p = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
-    p_np = jax.tree.map(np.asarray, p)
+    p_np, opt_np = jax_state(jcfg, joc)
+    p = jax.tree.map(jnp.asarray, p_np)
     b = batch_np(cfg)
     jb = {k: jnp.asarray(v) for k, v in b.items()}
     jgrads = flatten_tree(jax.tree.map(np.asarray, jax.jit(jax.grad(
         lambda q: jmodel.loss_fn(q, jcfg, jb)[0]))(p)))
     _, jitted, _, _ = jsteps.build_train_step(jcfg, joc, mesh,
                                               seq_shard=False)
-    jp, _, jm = jitted(b)(p, jsteps.init_opt_state(p, joc), jb)
+    jp, _, jm = jitted(b)(p, jax.tree.map(jnp.asarray, opt_np), jb)
     want = flatten_tree(jax.tree.map(np.asarray, jp))
 
     tp = model.params_from_numpy(cfg, p_np, CPU)
     tb = {k: torch.from_numpy(v) for k, v in b.items()}
-    names, tensors = zip(*tp.named_parameters())
-    tgrads = torch.autograd.grad(model.loss_fn(tp, cfg, tb)[0], tensors,
-                                 allow_unused=True, materialize_grads=True)
     step = steps.build_train_step(cfg, oc)
-    tp, opt, tm = step(tp, init_opt_state(tp, oc), tb)
+    # the step's two halves, so that its gradient is taken once
+    loss, metrics, grads = step.loss_and_grads(tp, tb)
+    names = [n for n, _ in tp.named_parameters()]
+    tgrads = [grads[n] for n in names]
+    tp, opt, stats = step.apply_grads(tp, init_opt_state(tp, oc), grads)
+    tm = {"loss": loss, **metrics, **stats}
     got = flatten_tree(model.params_to_numpy(tp))
     assert int(opt["step"]) == 1
     lr = float(jm["lr"])
@@ -254,12 +311,28 @@ def test_train_step_matches_jax(c, mesh):
 
 
 def test_train_step_refuses_a_mesh_of_more_than_one_shard():
+    """A bare shape of more than one shard builds no world; the hybrid, ssm
+    and encdec families do not train over ranks (item 16b-iii).  Training
+    over a ``ModelMesh`` is ``tests/test_torch_train_ranks.py``'s."""
+    from repro_torch.launch.mesh import ModelMesh, mesh_coords
     _, cfg = configs("llama3-8b", "float32")
     steps.build_train_step(cfg, OptimConfig(), {"data": 1, "model": 1})
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="ModelMesh"):
         steps.build_train_step(cfg, OptimConfig(), {"data": 2, "model": 1})
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="ModelMesh"):
         steps.init_train_state(cfg, OptimConfig(), {"model": 4}, 0, CPU)
+    shape = {"data": 2, "model": 2}
+    mm = ModelMesh(shape, 0, mesh_coords(shape, 0), torch.device(CPU),
+                   "gloo", {})
+    for arch in ("jamba-v0.1-52b", "xlstm-1.3b", "whisper-tiny"):
+        c = smoke_config(arch)
+        with pytest.raises(NotImplementedError, match="item 16b-iii"):
+            steps.build_train_step(c, OptimConfig(), mm)
+        with pytest.raises(NotImplementedError, match="item 16b-iii"):
+            steps.init_train_state(c, OptimConfig(), mm, 0)
+        with pytest.raises(NotImplementedError, match="item 16b-iii"):
+            ttrain.train(c, ShapeConfig("t", S, B, "train"), OptimConfig(),
+                         mm, num_steps=1, ckpt_dir=None, verbose=False)
 
 
 # ---------------------------------------------------------------------------
@@ -268,11 +341,11 @@ def test_train_step_refuses_a_mesh_of_more_than_one_shard():
 
 @pytest.mark.parametrize("c", CASES[:3] + MOE_CASES[1:] + REST_CASES,
                          ids=case_id)
-def test_train_from_jax_checkpoint_follows_jax(c, mesh, tmp_path):
+def test_train_from_jax_checkpoint_follows_jax(c, mesh, tmp_path,
+                                              jax_state):
     jcfg, cfg = configs(*c)
     joc, oc = JOptimConfig(**OC), OptimConfig(**OC)
-    params, opt = jsteps.init_train_state(jcfg, joc, mesh,
-                                          jax.random.PRNGKey(0))
+    params, opt = jax_state(jcfg, joc)
     JCheckpointer(str(tmp_path / "j"), async_save=False).save(
         0, {"params": params, "opt": opt})
     shutil.copytree(tmp_path / "j", tmp_path / "p")
