@@ -101,7 +101,7 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      table (100M pairs) saved by the ``Checkpointer`` and restored to the
      card, its leaves equal and the 10M paper probes through ``probe_perf``
      equal before and after (save and restore seconds and GB/s); (d)
-     h2o-danube-1.8b at its published widths, 8 of 24 layers (random init
+     h2o-danube-1.8b at its published widths, 4 of 24 layers (random init
      on the card, params float32, activations bfloat16, AdamW float32,
      remat) for 6 steps at batch 4 x 4096 with a checkpoint at step 4, and
      a second run resumed from it whose steps 4-5 and final checkpoint
@@ -121,7 +121,7 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      olmoe-1b-7b at its published widths and depth served at batch 16,
      horizon 4096 (checked, timed and profiled as in phase 10, with
      ``moe_dropped`` over the run); (d) olmoe-1b-7b at its published widths
-     and 6 of 16 layers training 8 steps at batch 4 x 4096 (ms a step,
+     and 4 of 16 layers training 8 steps at batch 4 x 4096 (ms a step,
      tokens/s, FLOP share with the experts counted at capacity, the aux
      terms by step, a device-time split and the idle share of a profiled
      step);
@@ -136,8 +136,9 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      against its forward on the same inputs within 5e-4, the whole model's
      decode against forward (a drift float32 grows with depth, reported),
      served at batch 16, horizon 4096 (checked, timed against a bound of
-     the weights and the mLSTM states, profiled), and trained at batch 4 x
-     1024 through ``launch.train.train`` with the sLSTM's host time
+     the weights and the mLSTM states, profiled), and at 16 of its 48
+     layers trained at batch 4 x 1024 through ``launch.train.train`` with
+     the sLSTM's host time
      metered and one profiled step at 4 x 16 (the sLSTM's device time by
      range); (c) whisper-tiny at its published widths: decode against
      ``decode_train`` over 1500 stub frames, then training at batch 16 x
@@ -197,7 +198,27 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      terms by step, peak a rank, a finite and falling loss; (c) with four
      cards, (b) at all 16 layers over NCCL, a card a rank.  It launches
      no probe kernel;
- 17. prints the device line last.
+ 17. decodes the moe, hybrid and vlm families over ("data", "model")
+     meshes of 4 rank processes (gloo with every rank on the one card) and
+     trains the hybrid family there: (a) olmoe-1b-7b (2 layers) on (2, 2),
+     jamba-v0.1-52b's 4-layer smoke unit on (1, 4) and (2, 2) and
+     internvl2-2b (2 layers) on (1, 4) at ``smoke_config`` widths in
+     float32, 8 teacher-forced steps against one card from the same draw
+     (logits within 1e-5, greedy tokens equal, the MoE steps' largest
+     all-gather below a MoE layer's expert blocks: the experts stay
+     where they lie), jamba's unit served on (2, 2) as one card serves it,
+     and one jamba ``moe_impl="ep"`` training step on (2, 2) with
+     ``seq_shard`` held as phase 16 holds its cases; (b) jamba-v0.1-52b at
+     its published widths and phase 12's 8 layers on (1, 4), the ranks
+     drawing their blocks one after another: 16 float32 teacher-forced
+     steps within 1e-5 of the largest of phase 12's one-card logits, then
+     phase 12's bf16 serve (ms a step, tokens/s, share of the byte bound,
+     collectives a step by kind, the largest all-gather, peak a rank,
+     ``probe_perf`` launches by rank); (c) with four cards, jamba at all
+     32 layers over NCCL, a card a rank, its decode against the forward
+     over the ranks, then served; the ``kernels`` line adds every rank's
+     launches;
+ 18. prints the device line last.
 
 Any failed check raises and the script exits non-zero.  Without a card, or
 without the rest of the repo beside it, it exits non-zero and prints no
@@ -2332,9 +2353,10 @@ TRAIN_RESTART = dict(arch="qwen3-8b", seq=64, batch=4, steps=16, every=4,
                      inject=10)
 TRAIN_ARCH = "h2o-danube-1.8b"   # published widths, random init
 # SHAPES["train_4k"] (seq 4096, batch 256) cut to batch 4 for one card, and
-# to 8 of 24 layers and 6 steps: at 24 layers and 8 steps (a 22.0 GB state
-# written three times) (d) took 193 s of the script's 1200
-TRAIN_FULL = dict(seq=4096, batch=4, depth=8, steps=6, ckpt_at=4,
+# to 4 of 24 layers and 6 steps: at 24 layers and 8 steps (a 22.0 GB state
+# written three times) (d) took 193 s of the script's 1200, at 8 layers
+# 69.8 s of a 941.7 s script on a slow host (PR 24), past its 800
+TRAIN_FULL = dict(seq=4096, batch=4, depth=4, steps=6, ckpt_at=4,
                   profile_steps=1)
 CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
 
@@ -2790,10 +2812,10 @@ MOE_SERVE = dict(batch=16, horizon=4096, page_tokens=32, requests=32,
                  prompt_len=8, max_new=32, backend="perf")
 MOE_CHECKED = MOE_SERVE
 MOE_PROFILE = dict(MOE_SERVE, requests=16, prompt_len=4, max_new=2)
-# SHAPES["train_4k"] cut to batch 4 and 6 of 16 layers (2.72B params: 43.6
-# GB of params, grads and moments; 4 layers peaked at 47.56 GiB, and each
-# 2 more add 13.4 GB, so 8 would pass 72 GiB; 16 would need 111 GB)
-MOE_TRAIN = dict(depth=6, seq=4096, batch=4, steps=8)
+# SHAPES["train_4k"] cut to batch 4 and 4 of 16 layers (4 layers peaked at
+# 47.56 GiB, and each 2 more add 13.4 GB, so 8 would pass 72 GiB; 16 would
+# need 111 GB; 6 layers took 33.6 s of a 941.7 s script, PR 24)
+MOE_TRAIN = dict(depth=4, seq=4096, batch=4, steps=8)
 
 
 def check_family_modules_vs_cpu(smi):
@@ -2900,6 +2922,10 @@ def check_hybrid_decode_matches_forward(smi):
     ok = torch.isclose(dec, full, rtol=DECODE_TOL, atol=DECODE_TOL)
     kinds = [transformer.layer_kind(cfg, i) for i in range(cfg.num_layers)]
     moe_layers = [i for i in range(cfg.num_layers) if cfg.is_moe_layer(i)]
+    # phase 17(b) holds the ranks' first steps against these, from the host
+    FAMILY_RANK_DATA.mkdir(parents=True, exist_ok=True)
+    np.save(FAMILY_RANK_DATA / "tf_logits.npy",
+            dec[:FAMILY_RANK_TF].cpu().numpy())
     check(float(aux["moe_dropped"]) == 0.0, "forward dropped tokens")
     check(bool(torch.isfinite(dec).all()), "decode logits not finite")
     check(bool(ok.all()), f"hybrid decode != forward at {int((~ok).sum())} "
@@ -3079,8 +3105,8 @@ def family_serving(k, ref, smi):
 
 
 def moe_train_full_width(smi):
-    """(d) olmoe-1b-7b at its published widths, 6 of 16 layers (random init
-    on the card; params float32, activations bfloat16, AdamW float32,
+    """(d) olmoe-1b-7b at its published widths, ``MOE_TRAIN``'s depth
+    (random init on the card; params float32, activations bfloat16, AdamW float32,
     remat per unit), 8 steps at batch 4 x 4096 with the CLI's schedule
     through ``launch.train.train``, each step's aux terms read from its
     step function's metrics; then the drops of one forward of the trained
@@ -3250,8 +3276,10 @@ XLSTM_PROFILE = dict(XLSTM_SERVE, requests=16, prompt_len=4, max_new=2)
 # tokens: at 4096 a step took 83 s (the sLSTM's serial loop, 69% of it),
 # past the 30 s a step this phase affords; 2 steps (3 took 62 s); the
 # profiled step at 16 tokens: reading the trace of a step took ~170 s at
-# 256 tokens, and at 64 (b)'s training took 111.6 s with 50.6 s of steps
-XLSTM_TRAIN = dict(seq=1024, batch=4, steps=2, profile_seq=16)
+# 256 tokens, and at 64 (b)'s training took 111.6 s with 50.6 s of steps;
+# and to 16 of 48 layers (2 units, 2 sLSTM): at 48 a step took 35.5 s on a
+# slow host and the script 941.7 s (PR 24)
+XLSTM_TRAIN = dict(depth=16, seq=1024, batch=4, steps=2, profile_seq=16)
 WHISPER_ARCH = "whisper-tiny"    # published widths and depth, random init
 WHISPER_TF = (2, 64, 16, 1500)   # sequences, decoder tokens, page, frames
 # SHAPES["train_4k"]: 4096 frames and 512 decoder tokens, cut from batch
@@ -3639,9 +3667,9 @@ def kernels_in_ranges(prof, names) -> dict:
 
 
 def xlstm_train_full_width(smi):
-    """(b) xlstm-1.3b at its published widths and depth (random init on the
-    card; params float32, activations bfloat16, AdamW float32, remat per
-    unit of 8 layers) trains at batch 4 x 1024 through
+    """(b) xlstm-1.3b at its published widths, ``XLSTM_TRAIN``'s depth
+    (random init on the card; params float32, activations bfloat16, AdamW
+    float32, remat per unit of 8 layers) trains at batch 4 x 1024 through
     ``launch.train.train``, the sLSTM's host time metered; then one step at
     batch 4 x 16 under torch.profiler: busy and idle, kernel groups, and
     the device time of the sLSTM's kernels (its forward passes and its
@@ -3655,7 +3683,7 @@ def xlstm_train_full_width(smi):
     from repro_torch.launch.train import train
     from repro_torch.models import transformer
     f = XLSTM_TRAIN
-    cfg = configs.get_config(XLSTM_ARCH)
+    cfg = configs.get_config(XLSTM_ARCH).replace(num_layers=f["depth"])
     B, S = f["batch"], f["seq"]
     shape = configs.ShapeConfig("train_4k_cut", S, B, "train")
     oc = configs.OptimConfig(lr=3e-4, warmup_steps=f["steps"] // 5 + 1,
@@ -3710,8 +3738,8 @@ def xlstm_train_full_width(smi):
     flops = mm + mix
     share = flops / (med / 1e3) / BF16_RATE
     tokens = B * S
-    print(f"xlstm_train {XLSTM_ARCH}: {cfg.num_layers} layers ({n_slstm} "
-          f"sLSTM), {n_params} params, params float32, activations "
+    print(f"xlstm_train {XLSTM_ARCH}: {cfg.num_layers} of 48 layers "
+          f"({n_slstm} sLSTM), {n_params} params, params float32, activations "
           f"{cfg.dtype}, AdamW float32, remat a unit of "
           f"{transformer.scan_unit_size(cfg)} layers; through "
           f"launch.train.train; batch {B} x seq {S} ({tokens} tokens a step; "
@@ -4268,8 +4296,8 @@ def small_config(arch, over):
     """(a)'s config: the arch's smoke widths in float32, at 2 of its 4
     layers (every layer costs five collectives a step)."""
     from repro_torch import configs
-    return configs.smoke_config(arch).replace(dtype="float32", num_layers=2,
-                                              **over)
+    return configs.smoke_config(arch).replace(
+        **{"dtype": "float32", "num_layers": 2, **over})
 
 
 def digest(t) -> str:
@@ -4758,10 +4786,11 @@ def train_rank_batches(cfg, steps):
     return out
 
 
-def small_train_rank_references() -> dict:
-    """(a) on one card: each case's metrics, gradient and parameters after
-    every step of the port's one-card step from ``init_params(cfg, 0)``,
-    float32 with TF32 off (numpy, by parameter name)."""
+def small_train_rank_references(cases=None) -> dict:
+    """(a) on one card: each case's (``train_rank_cases()`` by default)
+    metrics, gradient and parameters after every step of the port's
+    one-card step from ``init_params(cfg, 0)``, float32 with TF32 off
+    (numpy, by parameter name)."""
     import torch
     from repro_torch.configs import OptimConfig
     from repro_torch.distributed import steps
@@ -4769,7 +4798,7 @@ def small_train_rank_references() -> dict:
     check(torch.backends.cuda.matmul.allow_tf32 is False,
           "TF32 matmuls are on: float32 training would not be float32")
     out = {}
-    for name, arch, _, over, _, comp, n in train_rank_cases():
+    for name, arch, _, over, _, comp, n in cases or train_rank_cases():
         cfg = small_config(arch, over)
         oc = OptimConfig(**TRAIN_OC)
         params = model.init_params(cfg, 0, "cuda")
@@ -4795,10 +4824,11 @@ def _np_blocks(named) -> dict:
     return {k: v.detach().cpu().numpy().copy() for k, v in named.items()}
 
 
-def rank_small_train(meshes):
-    """(a) on one rank: each case's gradient and steps from
-    ``init_params_sharded``; the checkpoint case saves its step-1 state,
-    restores it on (1, 4), and resumes its step 2 on its mesh."""
+def rank_small_train(meshes, cases=None):
+    """(a) on one rank: each case's (``train_rank_cases()`` by default)
+    gradient and steps from ``init_params_sharded``; the checkpoint case
+    saves its step-1 state, restores it on (1, 4), and resumes its step 2
+    on its mesh."""
     import shutil
     import torch
     from repro_torch.checkpoint import Checkpointer
@@ -4809,7 +4839,8 @@ def rank_small_train(meshes):
           "TF32 matmuls are on in a rank")
     ckpt_dir = CKPT_ROOT / "train_ranks"
     out = {}
-    for name, arch, mname, over, seq_shard, comp, n in train_rank_cases():
+    for name, arch, mname, over, seq_shard, comp, n in \
+            cases or train_rank_cases():
         mesh = meshes[mname]
         cfg = small_config(arch, over)
         oc = OptimConfig(**TRAIN_OC)
@@ -4955,12 +4986,14 @@ def _close_step(got, want, what):
               f"{want['moe_dropped']}")
 
 
-def check_small_train_ranks(refs, outs):
+def check_small_train_ranks(refs, outs, cases=None, key="small"):
     """(a): every rank's metrics, gradient blocks and stepped parameter
-    blocks against the one-card references; the checkpoint's restore on
-    (1, 4) and on one card, and the resumed step.  Returns (cases, worst
-    gradient error over its leaf's largest, worst parameter error where
-    |g| >= 1e-6)."""
+    blocks (``outs[r][key]``) against the one-card references; where the
+    cases (``train_rank_cases()`` by default) hold the checkpoint's, its
+    restore on (1, 4) and on one card, and the resumed step.  Returns
+    (cases, worst gradient error over its leaf's largest, worst parameter
+    error where |g| >= 1e-6, int8 elements a step apart)."""
+    cases = cases or train_rank_cases()
     import torch
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.configs import OptimConfig
@@ -4969,10 +5002,10 @@ def check_small_train_ranks(refs, outs):
     from repro_torch.launch.train import _restore_tree_shapes
     worst_g = worst_p = 0.0
     flips = 0
-    for name, arch, mname, over, _, comp, n in train_rank_cases():
+    for name, arch, mname, over, _, comp, n in cases:
         ref = refs[name]
         for r, o in enumerate(outs):
-            got = o["small"][name]
+            got = o[key][name]
             mesh = ModelMesh(DECODE_MESHES[mname], r, o["coords"][mname],
                              torch.device("cpu"), "", {})
             for s in range(n):
@@ -5006,6 +5039,8 @@ def check_small_train_ranks(refs, outs):
                               f"parameter {k} off by {d[sure].max():.3e}")
                     check(d.max() <= 2 * lr, f"{name} rank {r} step {s}: "
                           f"parameter {k} off by {d.max():.3e}")
+    if all(c[0] != TRAIN_RANK_CKPT for c in cases):
+        return len(cases), worst_g, worst_p, flips
     # the checkpoint: read back on one card it is the gathered blocks; on
     # (1, 4) each rank's block of it; resumed, the step is bit-equal
     name = TRAIN_RANK_CKPT
@@ -5168,6 +5203,532 @@ def train_ranks_path(smi):
           f"{ref_s:.3f} s; {', '.join(lines)}; in the ranks (a) "
           f"{max(o['small_s'] for o in outs):.3f} s, (b) "
           f"{max(o['full_s'] for o in outs):.3f} s); card: {smi}")
+
+
+# ---------------------------------------------------------------------------
+# 17. the moe, hybrid and vlm families decoding over a (data, model) mesh of
+#     ranks, and the hybrid family training there
+# ---------------------------------------------------------------------------
+
+FAMILY_RANK_DATA = ROOT / "build" / "family_ranks"
+# (a) at smoke widths in float32, phase 15's 8 teacher-forced steps on
+# 2-token pages: olmoe (2 layers), jamba (its 4-layer unit: mamba, MoE,
+# attention, MoE) on both meshes, internvl2 (2 layers); float32 on both
+# sides, the order of the partial sums apart: logits within 1e-5
+# (absolute), greedy tokens equal
+FAMILY_RANK_CASES = (
+    ("olmoe-1b-7b@2x2", "olmoe-1b-7b", "2x2", {}),
+    ("jamba-v0.1-52b@1x4", "jamba-v0.1-52b", "1x4", {"num_layers": 4}),
+    ("jamba-v0.1-52b@2x2", "jamba-v0.1-52b", "2x2", {"num_layers": 4}),
+    ("internvl2-2b@1x4", "internvl2-2b", "1x4", {}))
+FAMILY_RANK_SERVED = "jamba-v0.1-52b@2x2"
+FAMILY_RANK_TOL = 1e-5
+# jamba's training case, as phase 16 holds its cases (capacity_factor = E,
+# the smoke config's 8 experts: EP drops nothing, as one card)
+FAMILY_RANK_TRAIN = [("jamba-v0.1-52b-ep@2x2", "jamba-v0.1-52b", "2x2",
+                      {"moe_impl": "ep", "capacity_factor": 8.0,
+                       "num_layers": 4}, True, "none", 1)]
+# (b) jamba at its published widths, phase 12's 8-layer cut, on (1, 4) (no
+# expert moves): the first 16 of phase 12's teacher-forced steps within
+# 1e-5 of their largest |logit|, then phase 12's bf16 serve
+FAMILY_RANK_MESH = "1x4"
+FAMILY_RANK_TF = 16
+# (c) NCCL, a card a rank: all 32 layers, decode against the forward over
+# the ranks on phase 12's 2 x 64 tokens (DECODE_TOL, as phase 12)
+FAMILY_RANK_NCCL_DEPTH = 32
+
+
+def family_rank_config(depth, dtype="float32"):
+    """jamba-v0.1-52b at its published widths and ``depth`` layers; in
+    float32 with phase 12's capacity_factor = E (no drops), in bfloat16
+    (serving) as phase 12 serves it."""
+    from repro_torch import configs
+    cfg = configs.get_config(HYBRID_ARCH).replace(num_layers=depth)
+    if dtype == "float32":
+        cfg = cfg.replace(dtype="float32",
+                          capacity_factor=float(cfg.num_experts))
+    return cfg
+
+
+def small_family_rank_references() -> dict:
+    """(a) on one card, each case: its tokens, the teacher-forced logits
+    (S, B, V) on a one-card block table and their greedy tokens; for
+    ``FAMILY_RANK_SERVED`` the outputs of ``serve()`` at
+    ``DECODE_RANK_SMALL_SERVE`` with the mesh's geometry."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmuls are on: float32 decode would not be float32")
+    B, S, pt = DECODE_RANK_SMALL
+    out = {}
+    for name, arch, mname, over in FAMILY_RANK_CASES:
+        cfg = small_config(arch, over)
+        params = model.init_params(cfg, 0, "cuda")
+        tokens = np.random.default_rng(len(name)).integers(
+            0, cfg.vocab_size, (B, S)).astype(np.int32)
+        ctx = decode_ctx(model, configs, cfg, B, S, pt)
+        bt = np.arange(B * ctx.n_pages, dtype=np.int32).reshape(B, -1)
+        with torch.no_grad():
+            lg, _ = teacher_forced(model, params, cfg, tokens, bt, ctx)
+        out[name] = dict(tokens=tokens, logits=lg.cpu().numpy(),
+                         next=torch.argmax(lg, -1).cpu().numpy())
+        if name == FAMILY_RANK_SERVED:
+            done, _, steps = serve.serve(
+                cfg, mesh=DECODE_MESHES[mname], seed=0, verbose=False,
+                device="cuda", **DECODE_RANK_SMALL_SERVE)
+            out[name].update(outs={r["id"]: r["out"] for r in done},
+                             steps=steps)
+        del params, lg
+    torch.cuda.empty_cache()
+    return out
+
+
+def expert_block_bytes(params) -> int:
+    """The bytes of the smallest MoE layer's expert blocks (``gate``,
+    ``up``, ``down``) in a rank's model: a gather of the layer would send
+    at least these."""
+    per_layer: dict = {}
+    for n, p in params.named_parameters():
+        layer, _, leaf = n.partition(".ffn_moe.")
+        if leaf in ("gate", "up", "down"):
+            per_layer[layer] = per_layer.get(layer, 0) \
+                + p.numel() * p.element_size()
+    return min(per_layer.values())
+
+
+class StepCollectives:
+    """The mesh's collective counts for the length of a ``with`` block
+    alone (each kind's ``largest`` call included); the earlier counts come
+    back added to them at the end."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        import copy
+        from repro_torch.launch.mesh import _new_collectives
+        self.outer = copy.deepcopy(self.mesh.collectives)
+        self.mesh.collectives.update(_new_collectives())
+        return self
+
+    def __exit__(self, *exc):
+        import copy
+        now = self.mesh.collectives
+        self.counts = copy.deepcopy(now)
+        for k in ("calls", "bytes", "seconds"):
+            now[k] += self.outer[k]
+        for kind, v in self.outer["by_kind"].items():
+            acc = now["by_kind"].setdefault(kind, dict(v))
+            if acc is not v:
+                for q in ("calls", "bytes", "seconds"):
+                    acc[q] += v[q]
+                acc["largest"] = max(acc.get("largest", 0),
+                                     v.get("largest", 0))
+
+    def largest_gather(self) -> int:
+        return max([v.get("largest", 0) for k, v in
+                    self.counts["by_kind"].items()
+                    if k.startswith("all_gather/")] or [0])
+
+
+def rank_family_small(meshes, refs):
+    """(a) on one rank: each case's teacher-forced logits rows and greedy
+    tokens through the serve step on a grouped block table from the rank's
+    ``PageTableManager`` (the largest all-gather of the steps against the
+    rank's expert blocks), and ``FAMILY_RANK_SERVED``'s ``serve()``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.paged_kv import PageTableManager
+    from repro_torch.distributed import steps
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    B, S, pt = DECODE_RANK_SMALL
+    out = {}
+    for name, arch, mname, over in FAMILY_RANK_CASES:
+        mesh = meshes[mname]
+        cfg = small_config(arch, over)
+        params = model.init_params_sharded(cfg, 0, mesh)
+        scfg = configs.ServeConfig(model=cfg, shape=configs.ShapeConfig(
+            "t", S, B, "decode"), kv_page_tokens=pt)
+        step, ctx = steps.build_serve_step(cfg, scfg, mesh=mesh)
+        groups = mesh.size(ctx.batch_axes)
+        mgr = PageTableManager(ctx.pool_pages,
+                               num_channels=mesh.size(ctx.channel_axes),
+                               num_groups=groups, backend="perf",
+                               device=mesh.device)
+        phys = mgr.alloc_seqs([(b, ctx.n_pages, b // (B // groups))
+                               for b in range(B)])
+        bt = np.stack([phys[b] for b in range(B)])
+        rows = ctx.local_batch(B)
+        states = model.init_decode_states(params, cfg, rows.stop - rows.start,
+                                          ctx, kv_dtype=torch.float32)
+        tok = torch.from_numpy(refs[name]["tokens"][rows]).to(mesh.device)
+        bt_d = torch.from_numpy(bt[rows]).to(mesh.device)
+        lg, nts = [], []
+        with StepCollectives(mesh) as coll:
+            for i in range(S):
+                pos = torch.full((rows.stop - rows.start,), i,
+                                 dtype=torch.int32, device=mesh.device)
+                nt, logits, states = step(params, states, tok[:, i:i + 1],
+                                          pos, bt_d)
+                lg.append(logits[:, 0].cpu())
+                nts.append(nt.cpu())
+        res = dict(rows=(rows.start, rows.stop),
+                   logits=torch.stack(lg).numpy(),
+                   next=torch.stack(nts).numpy(),
+                   largest_gather=coll.largest_gather(),
+                   experts=expert_block_bytes(params) if cfg.num_experts
+                   else 0)
+        del params, states
+        if name == FAMILY_RANK_SERVED:
+            done, _, n_steps = serve.serve(
+                cfg, mesh=mesh, seed=0, verbose=False,
+                **DECODE_RANK_SMALL_SERVE)
+            res.update(outs={r["id"]: r["out"] for r in done}, steps=n_steps)
+        out[name] = res
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_jamba_decode(mesh, k, depth, serial):
+    """(b) and (c) on one rank: jamba at its published widths and
+    ``depth`` layers, the rank's block drawn by ``init_params_sharded``
+    (with ``serial`` the ranks of one card draw one after another: each
+    draws every layer whole, and four whole MoE layers beside the blocks
+    would not fit); ``FAMILY_RANK_TF`` float32 teacher-forced steps of
+    ``HYBRID_TF`` (all of them with ``depth`` 32, and the forward over the
+    ranks on the same tokens); then ``HYBRID_SERVE`` in bfloat16 from the
+    same draw, timed (``DecodeTimer``), its collectives by kind, launches
+    and peak."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core import hashmap
+    from repro_torch.core.paged_kv import PageTableManager
+    from repro_torch.distributed import sharding, steps
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    dev = mesh.device
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmuls are on: float32 decode would not be float32")
+    cfg32 = family_rank_config(depth)
+    B, S, pt = HYBRID_TF
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(k)
+    params = None
+    t0 = time.perf_counter()
+    for r in range(mesh.num_shards if serial else 1):
+        if not serial or mesh.rank == r:
+            params, init_s = host_s(lambda: model.init_params_sharded(
+                cfg32, 0, mesh))
+            torch.cuda.empty_cache()    # the whole layers' memory back
+        if serial:
+            dist.barrier()
+    draw_s = time.perf_counter() - t0
+    n_local = sum(p.numel() for p in params.parameters())
+    scfg = configs.ServeConfig(model=cfg32, shape=configs.ShapeConfig(
+        "t", S, B, "decode"), kv_page_tokens=pt)
+    step, ctx = steps.build_serve_step(cfg32, scfg, mesh=mesh)
+    check(not ctx.batch_axes, "(b) expects every rank on every row")
+    mgr = PageTableManager(ctx.pool_pages,
+                           num_channels=mesh.size(ctx.channel_axes),
+                           backend="perf", device=dev)
+    mgr.alloc_seqs([(b, ctx.n_pages, 0) for b in range(B)])
+    bt = mgr.block_table(list(range(B)), ctx.n_pages)
+    tokens = np.random.default_rng(1).integers(
+        0, cfg32.vocab_size, (B, S)).astype(np.int32)
+    n_tf = S if depth == FAMILY_RANK_NCCL_DEPTH else FAMILY_RANK_TF
+    states = model.init_decode_states(params, cfg32, B, ctx,
+                                      kv_dtype=torch.float32)
+    tok, bt_d = torch.from_numpy(tokens).to(dev), torch.from_numpy(bt).to(dev)
+
+    def forced():
+        nonlocal states
+        got = []
+        for i in range(n_tf):
+            pos = torch.full((B,), i, dtype=torch.int32, device=dev)
+            _, lg, states = step(params, states, tok[:, i:i + 1], pos, bt_d)
+            got.append(lg[:, 0].cpu())
+        return torch.stack(got)
+    got, tf_s = host_s(forced)
+    tf = dict(got=got.numpy(), seconds=tf_s,
+              launches=read_launches(k)["probe_perf"])
+    del states
+    if depth == FAMILY_RANK_NCCL_DEPTH:
+        # the forward over the ranks (the training forward without
+        # autograd, so its MoE layers are expert-stationary too)
+        ctx_f = sharding.ShardCtx(mesh).bind(B, S)
+        with torch.no_grad():
+            batch = ctx_f.local_batch({"tokens": torch.from_numpy(tokens)})
+            (x, aux), fwd_s = host_s(lambda: model.forward(
+                params, cfg32, batch, shard_ctx=ctx_f))
+            head = params.embed if cfg32.tie_embeddings else params.head
+            full = tp.gather_vocab(model.logits_fn(
+                params, cfg32, ctx_f.gather_seq(x)), head, mesh)
+        tf.update(full=full.transpose(0, 1).cpu().numpy(), fwd_s=fwd_s,
+                  dropped=float(aux["moe_dropped"]))
+        del x, full
+    torch.cuda.empty_cache()
+
+    cfg = family_rank_config(depth, "bfloat16")
+    drawn = model.init_params_sharded
+    model.init_params_sharded = lambda *a, **kw: params     # the same draw
+    reset_launches(k)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        with DecodeTimer() as timer, StepCollectives(mesh) as coll:
+            done, smgr, n_steps = serve.serve(cfg, mesh=mesh, seed=0,
+                                              verbose=False, **HYBRID_SERVE)
+            sync()
+            wall = time.perf_counter() - timer.t_first
+    finally:
+        model.init_params_sharded = drawn
+    return dict(init_s=init_s, draw_s=draw_s, n_local=n_local, tf=tf,
+                outs={r["id"]: r["out"] for r in done}, steps=n_steps,
+                step_ms=timer.step_ms, wall=wall, table_ms=timer.table_ms,
+                collectives=coll.counts, largest_gather=coll.largest_gather(),
+                experts=expert_block_bytes(params),
+                launches=read_launches(k)["probe_perf"],
+                peak=torch.cuda.max_memory_allocated(dev) / 2**30,
+                live=smgr.live_pages(), table=table_digests(hashmap, smgr.hm))
+
+
+def family_rank_main(world, refs, parts, depth):
+    """Phase 17 on one rank: (a) and (b), or (c) alone (``parts``)."""
+    from repro_torch.launch.mesh import make_model_mesh
+    t_enter = time.time()
+    k = rank_kernels()
+    meshes = {n: make_model_mesh(world, s) for n, s in DECODE_MESHES.items()}
+    out = dict(device=str(world.device), backend=world.backend,
+               coords={n: m.coords for n, m in meshes.items()})
+    if "small" in parts:
+        reset_launches(k)
+        t0 = time.perf_counter()
+        out["small"] = rank_family_small(meshes, refs)
+        out["small_launches"] = read_launches(k)["probe_perf"]
+        out["small_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["train"] = rank_small_train(meshes, FAMILY_RANK_TRAIN)
+        out["train_s"] = time.perf_counter() - t0
+    if "paper" in parts:
+        t0 = time.perf_counter()
+        out["paper"] = rank_jamba_decode(meshes[FAMILY_RANK_MESH], k, depth,
+                                         serial=world.backend == "gloo")
+        out["paper_s"] = time.perf_counter() - t0
+    out["span"] = (t_enter, time.time())
+    return out
+
+
+def check_small_family_ranks(refs, outs):
+    """(a): every rank's logits rows and greedy tokens against the one-card
+    run, the MoE cases' steps moving no expert block, and the served
+    case's outputs and steps.  Returns (cases, worst |logit| difference,
+    largest all-gather over the smallest expert layer's blocks)."""
+    worst = worst_share = 0.0
+    for name, arch, mname, _ in FAMILY_RANK_CASES:
+        ref = refs[name]
+        for r, o in enumerate(outs):
+            got = o["small"][name]
+            a, b = got["rows"]
+            err = float(np.abs(got["logits"] - ref["logits"][:, a:b]).max())
+            worst = max(worst, err)
+            check(err <= FAMILY_RANK_TOL, f"family ranks {name}: rank {r}'s "
+                  f"logits {err} from the one-card run's")
+            check(np.array_equal(got["next"], ref["next"]),
+                  f"family ranks {name}: rank {r}'s greedy tokens differ "
+                  f"from one card's")
+            if got["experts"]:
+                share = got["largest_gather"] / got["experts"]
+                worst_share = max(worst_share, share)
+                check(share < 1, f"family ranks {name}: rank {r} gathered "
+                      f"{got['largest_gather']} bytes at once, as much as "
+                      f"a MoE layer's expert blocks ({got['experts']})")
+            if name == FAMILY_RANK_SERVED:
+                check(got["outs"] == ref["outs"]
+                      and got["steps"] == ref["steps"],
+                      f"family ranks {name}: rank {r}'s served tokens or "
+                      f"steps differ from one card's")
+    return len(FAMILY_RANK_CASES), worst, worst_share
+
+
+def check_jamba_ranks(outs, label, smi, depth, cards):
+    """(b)/(c): the float32 logits (against phase 12's one-card logits, or
+    the forward over the ranks), the served run (finite, every request
+    whole, the same on every rank, drained, no expert block gathered) and
+    its figures.  Returns the ranks' ``probe_perf`` launches."""
+    from repro_torch.models import transformer
+    papers = [o["paper"] for o in outs]
+    kw = HYBRID_SERVE
+    cfg = family_rank_config(depth, "bfloat16")
+    for r, p in enumerate(papers):
+        got = p["tf"]["got"]
+        check(bool(np.isfinite(got).all()), f"{label}: rank {r}'s logits "
+              f"are not finite")
+        if depth == FAMILY_RANK_NCCL_DEPTH:
+            want = p["tf"]["full"]
+            ok = np.isclose(got, want, rtol=DECODE_TOL, atol=DECODE_TOL)
+            check(bool(ok.all()) and p["tf"]["dropped"] == 0.0,
+                  f"{label}: rank {r}'s decode differs from the forward over "
+                  f"the ranks at {int((~ok).sum())} logits, max |diff| "
+                  f"{float(np.abs(got - want).max())} (forward drops "
+                  f"{p['tf']['dropped']})")
+        else:
+            want = np.load(FAMILY_RANK_DATA / "tf_logits.npy")
+            rel = float(np.abs(got - want).max() / np.abs(want).max())
+            p["tf"]["rel"] = rel
+            check(rel <= FAMILY_RANK_TOL, f"{label}: rank {r}'s float32 "
+                  f"logits differ from phase 12's one-card logits by {rel} "
+                  f"of the largest")
+        p["tf"]["err"] = float(np.abs(got - want).max())
+        p["tf"]["largest"] = float(np.abs(want).max())
+        check(p["outs"] == papers[0]["outs"] and p["table"] ==
+              papers[0]["table"] and p["live"] == 0,
+              f"{label}: rank {r}'s tokens or page table differ from rank "
+              f"0's, or pages stay live")
+        check(p["launches"] > 0 and p["tf"]["launches"] > 0,
+              f"{label}: rank {r} launched no probe_perf")
+        check(p["largest_gather"] < p["experts"], f"{label}: rank {r} "
+              f"gathered {p['largest_gather']} bytes at once, as much as a "
+              f"MoE layer's expert blocks ({p['experts']})")
+    outs0 = papers[0]["outs"]
+    check(sorted(outs0) == list(range(kw["requests"])) and all(
+        len(v) == kw["max_new"] and all(0 <= t < cfg.padded_vocab for t in v)
+        for v in outs0.values()), f"{label}: requests ended short")
+    bound_ms, w_bytes, kv_bytes, ssm_bytes = decode_bound(cfg, kw)
+    bound_ms /= cards               # each card reads its ranks' blocks
+    st = np.asarray(papers[0]["step_ms"])
+    med = float(np.median(st))
+    steps = papers[0]["steps"]
+    gen = kw["requests"] * kw["max_new"]
+    wall = max(p["wall"] for p in papers)
+    colls = [p["collectives"] for p in papers]
+    kinds = [transformer.layer_kind(cfg, i) for i in range(depth)]
+    tf = papers[0]["tf"]
+    what = (f"the forward over the ranks (no autograd: its MoE layers "
+            f"expert-stationary over all {HYBRID_TF[0] * HYBRID_TF[1]} "
+            f"tokens, no drops), every position within {DECODE_TOL}: max "
+            f"|diff|"
+            if depth == FAMILY_RANK_NCCL_DEPTH else
+            f"phase 12's one-card logits, within {FAMILY_RANK_TOL} of the "
+            f"largest: worst {max(p['tf']['rel'] for p in papers):.3e}, "
+            f"max |diff|")
+    print(f"{label}_tf {HYBRID_ARCH}: {depth} of 32 layers at its published "
+          f"widths ({kinds.count('mamba')} mamba, {kinds.count('attn')} "
+          f"attention, {sum(cfg.is_moe_layer(i) for i in range(depth))} MoE "
+          f"of {cfg.num_experts} experts top-{cfg.top_k}) over {len(outs)} "
+          f"ranks on {FAMILY_RANK_MESH} ({outs[0]['backend']}, {cards} "
+          f"card(s)); {papers[0]['n_local']} params a rank (float32), drawn "
+          f"in {max(p['draw_s'] for p in papers):.3f} s; {len(tf['got'])} "
+          f"teacher-forced steps x {HYBRID_TF[0]} sequences in float32 "
+          f"(capacity_factor = E) in {tf['seconds']:.3f} s, every rank's "
+          f"logits against {what} "
+          f"{max(p['tf']['err'] for p in papers):.3e} (largest |logit| "
+          f"{tf['largest']:.3f})"
+          + (f"; forward {tf['fwd_s']:.3f} s" if 'fwd_s' in tf else ""))
+    print(f"{label}_serve {HYBRID_ARCH} ({depth} layers; params float32, "
+          f"activations bfloat16, KV float32) over {len(outs)} ranks: "
+          f"{kw['requests']} requests of prompt {kw['prompt_len']} + "
+          f"{kw['max_new']} new at batch {kw['batch']}, horizon "
+          f"{kw['horizon']}; {steps} steps, {gen} tokens in {wall:.3f} s = "
+          f"{gen / wall:.1f} tokens/s; step ms median {med:.3f} (min "
+          f"{st.min():.3f}, max {st.max():.3f}) against a bound of "
+          f"{bound_ms:.3f} ms (weights {w_bytes / 1e9:.3f} GB + KV "
+          f"{kv_bytes / 1e9:.3f} GB + SSM states {ssm_bytes / 1e9:.3f} GB "
+          f"over {cards} card(s) at {HBM_RATE / 1e12:.2f} TB/s each; "
+          f"{bound_ms / med * 100:.2f}% of bound); collectives a step "
+          f"{colls[0]['calls'] / steps:.1f}, "
+          f"{colls[0]['bytes'] / steps / 1e6:.3f} MB sent by rank 0, host ms "
+          f"in them a step by rank "
+          f"{[round(c['seconds'] / steps * 1e3, 3) for c in colls]} "
+          f"({colls[0]['seconds'] / papers[0]['wall'] * 100:.1f}% of rank "
+          f"0's serve; by kind a step on rank 0: "
+          f"{kinds_line(colls[0]['by_kind'], steps)}); largest all-gather "
+          f"{max(p['largest_gather'] for p in papers)} bytes, an expert "
+          f"layer's blocks {papers[0]['experts'] / 1e9:.3f} GB a rank; "
+          f"page-table host ms a step {papers[0]['table_ms'] / steps:.3f}; "
+          f"probe_perf launches by rank "
+          f"{[p['tf']['launches'] + p['launches'] for p in papers]}; peak a "
+          f"rank {max(p['peak'] for p in papers):.2f} GiB; card: {smi}")
+    return sum(p["tf"]["launches"] + p["launches"] for p in papers)
+
+
+def family_ranks_nccl(smi):
+    """(c): jamba at all 32 layers over NCCL, a card a rank (four cards).
+    Returns the ranks' ``probe_perf`` launches."""
+    from repro_torch.launch.mesh import spawn_ranks
+    t0 = time.perf_counter()
+    nccl = spawn_ranks(family_rank_main, RANKS, {}, ("paper",),
+                       FAMILY_RANK_NCCL_DEPTH, backend="nccl", device=None,
+                       timeout=RANK_TIMEOUT)
+    check([o["device"] for o in nccl] == [f"cuda:{r}" for r in range(RANKS)],
+          "nccl: a card a rank")
+    launches = check_jamba_ranks(nccl, "family_ranks_nccl", smi,
+                                 FAMILY_RANK_NCCL_DEPTH, RANKS)
+    print(f"family_ranks_nccl_time: {time.perf_counter() - t0:.3f} s, spawn "
+          f"to the last rank's exit (in the ranks "
+          f"{max(o['paper_s'] for o in nccl):.3f} s); card: {smi}")
+    return launches
+
+
+def family_ranks_path(smi):
+    """Phase 17: the moe, hybrid and vlm families decoding over (data,
+    model) meshes of ``RANKS`` rank processes (gloo, every rank on the one
+    card, as phases 15 and 16) and jamba training there: (a) the small
+    cases against one card, (b) jamba at its published widths and phase
+    12's 8 layers on (1, 4) against phase 12, then served; (c) with four
+    cards, jamba at all 32 layers over NCCL.  Returns the ranks'
+    ``probe_perf`` launches."""
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks
+    t_phase = time.perf_counter()
+    refs = small_family_rank_references()
+    train_refs = small_train_rank_references(FAMILY_RANK_TRAIN)
+    ref_s = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    t0, w0 = time.perf_counter(), time.time()
+    outs = spawn_ranks(family_rank_main, RANKS, refs, ("small", "paper"),
+                       HYBRID_DEPTH, backend="gloo", device="cuda:0",
+                       timeout=RANK_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    start_s = max(o["span"][0] for o in outs) - w0
+    n, worst, share = check_small_family_ranks(refs, outs)
+    nt, worst_g, worst_p, _ = check_small_train_ranks(
+        train_refs, outs, FAMILY_RANK_TRAIN, key="train")
+    small_l = sum(o["small_launches"] for o in outs)
+    print(f"family_ranks_small: {n} decode cases (olmoe-1b-7b on 2x2, "
+          f"jamba-v0.1-52b's 4-layer unit on 1x4 and 2x2, internvl2-2b on "
+          f"1x4; smoke widths, float32) over {RANKS} ranks (gloo, all on "
+          f"cuda:0) equal one card: {DECODE_RANK_SMALL[1]} teacher-forced "
+          f"steps' logits within {worst:.3e} (bound {FAMILY_RANK_TOL}), "
+          f"greedy tokens equal, the experts stationary (the largest "
+          f"all-gather {share * 100:.1f}% of a MoE layer's expert blocks); "
+          f"{FAMILY_RANK_SERVED} served as one card (tokens, steps); "
+          f"{nt} training case (jamba ep on 2x2, seq_shard, capacity_factor "
+          f"= E) equal one card: every gradient block within {worst_g:.3e} "
+          f"of its leaf's largest, parameters within {worst_p:.3e} where "
+          f"|g| >= 1e-6, moe_dropped equal; probe_perf launches over the "
+          f"ranks {small_l}; one-card references {ref_s:.3f} s, ranks "
+          f"{max(o['small_s'] for o in outs):.3f} s decode + "
+          f"{max(o['train_s'] for o in outs):.3f} s training")
+    launches = small_l + check_jamba_ranks(outs, "family_ranks", smi,
+                                           HYBRID_DEPTH, 1)
+    lines = [f"gloo {spawn_s:.3f} s (the ranks started {start_s:.3f} s "
+             f"after the spawn)"]
+    if torch.cuda.device_count() >= RANKS:
+        t0 = time.perf_counter()
+        launches += family_ranks_nccl(smi)
+        lines.append(f"nccl {time.perf_counter() - t0:.3f} s")
+    print(f"family_ranks_time: phase 17 took "
+          f"{time.perf_counter() - t_phase:.3f} s (one-card references "
+          f"{ref_s:.3f} s; {', '.join(lines)}; in the ranks (a) "
+          f"{max(o['small_s'] + o['train_s'] for o in outs):.3f} s, (b) "
+          f"{max(o['paper_s'] for o in outs):.3f} s, of which the serialised "
+          f"draw {max(o['paper']['draw_s'] for o in outs):.3f} s); card: "
+          f"{smi}")
+    return launches
 
 
 def main() -> int:
@@ -5525,6 +6086,10 @@ def main() -> int:
           f"no probe kernel; the kernels line adds 0)")
     lap("16")
 
+    # -- 17. the moe, hybrid and vlm families over a mesh of ranks ---------
+    family_rank_launches = family_ranks_path(smi)
+    lap("17")
+
     replaces = {"probe_perf": "src/repro/kernels/probe_perf.py:34",
                 "probe_area": "src/repro/kernels/probe_area.py:32",
                 "probe_bitserial": "src/repro/kernels/probe_bitserial.py:36"}
@@ -5536,12 +6101,13 @@ def main() -> int:
           "the mesh path did not launch probe_perf")
     launches = {"probe_perf": perf_path["probe_perf"] + decode_launches
                 + ckpt_launches + family_launches + rest_launches
-                + rank_launches["probe_perf"] + decode_rank_launches,
+                + rank_launches["probe_perf"] + decode_rank_launches
+                + family_rank_launches,
                 "probe_area": bs_path["probe_area"]
                 + rank_launches["probe_area"],
                 "probe_bitserial": bs_path["probe_bitserial"]
                 + rank_launches["probe_bitserial"]}
-    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_script:.1f} "
+    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_script:.1f} "
           f"s (by phase, s: {json.dumps(laps)}); card: {smi}")
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",

@@ -6,12 +6,12 @@ optional gradient compression, then the AdamW update, in place.
 ``decode_step`` and the greedy next token, under ``torch.no_grad()``.  JAX
 jits both with their parameter and state shardings.  The port runs them
 eagerly, on one device or on each rank of a ``launch.mesh.ModelMesh``: the
-serve step for the dense family (``decode_state_specs`` places the states
-as JAX's); the train step for the dense, moe and vlm families, each rank
-with its blocks of the parameters and moments (``param_specs``) and its
-rows of the batch.  The hybrid, ssm and encdec families train over one
-shard only (their mamba, xLSTM and encoder leaves wait for ROADMAP Queue 1
-item 16b-iii).
+serve step and the train step for the dense, moe, hybrid and vlm families
+(``decode_state_specs`` places the decode states as JAX's), each rank with
+its blocks of the parameters and moments (``param_specs``) and its rows of
+the batch.  The ssm and encdec families decode and train over one shard
+only (their xLSTM leaves and the encoder's cross states wait for ROADMAP
+Queue 1 item 16b-iii).
 """
 from __future__ import annotations
 
@@ -26,14 +26,14 @@ from repro_torch.launch.mesh import ModelMesh
 from repro_torch.models import model
 from repro_torch.optim import adamw_update, init_opt_state
 
-UNSHARDED_FAMILIES = ("hybrid", "ssm", "encdec")
+UNSHARDED_FAMILIES = ("ssm", "encdec")
 
 
 def train_mesh(cfg, mesh):
     """The ``ModelMesh`` to train over, or None for one device: ``mesh`` is
     None, a ``ModelMesh``, or a shape {axis: size} of one shard.  A bare
-    shape of more than one shard builds no world, and the hybrid, ssm and
-    encdec families do not train over more than one shard: both raise."""
+    shape of more than one shard builds no world, and the ssm and encdec
+    families do not train over more than one shard: both raise."""
     if mesh is None:
         return None
     shape = sharding.mesh_shape(mesh)
@@ -42,9 +42,9 @@ def train_mesh(cfg, mesh):
         if n > 1 and cfg.family in UNSHARDED_FAMILIES:
             raise NotImplementedError(
                 f"{cfg.name} ({cfg.family}): training over a mesh of "
-                f"{shape} needs tensor parallelism of its mamba, xLSTM and "
+                f"{shape} needs tensor parallelism of its xLSTM and "
                 f"encoder leaves, ROADMAP Queue 1 item 16b-iii; the dense, "
-                f"moe and vlm families train over ranks")
+                f"moe, hybrid and vlm families train over ranks")
         return mesh
     if n > 1:
         raise NotImplementedError(

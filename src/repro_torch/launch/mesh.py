@@ -193,7 +193,8 @@ class ModelMesh:
     axes of size 1 is skipped.  ``collectives`` counts this rank's calls,
     bytes sent and host seconds inside them, in all and under ``by_kind``
     by "{kind}/{pass}" (``COLLECTIVE_KINDS``; the pass is "forward",
-    "recompute" or "backward").  A mesh is a handle on the world: a copy
+    "recompute" or "backward"), where each kind also keeps the bytes of its
+    largest call (``largest``).  A mesh is a handle on the world: a copy
     of it is itself."""
 
     shape: dict
@@ -243,6 +244,7 @@ class ModelMesh:
         k["calls"] += 1
         k["bytes"] += nbytes
         k["seconds"] += dt
+        k["largest"] = max(k.get("largest", 0), nbytes)
 
     def all_reduce(self, t: torch.Tensor, axes, op: str = "sum",
                    backward: bool = False):

@@ -23,6 +23,8 @@
     python -m repro_torch.launch.serve --arch qwen3-8b --smoke --device cpu \\
         --mesh 1 4                                  # 4 rank processes
     python -m repro_torch.launch.serve --arch olmoe-1b-7b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke \\
+        --device cpu --mesh 2 2                     # experts stationary
     python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke --device cpu
     python -m repro_torch.launch.serve --mode kv --workloads A,B,E \\
         --requests 64 --slots 16 [--device cpu]
@@ -34,7 +36,9 @@
 The flags are the JAX CLI's, plus ``--device``.  ``--mesh D M`` decodes
 over a ``("data", "model")`` mesh: with D x M > 1, D x M rank processes
 over ``torch.distributed`` (``serve_ranks``), each holding its shard of the
-parameters and its slice of every KV pool, the dense family only; without
+parameters and its slice of every KV pool (every family but ssm and
+encdec: the experts stay where they lie, mamba runs tensor-parallel on its
+channels); without
 it, one device, with the geometry of JAX's default ``(1, 1)`` mesh.
 ``--backend`` defaults to ``perf`` here (``ref`` in the JAX CLI): on the
 card ``ref`` is the plain PyTorch compare and launches no kernel.
@@ -118,7 +122,8 @@ def serve(cfg, *, mesh=None, batch=4, horizon=256, page_tokens=32,
     group ``slot // b_loc``), the next tokens gathered whole on every rank;
     rank 0 prints.  Returns (done requests, the
     PageTableManager, steps run).  Refuses encdec (``refuse_encdec``), and
-    on a mesh of ranks every family but dense."""
+    on a mesh of more than one shard the ssm family
+    (``model.refuse_sharded_decode``)."""
     model.refuse_sharded_decode(cfg, mesh)
     refuse_encdec(cfg)
     mesh = DECODE_MESH if mesh is None else mesh
@@ -354,8 +359,8 @@ def main(argv=None):
                     metavar=("D", "M"),
                     help="(decode mode) a (data, model) mesh: with D x M > "
                          "1, D x M rank processes over torch.distributed "
-                         "(nccl with a card a rank, else gloo), the dense "
-                         "family; only rank 0 prints")
+                         "(nccl with a card a rank, else gloo), every "
+                         "family but ssm and encdec; only rank 0 prints")
     ap.add_argument("--compact-chain-len", type=int, default=None,
                     help="page-table compaction when any bucket chain "
                          "exceeds this many pages (skewed frees); default: "

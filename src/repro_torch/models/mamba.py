@@ -9,6 +9,17 @@ halves, ``combine`` on strided slices), so the rounding order is JAX's and
 no launch is made a token.  Softplus is ``logaddexp(x, 0)``, JAX's
 ``jax.nn.softplus``, which keeps its curve above 20 where PyTorch's
 ``softplus`` switches to ``x``.
+
+Over the ranks of a ``ModelMesh`` the layer is tensor-parallel on
+``d_inner`` (``"mlp"`` on ``"model"``): ``wx``, ``wz`` and ``dt_proj``
+column-parallel, the conv, ``dt_bias``, ``A_log`` and ``D`` per channel,
+``x_proj`` and ``out_proj`` row-parallel.  The scan and the recurrence are
+independent per channel, so a rank runs them on its channels unchanged;
+the two reductions over ``"model"`` are ``x_proj``'s product, summed
+before the split into ``dt``, ``B`` and ``C`` (every rank then holds the
+same ``B`` and ``C``), and ``out_proj``'s output.  Both are added in
+float32 and rounded once (``tensor_parallel.reduce_partial``; in training
+its all-reduce's backward adds up the parts of the gradient).
 """
 from __future__ import annotations
 
@@ -17,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.layers import F32, dense_init_, param, project
 
 
@@ -75,11 +87,18 @@ def softplus(x):
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _ssm_inputs(p: Mamba, cfg, xc):
+def _row_sum(y, w, mesh):
+    """The row-parallel product ``y`` of ``w`` summed over ``"model"`` on a
+    rank (``mesh``), else ``y``."""
+    return y if mesh is None else tp.reduce_partial(y, w, 0, mesh)
+
+
+def _ssm_inputs(p: Mamba, cfg, xc, mesh=None):
     """xc (B, L, di), the conv + SiLU output -> the discretised dA, dBx
-    (B, L, di, N) float32 and C (B, L, N)."""
+    (B, L, di, N) float32 and C (B, L, N).  On a rank (``mesh``) xc holds
+    its channels and ``x_proj``'s partial products are summed first."""
     N, dtr = cfg.ssm_state_dim, cfg.dt_rank
-    proj = project(xc, p.x_proj).to(F32)
+    proj = _row_sum(project(xc, p.x_proj), p.x_proj, mesh).to(F32)
     dt_raw, Bs, Cs = torch.split(proj, [dtr, N, N], dim=-1)
     dt = softplus(project(dt_raw, p.dt_proj) + p.dt_bias)
     A = -torch.exp(p.A_log)                                      # (di, N)
@@ -137,10 +156,17 @@ def associative_scan(a, b):
     return _interleave(even[0], odd[0]), _interleave(even[1], odd[1])
 
 
-def apply(p: Mamba, cfg, x, *, chunk=None):
-    """Training/prefill forward.  x (B, S, d) -> (B, S, d)."""
+def apply(p: Mamba, cfg, x, *, chunk=None, ctx=None):
+    """Training/prefill forward.  x (B, S, d) -> (B, S, d).  Over ranks
+    (``ctx``, a bound ``sharding.ShardCtx``; ``p`` the rank's blocks) x
+    enters in the residual layout and is gathered whole along the sequence
+    (the chunked scan needs all of it), the rank runs its channels, and
+    ``out_proj``'s partial products leave in the residual layout."""
+    mesh = None
+    if ctx is not None:
+        x, mesh = ctx.enter_tp(x), ctx.mesh
     B, S, d = x.shape
-    di, N = cfg.d_inner, cfg.ssm_state_dim
+    N = cfg.ssm_state_dim
     L = min(chunk or cfg.mamba_chunk, S)
     if S % L:
         raise ValueError(f"sequence length {S} is not a multiple of the "
@@ -152,10 +178,10 @@ def apply(p: Mamba, cfg, x, *, chunk=None):
     xc, _ = _conv(p, cfg, xi)
     xc = F.silu(xc.to(F32)).to(dt)
 
-    h = torch.zeros((B, di, N), dtype=F32, device=x.device)
+    h = torch.zeros((B, xi.shape[-1], N), dtype=F32, device=x.device)
     ys = []
     for c0 in range(0, S, L):
-        dA, dBx, Cs = _ssm_inputs(p, cfg, xc[:, c0:c0 + L])
+        dA, dBx, Cs = _ssm_inputs(p, cfg, xc[:, c0:c0 + L], mesh)
         a_cum, s = associative_scan(dA, dBx)
         hs = a_cum * h[:, None] + s                              # (B,L,di,N)
         ys.append((hs @ Cs[..., None])[..., 0])                  # (B,L,di)
@@ -163,28 +189,32 @@ def apply(p: Mamba, cfg, x, *, chunk=None):
     y = torch.cat(ys, dim=1).to(F32)
     y = y + p.D * xc.to(F32)
     y = y * F.silu(z.to(F32))
-    return project(y.to(dt), p.out_proj)
+    out = project(y.to(dt), p.out_proj)
+    return out if ctx is None else ctx.leave_tp(out, p.out_proj, 0)
 
 
-def init_state(cfg, B: int, dtype=F32, device=None) -> dict:
+def init_state(cfg, B: int, dtype=F32, device=None, di=None) -> dict:
     """``{"conv": (B, cw - 1, di) dtype, "ssm": (B, di, N) float32}``,
-    zeros."""
-    di, N, cw = cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_conv_width
+    zeros; ``di`` (default ``d_inner``) the channels a rank holds."""
+    di = di or cfg.d_inner
+    N, cw = cfg.ssm_state_dim, cfg.ssm_conv_width
     return {"conv": torch.zeros((B, cw - 1, di), dtype=dtype, device=device),
             "ssm": torch.zeros((B, di, N), dtype=F32, device=device)}
 
 
-def decode_step(p: Mamba, cfg, state: dict, x):
-    """x (B, 1, d) -> (y (B, 1, d), new state).  The exact recurrence."""
+def decode_step(p: Mamba, cfg, state: dict, x, mesh=None):
+    """x (B, 1, d) -> (y (B, 1, d), new state).  The exact recurrence.  On
+    a rank (``mesh``) ``p`` holds its channels' blocks (the FSDP dimensions
+    gathered) and ``state`` its channels' block; x and y are whole."""
     dt = x.dtype
     xi = project(x, p.wx)
     z = project(x, p.wz)
     xc, conv_state = _conv(p, cfg, xi, state["conv"])
     xc = F.silu(xc.to(F32)).to(dt)                               # (B,1,di)
-    dA, dBx, Cs = _ssm_inputs(p, cfg, xc)
+    dA, dBx, Cs = _ssm_inputs(p, cfg, xc, mesh)
     h = dA[:, 0] * state["ssm"] + dBx[:, 0]                      # (B,di,N)
     y = (h @ Cs[:, 0, :, None])[..., 0][:, None]                 # (B,1,di)
     y = y + p.D * xc.to(F32)
     y = y * F.silu(z.to(F32))
-    out = project(y.to(dt), p.out_proj)
+    out = _row_sum(project(y.to(dt), p.out_proj), p.out_proj, mesh)
     return out, {"conv": conv_state, "ssm": h}

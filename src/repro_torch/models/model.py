@@ -25,10 +25,10 @@ inputs of each shape kind as meta tensors.
 Over a ``launch.mesh.ModelMesh`` a rank holds its block of every leaf
 (``shard_params``, ``init_params_sharded``: the blocks of
 ``distributed.sharding.param_specs``, each tensor with its ``.spec``),
-decodes the dense family tensor-parallel
+decodes the dense, moe, hybrid and vlm families tensor-parallel
 (``distributed/tensor_parallel.py``): a vocab-parallel embedding, the
-layers (``transformer.decode_stack``), vocab-sharded logits; and trains
-the dense, moe and vlm families: ``loss_fn`` with a ``ShardCtx`` (the
+layers (``transformer.decode_stack``; the experts stationary), vocab-sharded
+logits; and trains the dense, moe, hybrid and vlm families: ``loss_fn`` with a ``ShardCtx`` (the
 layers tensor-parallel, the MoE over the mesh, the cross-entropy against
 the vocabulary blocks, ``vocab_cross_entropy``).
 ``param_axes`` gives each leaf's logical axes, as JAX's init records them.
@@ -322,17 +322,20 @@ def rank_model_meta(cfg, mesh) -> Model:
     return out
 
 
+UNSHARDED_DECODE = ("ssm", "encdec")
+
+
 def refuse_sharded_decode(cfg, mesh):
     """Raise unless ``cfg``'s family decodes over ``mesh`` (a shape, a
-    ``ModelMesh`` or None): on a mesh of more than one shard only the dense
-    family does."""
+    ``ModelMesh`` or None): on a mesh of more than one shard the ssm and
+    encdec families do not."""
     shape = sharding.mesh_shape(mesh) if mesh is not None else {}
-    if cfg.family != "dense" and math.prod(shape.values()) > 1:
+    if cfg.family in UNSHARDED_DECODE and math.prod(shape.values()) > 1:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}): decode over a mesh of {shape} needs "
-            f"tensor parallelism of its expert, mamba and xLSTM leaves, "
-            f"ROADMAP Queue 1 item 16b-iii; the dense family decodes over "
-            f"ranks")
+            f"tensor parallelism of its xLSTM leaves and the encoder's "
+            f"cross states, ROADMAP Queue 1 item 16b-iii; the dense, moe, "
+            f"hybrid and vlm families decode over ranks")
 
 
 # ---------------------------------------------------------------------------
@@ -576,8 +579,9 @@ def decode_step(params: Model, cfg, states, tokens, pos, block_table, ctx):
     recurrent layers' new states, encdec's cross K/V) returned.  A vlm
     decodes tokens only, as JAX's does.  On a rank (``ctx.ranked``, a model
     from ``shard_params``) the inputs are its batch group's rows, the
-    states its pool slices, and the logits its vocabulary block; the dense
-    family only (``refuse_sharded_decode``)."""
+    states its pool slices and mamba channels, and the logits its
+    vocabulary block; not the ssm and encdec families
+    (``refuse_sharded_decode``)."""
     refuse_sharded_decode(cfg, ctx.mesh)
     x = _embed(params, cfg, tokens)
     if cfg.is_encoder_decoder:

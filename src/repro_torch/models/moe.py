@@ -25,7 +25,10 @@ is JAX's ``apply`` under GSPMD (``moe_impl="gspmd"``: every rank gathers
 the layer's tokens and weights, runs the one-card dispatch and keeps its
 rows) or JAX's expert-parallel ``apply_ep`` (``moe_impl="ep"``: each rank
 routes its own tokens at a capacity of its own, one all-to-all takes them
-to the experts' owners and one brings them back).
+to the experts' owners and one brings them back).  Decode over ranks, and
+a ``"gspmd"`` forward without autograd, is expert-stationary
+(``apply_stationary``): the tokens come to the experts and no expert weight
+moves.
 """
 from __future__ import annotations
 
@@ -141,6 +144,30 @@ def combine(contrib, order, T: int, k: int):
     return y
 
 
+def _aux_terms(cfg, logits, probs, idx):
+    """The statistics of the Switch/GShard load-balance and z losses over
+    the routed tokens: (each expert's mean probability (E,), each expert's
+    share of the routed pairs (E,), the mean squared log-sum-exp).  The
+    share adds one constant a routed pair, so any order of the additions
+    gives the same float32 sums."""
+    T, k = idx.shape
+    ce = torch.zeros(cfg.num_experts, dtype=F32, device=idx.device)
+    ce = ce.index_add_(0, idx.reshape(-1), torch.full(
+        (T * k,), 1.0 / (T * k), dtype=F32, device=idx.device))
+    z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    return probs.mean(0), ce, z
+
+
+def _dispatch_rows(xf, order, dst, E: int, C: int):
+    """The (E C + 1, d) dispatch buffer: each routed pair's token row (xf
+    (T, d), k pairs a token, in ``dispatch``'s order) at its row ``dst``,
+    the last row taking the dropped pairs."""
+    T, d = xf.shape
+    k = order.numel() // T
+    xs = xf[:, None].expand(T, k, d).reshape(T * k, d)[order]
+    return xf.new_zeros((E * C + 1, d)).index_put((dst,), xs)
+
+
 def apply(p: MoE, cfg, x, *, router_mode: str = "learned"):
     """x (B, S, d) -> (y (B, S, d), {"moe_aux", "moe_z", "moe_dropped"}):
     the load-balance and router z losses (with their coefficients) and the
@@ -152,22 +179,15 @@ def apply(p: MoE, cfg, x, *, router_mode: str = "learned"):
     xf = x.reshape(T, d)
     logits, probs, gates, idx = route(p, cfg, xf, router_mode)
 
-    # aux losses (Switch/GShard).  ``ce`` adds one constant a routed pair,
-    # so any order of the additions gives the same float32 sums
-    me = probs.mean(0)
-    ce = torch.zeros(E, dtype=F32, device=dev).index_add_(
-        0, idx.reshape(-1), torch.full((T * k,), 1.0 / (T * k), dtype=F32,
-                                       device=dev))
+    me, ce, z = _aux_terms(cfg, logits, probs, idx)
     aux_loss = cfg.aux_loss_coef * E * torch.sum(me * ce)
-    z_loss = cfg.router_z_coef * torch.mean(
-        torch.square(torch.logsumexp(logits, dim=-1)))
+    z_loss = cfg.router_z_coef * z
 
     # sort-based dispatch into E buffers of C rows and one spare row
     C = _capacity(cfg, T)
     order, dst, keep = dispatch(cfg, idx, C)
     w_s = gates.reshape(-1)[order]
-    xs = xf[:, None].expand(T, k, d).reshape(T * k, d)[order]
-    buf = x.new_zeros((E * C + 1, d)).index_put((dst,), xs)
+    buf = _dispatch_rows(xf, order, dst, E, C)
     out = experts(p, buf[:E * C].view(E, C, d)).reshape(E * C, d)
     out = torch.cat([out, out.new_zeros((1, d))])
 
@@ -190,10 +210,17 @@ def apply(p: MoE, cfg, x, *, router_mode: str = "learned"):
 def apply_ranked(p: MoE, cfg, x, ctx):
     """The layer over ranks, x in ``ctx``'s residual layout (a bound
     ``sharding.ShardCtx``): ``apply_ep`` where ``cfg.moe_impl`` is "ep",
-    as JAX's training forward picks it, else the global dispatch."""
+    as JAX's training forward picks it, else the global dispatch: with
+    autograd on ``apply_gathered``, whose gathers carry the gradient back,
+    and without (a forward that is not trained) ``apply_stationary`` over
+    the same tokens, which moves no expert weight."""
     if cfg.moe_impl == "ep":
         return apply_ep(p, cfg, x, ctx)
-    return apply_gathered(p, cfg, x, ctx)
+    if torch.is_grad_enabled():
+        return apply_gathered(p, cfg, x, ctx)
+    y, aux = apply_stationary(p, cfg, ctx.gather_seq(x), ctx.mesh,
+                              ctx.batch_axes)
+    return ctx.to_residual(y), aux
 
 
 def apply_gathered(p: MoE, cfg, x, ctx, router_mode: str = "learned"):
@@ -209,6 +236,66 @@ def apply_gathered(p: MoE, cfg, x, ctx, router_mode: str = "learned"):
     rows = x.shape[0]
     y = y.narrow(0, mesh.index(ctx.batch_axes) * rows, rows)
     return ctx.to_residual(y), aux
+
+
+def apply_stationary(p: MoE, cfg, x, mesh, batch_axes: tuple):
+    """JAX's ``apply`` over the whole decode batch, as GSPMD runs it in
+    decode, with every expert weight left where it lies: x (B_loc, S, d)
+    is the rank's rows, which the ranks of its batch group hold alike.
+
+    The B rows are all-gathered over ``batch_axes`` (B x d) and the
+    router's FSDP block gathered; every rank runs the one-card ``route``
+    and ``dispatch`` over all B rows, idle rows included (the capacity of
+    B tokens, the stable sort), so every rank routes alike.  Each runs
+    ``experts`` on the capacity rows of the experts its block holds (its
+    index along the expert dimension's axes) with its ``ff`` block (its
+    ``"model"`` index), combines its partial outputs in float32, adds the
+    shared experts' partial tensor-parallel SwiGLU, and ONE float32
+    all-reduce over the whole mesh sums the ranks' (B, d); the rank keeps
+    its rows.  A block that several ranks hold alike (a dimension the rules
+    could not shard) is added by the first of them only.  Returns (y
+    (B_loc, S, d) in x's dtype, {"moe_aux", "moe_z", "moe_dropped"} over
+    all the tokens, as ``apply``).  No gradient flows through it."""
+    rows, S, d = x.shape
+    E, k = cfg.num_experts, cfg.top_k
+    xg = mesh.all_gather(x, batch_axes, 0)
+    T = xg.shape[0] * S
+    dev = x.device
+    xf = xg.reshape(T, d)
+    router = tp._tree(tp.gather_sharded({"router": p.router}, mesh))
+    logits, probs, gates, idx = route(router, cfg, xf)
+    me, ce, z = _aux_terms(cfg, logits, probs, idx)
+    aux_loss = cfg.aux_loss_coef * E * torch.sum(me * ce)
+    z_loss = cfg.router_z_coef * z
+    C = _capacity(cfg, T)
+    order, dst, keep = dispatch(cfg, idx, C)
+
+    # the rank's experts and ff block; a dimension on another axis (the
+    # experts' d where the expert dimension could not shard) gathered
+    ex = tp.gather_sharded(
+        {n: getattr(p, n) for n in ("gate", "up", "down")}, mesh,
+        keep=lambda n, dim, axes: dim == 0 or axes == tp.TP_AXES)
+    spec = tp.spec_of(ex["gate"])
+    E_loc = ex["gate"].shape[0]
+    e0 = mesh.index(entry_axes(spec[0]) if spec else ()) * E_loc
+    y = torch.zeros((T, d), dtype=F32, device=dev)
+    if tp.first_replica(ex["gate"], mesh):
+        buf = _dispatch_rows(xf, order, dst, E, C)
+        out = experts(tp._tree(ex),
+                      buf[e0 * C:(e0 + E_loc) * C].view(E_loc, C, d))
+        full = torch.zeros((E * C + 1, d), dtype=F32, device=dev)
+        full[e0 * C:(e0 + E_loc) * C] = out.reshape(E_loc * C, d)
+        w_s = gates.reshape(-1)[order]
+        y = combine(full[dst] * (w_s * keep)[:, None], order, T, k)
+    if p.shared is not None:
+        sh = tp.view(p.shared, mesh)
+        if tp.first_replica(sh.down, mesh):
+            y = y + mlp.swiglu(sh, xf[None]).reshape(T, d).to(F32)
+    y = mesh.all_reduce(y, mesh.axis_names).to(x.dtype).view(-1, S, d)
+    y = y.narrow(0, mesh.index(batch_axes) * rows, rows)
+    dropped = 1.0 - keep.sum().to(F32) / torch.full(
+        (), T * k, dtype=F32, device=dev)
+    return y, {"moe_aux": aux_loss, "moe_z": z_loss, "moe_dropped": dropped}
 
 
 def ep_axes(cfg, mesh) -> tuple:
@@ -261,17 +348,12 @@ def apply_ep(p: MoE, cfg, x, ctx):
     dev = x.device
     xf = xl.reshape(T, d)
     logits, probs, gates, idx = route(w, cfg, xf)
-    me = probs.mean(0)
-    ce = torch.zeros(E, dtype=F32, device=dev).index_add_(
-        0, idx.reshape(-1), torch.full((T * k,), 1.0 / (T * k), dtype=F32,
-                                       device=dev))
-    z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    me, ce, z = _aux_terms(cfg, logits, probs, idx)
 
     C = max(int(T * k / E * cfg.capacity_factor), 1)
     order, dst, keep = dispatch(cfg, idx, C)
     w_s = gates.reshape(-1)[order]
-    xs = xf[:, None].expand(T, k, d).reshape(T * k, d)[order]
-    buf = xl.new_zeros((E * C + 1, d)).index_put((dst,), xs)
+    buf = _dispatch_rows(xf, order, dst, E, C)
     send = buf[:E * C].view(Dd, E_loc * C, d)
     recv = tp.all_to_all(send, mesh, baxes)
     eb = recv.view(Dd, E_loc, C, d).transpose(0, 1).reshape(E_loc, Dd * C, d)

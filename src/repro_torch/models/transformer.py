@@ -17,8 +17,10 @@ loop; attention layers read and write the HashMem-managed paged cache
 ``shard_map`` when the decode context is sharded; the port does so when the
 context's mesh is a ``ModelMesh`` of ranks (``DecodeCtx.ranked``): each
 rank appends to and attends over its slice of every pool
-(``paged_kv.append_sharded``, ``decode_attention_sharded``), and runs the
-dense layers tensor-parallel (``distributed/tensor_parallel.py``).  On one
+(``paged_kv.append_sharded``, ``decode_attention_sharded``), runs the
+dense and mamba layers tensor-parallel (``distributed/tensor_parallel.py``)
+with its batch group's rows and its channels of every mamba state, and the
+MoE layers expert-stationary (``moe.apply_stationary``).  On one
 device a context of any mesh shape decodes through the gather path, which
 computes what the channels do.  The encoder-decoder family has stacks of
 its own (``models/encdec.py``).
@@ -34,6 +36,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import paged_kv
+from repro_torch.distributed import sharding
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.launch.mesh import ModelMesh
 from repro_torch.models import attention, mamba, mlp, moe, xlstm
@@ -197,7 +200,7 @@ def _apply_layer(p: Layer, cfg, x, positions, *, causal=True, ctx=None):
     if hasattr(p, "attn"):
         sub = _attn_sub(p.attn, cfg, h, positions, causal, ctx)
     elif hasattr(p, "mamba"):
-        sub = mamba.apply(p.mamba, cfg, h)
+        sub = mamba.apply(p.mamba, cfg, h, ctx=ctx)
     elif hasattr(p, "mlstm"):
         sub = xlstm.apply_mlstm(p.mlstm, cfg, h)
     else:
@@ -267,13 +270,21 @@ def init_decode_states(cfg, B: int, ctx: DecodeCtx, kv_dtype=torch.bfloat16,
     (pool_pages, page_tokens, K, hd) zeros; for ``B`` sequences a mamba
     layer's ``{"conv", "ssm"}`` (``mamba.init_state``), an mLSTM's ``{"C",
     "n", "m"}`` and an sLSTM's ``{"c", "n", "h", "m"}``, float32 zeros.
-    On a rank (``ctx.ranked``) a pool is its slice, ``pages_per_shard``
-    pages."""
-    states = {"mamba": mamba.init_state, "mlstm": xlstm.init_mlstm_state,
+    On a rank (``ctx.ranked``; ``B`` its rows) a pool is its slice,
+    ``pages_per_shard`` pages, and a mamba state its block of ``d_inner``,
+    as ``steps.decode_state_specs`` places it."""
+    di = cfg.d_inner
+    if ctx.ranked:
+        di = sharding.local_shape((di,), sharding.spec_for(
+            ctx.mesh, ("mlp",), (di,)), ctx.mesh)[0]
+    states = {"mlstm": xlstm.init_mlstm_state,
               "slstm": xlstm.init_slstm_state}
     out = []
     for i in range(cfg.num_layers):
         kind = layer_kind(cfg, i)
+        if kind == "mamba":
+            out.append(mamba.init_state(cfg, B, device=device, di=di))
+            continue
         if kind in states:
             out.append(states[kind](cfg, B, device=device))
             continue
@@ -329,14 +340,20 @@ def _swiglu(p, x, ctx):
 
 
 def _apply_layer_decode(p: Layer, cfg, x, state, block_table, pos, ctx):
-    if ctx.ranked:
-        p = tp.view(p, ctx.mesh)   # the layer's FSDP dimensions whole
+    """One layer of a decode step.  On a rank the layer's FSDP dimensions
+    are gathered whole but the experts', which stay where they lie
+    (``moe.apply_stationary``); attention, mamba and the SwiGLU run
+    tensor-parallel."""
+    moe_p = getattr(p, "ffn_moe", None)
+    mesh = ctx.mesh if ctx.ranked else None
+    if mesh is not None:
+        p = tp.view(p, mesh, skip=("ffn_moe",))
     h = rms_norm(x, p.norm1.scale, cfg.norm_eps)
     if hasattr(p, "attn"):
         sub, state = _paged_attn_sub(p.attn, cfg, h, state, block_table,
                                      pos, ctx)
     elif hasattr(p, "mamba"):
-        sub, state = mamba.decode_step(p.mamba, cfg, state, h)
+        sub, state = mamba.decode_step(p.mamba, cfg, state, h, mesh)
     elif hasattr(p, "mlstm"):
         sub, state = xlstm.decode_mlstm(p.mlstm, cfg, state, h)
     else:
@@ -345,10 +362,11 @@ def _apply_layer_decode(p: Layer, cfg, x, state, block_table, pos, ctx):
     if not hasattr(p, "norm2"):
         return x, state
     h2 = rms_norm(x, p.norm2.scale, cfg.norm_eps)
-    if hasattr(p, "ffn_moe"):
+    if moe_p is not None:
         # the B rows route together, idle slots included, at the capacity
         # of B tokens, as in JAX
-        y, _ = moe.apply(p.ffn_moe, cfg, h2)
+        y, _ = moe.apply(moe_p, cfg, h2) if mesh is None else \
+            moe.apply_stationary(moe_p, cfg, h2, mesh, ctx.batch_axes)
     else:
         y = _swiglu(p.ffn, h2, ctx)
     return x + y, state

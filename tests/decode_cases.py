@@ -9,13 +9,18 @@ Cases, on the ("data", "model") meshes (1, 4) and (2, 2):
     pools, queries and a grouped block table (one case with a sliding
     window);
   * ``logits``: 8 teacher-forced ``decode_step``s of a float32 smoke model
-    (qwen3-8b at 2 layers, QK-norm included) from JAX's parameters, on both
+    from JAX's parameters, each rank returning its logits rows and every
+    layer's decode states: qwen3-8b at 2 layers (QK-norm included) on both
     meshes, and its 2-KV-head variant on (1, 4), whose ``wk``/``wv``
-    replicate;
-  * ``serve``: ``serve`` of that model from JAX's parameters, each rank
-    returning its outputs, steps, page-table trace and leaves;
+    replicate; olmoe-1b-7b at 2 layers on (2, 2) and jamba-v0.1-52b at 4
+    (mamba, attention and MoE) on both meshes, their experts stationary
+    (the largest all-gather of the MoE archs' steps is kept); internvl2-2b
+    at 2 layers on (1, 4);
+  * ``serve``: ``serve`` of qwen3-8b on both meshes and of jamba on (2, 2)
+    from JAX's parameters, each rank returning its outputs, steps,
+    page-table trace and leaves;
   * ``init``: each rank's ``init_params_sharded`` leaves;
-  * ``refuse``: every other family's serve on a mesh of ranks."""
+  * ``refuse``: the ssm and encdec families' serve on a mesh of ranks."""
 import os
 import subprocess
 import sys
@@ -31,16 +36,25 @@ LOGITS = dict(B=2, steps=8, pt=4, horizon=32)
 # smoke widths at 2 layers (JAX compiles each mesh's step; time grows with
 # depth)
 LAYERS = {"num_layers": 2}
+# jamba's smoke unit is 4 layers: mamba, MoE, attention, MoE
+JAMBA = ("jamba-v0.1-52b", {"num_layers": 4})
 LOGITS_CASES = {"qwen3-1x4": ("qwen3-8b", "1x4", {}),
                 "qwen3-2x2": ("qwen3-8b", "2x2", {}),
-                "qwen3-kv2-1x4": ("qwen3-8b", "1x4", {"num_kv_heads": 2})}
+                "qwen3-kv2-1x4": ("qwen3-8b", "1x4", {"num_kv_heads": 2}),
+                "olmoe-2x2": ("olmoe-1b-7b", "2x2", {}),
+                "jamba-1x4": (JAMBA[0], "1x4", JAMBA[1]),
+                "jamba-2x2": (JAMBA[0], "2x2", JAMBA[1]),
+                "internvl2-1x4": ("internvl2-2b", "1x4", {})}
 SERVE = dict(batch=4, requests=6, max_new=4, horizon=32, page_tokens=8,
              prompt_len=3)
-SERVE_CASES = {"1x4": "perf", "2x2": "ref"}
-SERVE_ARCH = "qwen3-8b"
+# name: (arch, mesh, backend, config overrides)
+SERVE_CASES = {"1x4": ("qwen3-8b", "1x4", "perf", {}),
+               "2x2": ("qwen3-8b", "2x2", "ref", {}),
+               "jamba-2x2": (JAMBA[0], "2x2", "perf", JAMBA[1])}
 INIT_ARCH = "qwen3-8b"
-REFUSED = ("olmoe-1b-7b", "jamba-v0.1-52b", "xlstm-1.3b", "internvl2-2b",
-           "whisper-tiny")
+REFUSED = ("xlstm-1.3b", "whisper-tiny")
+# threads of the JAX side, one case each
+JAX_THREADS = 8
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 
@@ -100,7 +114,7 @@ def logits_inputs(name: str):
 
 def torch_config(arch, over):
     from repro_torch.configs import smoke_config
-    return smoke_config(arch).replace(dtype="float32", **LAYERS, **over)
+    return smoke_config(arch).replace(dtype="float32", **{**LAYERS, **over})
 
 
 def params_path(tmp: str, arch: str, over: dict) -> str:
@@ -143,9 +157,12 @@ def _attn_rank(mm, name):
 
 
 def _logits_rank(mm, name, tmp):
+    import copy
+
     import torch
     from repro_torch.configs import ServeConfig, ShapeConfig
     from repro_torch.distributed import steps
+    from repro_torch.launch.mesh import _new_collectives
     from repro_torch.models import model
     arch, _, over, tokens, bt = logits_inputs(name)
     cfg = torch_config(arch, over)
@@ -162,15 +179,21 @@ def _logits_rank(mm, name, tmp):
     tok = torch.from_numpy(tokens[rows])
     bt_t = torch.from_numpy(bt[rows])
     out, nts = [], []
+    # the steps' own collectives, by kind, each kind's largest call kept
+    outer = copy.deepcopy(mm.collectives)
+    mm.collectives.update(_new_collectives())
     for i in range(L["steps"]):
         pos = torch.full((rows.stop - rows.start,), i, dtype=torch.int32)
         nt, lg, states = step(params, states, tok[:, i:i + 1], pos, bt_t)
         out.append(lg[:, 0].numpy())
         nts.append(nt.numpy())
+    steps_coll = copy.deepcopy(mm.collectives)
+    mm.collectives.update(outer)
     specs = {n: p.spec for n, p in params.named_parameters()}
     return {"logits": np.stack(out), "next": np.stack(nts),
             "rows": (rows.start, rows.stop),
-            "pools": [s["k_pool"].numpy() for s in states],
+            "states": [{k: v.numpy() for k, v in s.items()} for s in states],
+            "collectives": steps_coll,
             "specs": specs,
             "shapes": {n: tuple(p.shape) for n, p in
                        params.named_parameters()}}
@@ -180,8 +203,9 @@ def _serve_rank(mm, name, tmp):
     from repro_torch.core import hashmap, paged_kv
     from repro_torch.launch import serve as tserve
     from repro_torch.models import model
-    cfg = torch_config(SERVE_ARCH, {})
-    tree = load_tree(params_path(tmp, SERVE_ARCH, {}))
+    arch, _, backend, over = SERVE_CASES[name]
+    cfg = torch_config(arch, over)
+    tree = load_tree(params_path(tmp, arch, over))
     log = []
     cls = paged_kv.PageTableManager
     alloc, free = cls.alloc_seqs, cls.free_seqs
@@ -202,7 +226,7 @@ def _serve_rank(mm, name, tmp):
         model.shard_params(model.params_from_numpy(c, tree, dev), mesh)
     try:
         done, mgr, steps = tserve.serve(cfg, mesh=mm, seed=0, verbose=False,
-                                        backend=SERVE_CASES[name], **SERVE)
+                                        backend=backend, **SERVE)
     finally:
         cls.alloc_seqs, cls.free_seqs = alloc, free
         model.init_params_sharded = init
@@ -246,8 +270,8 @@ def decode_world(world, tmp):
         out[f"attn/{name}"] = _attn_rank(meshes[name.split("-")[0]], name)
     for name, (_, mesh, _) in LOGITS_CASES.items():
         out[f"logits/{name}"] = _logits_rank(meshes[mesh], name, tmp)
-    for name in SERVE_CASES:
-        out[f"serve/{name}"] = _serve_rank(meshes[name], name, tmp)
+    for name, (_, mesh, _, _) in SERVE_CASES.items():
+        out[f"serve/{name}"] = _serve_rank(meshes[mesh], name, tmp)
     for name in MESHES:
         out[f"init/{name}"] = _init_rank(meshes[name])
     out["refuse"] = _refuse_rank(meshes["1x4"])
@@ -262,6 +286,7 @@ def decode_world(world, tmp):
 JAX_SIDE = """
 import sys
 sys.path.insert(0, {tests!r})
+from concurrent.futures import ThreadPoolExecutor
 import numpy as np, jax, jax.numpy as jnp
 from repro.configs import ServeConfig, smoke_config
 from repro.configs.base import ShapeConfig
@@ -271,10 +296,12 @@ from repro.distributed import steps as jsteps
 from repro.launch import serve as jserve
 from repro.launch.mesh import make_mesh
 from repro.models import model as jmodel
+from repro.models.transformer import scan_unit_size
 from jax.sharding import PartitionSpec as P
 import decode_cases as dc
 from test_torch_paged_kv import jitted_jax_page_table
 
+THREADS = {threads}
 out = {{}}
 jmeshes = {{n: make_mesh(tuple(s.values()), tuple(s)) for n, s in
            dc.MESHES.items()}}
@@ -308,9 +335,10 @@ for name, window in dc.ATTN_CASES.items():
     out[f"attn/{{name}}/k_pool"] = np.asarray(kp)
     out[f"attn/{{name}}/v_pool"] = np.asarray(vp)
 
-for name in dc.LOGITS_CASES:
+def logits_case(name):
     arch, mname, over, tokens, bt = dc.logits_inputs(name)
-    cfg = smoke_config(arch).replace(dtype="float32", **dc.LAYERS, **over)
+    cfg = smoke_config(arch).replace(dtype="float32", **{{**dc.LAYERS,
+                                                          **over}})
     L = dc.LOGITS
     scfg = ServeConfig(model=cfg, shape=ShapeConfig(
         "t", L["horizon"], L["B"], "decode"), kv_page_tokens=L["pt"])
@@ -328,22 +356,40 @@ for name in dc.LOGITS_CASES:
         nts.append(np.asarray(nt))
     out[f"logits/{{name}}/logits"] = np.stack(lg)
     out[f"logits/{{name}}/next"] = np.stack(nts)
-    for i, k in enumerate(np.asarray(states[f"j0"]["k_pool"])):
-        out[f"logits/{{name}}/pool{{i}}"] = k
+    unit = scan_unit_size(cfg)
+    for j in range(unit):
+        for key, a in states[f"j{{j}}"].items():
+            for u, blk in enumerate(np.asarray(a)):
+                out[f"logits/{{name}}/L{{u * unit + j}}/{{key}}"] = blk
 
+
+def serve_case(name):
+    arch, mname, backend, over = dc.SERVE_CASES[name]
+    cfg = smoke_config(arch).replace(dtype="float32", **{{**dc.LAYERS,
+                                                          **over}})
+    done, mgr, steps = jserve.serve(cfg, jmeshes[mname], seed=0,
+                                    verbose=False, backend=backend,
+                                    **dc.SERVE)
+    for r in done:
+        out[f"serve/{{name}}/out{{r['id']}}"] = np.asarray(r["out"])
+    out[f"serve/{{name}}/steps"] = np.asarray(steps)
+
+
+# every case in a thread of its own, so their compiles overlap; a serve
+# draws its case's parameters, any other config JAX's own
+serve_params = {{smoke_config(arch).replace(
+    dtype="float32", **{{**dc.LAYERS, **over}}): jtree(arch, over)
+    for arch, _, _, over in dc.SERVE_CASES.values()}}
 mp = jitted_jax_page_table()
+init_params = jmodel.init_params
+mp.setattr(jmodel, "init_params", lambda c, key: serve_params[c]
+           if c in serve_params else init_params(c, key))
 try:
-    for name, backend in dc.SERVE_CASES.items():
-        cfg = smoke_config(dc.SERVE_ARCH).replace(dtype="float32",
-                                                  **dc.LAYERS)
-        params = jtree(dc.SERVE_ARCH, {{}})
-        mp.setattr(jmodel, "init_params", lambda c, key: params)
-        done, mgr, steps = jserve.serve(cfg, jmeshes[name], seed=0,
-                                        verbose=False, backend=backend,
-                                        **dc.SERVE)
-        for r in done:
-            out[f"serve/{{name}}/out{{r['id']}}"] = np.asarray(r["out"])
-        out[f"serve/{{name}}/steps"] = np.asarray(steps)
+    with ThreadPoolExecutor(THREADS) as ex:
+        jobs = [ex.submit(logits_case, n) for n in dc.LOGITS_CASES]
+        jobs += [ex.submit(serve_case, n) for n in dc.SERVE_CASES]
+        for j in jobs:
+            j.result()
 finally:
     mp.undo()
 np.savez({path!r}, **out)
@@ -360,7 +406,7 @@ def start_jax_side(tmp: str):
                                          os.path.join(ROOT, "tests")])
     path = os.path.join(tmp, "jax.npz")
     code = JAX_SIDE.format(tests=os.path.join(ROOT, "tests"), tmp=tmp,
-                           path=path)
+                           path=path, threads=JAX_THREADS)
     return subprocess.Popen([sys.executable, "-c", textwrap.dedent(code)],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env=env), path

@@ -11,16 +11,19 @@ carry them across with ``params_from_numpy`` and ``shard_params``):
     pools, joined in the grouped order, equal;
   * 8 float32 ``decode_step``s through the serve step: every rank's logits
     rows within 1e-5 of JAX's, the greedy tokens equal, the pools joined
-    within 1e-5 (qwen3-8b smoke at 2 layers on both meshes, and its
-    2-KV-head variant, whose ``wk``/``wv`` the rules replicate on 4
-    ranks);
+    and each rank's mamba ``conv``/``ssm`` blocks within 1e-5 of JAX's
+    (qwen3-8b smoke at 2 layers on both meshes, and its 2-KV-head variant,
+    whose ``wk``/``wv`` the rules replicate on 4 ranks; olmoe-1b-7b on
+    (2, 2), jamba-v0.1-52b at 4 layers on both meshes, internvl2-2b on
+    (1, 4)); the MoE archs' steps gather no expert weight;
   * ``serve``: every rank's outputs and steps equal JAX's ``serve`` on
-    the same mesh, and every rank's page-table trace (so its block
-    tables), leaves and free lists equal rank 0's;
+    the same mesh (qwen3-8b on both meshes, jamba on (2, 2)), and every
+    rank's page-table trace (so its block tables), leaves and free lists
+    equal rank 0's;
   * ``init_params_sharded``: every rank's blocks equal the slices of
     ``init_params`` on the same device;
-  * every family but dense refuses to decode over ranks, naming ROADMAP
-    item 16b-ii;
+  * the ssm and encdec families refuse to decode over ranks, naming
+    ROADMAP item 16b-iii;
   * the CLI's ``--mesh 2 2`` serves from four rank processes.
 float32 on both sides; the tolerance covers the order of the partial
 sums."""
@@ -46,35 +49,51 @@ from repro_torch.models.layers import flatten_tree
 import decode_cases as dc
 
 TOL = 1e-5
+CLI_ARGS = ["--arch", "qwen3-8b", "--smoke", "--device", "cpu", "--requests",
+            "3", "--batch", "2", "--max-new", "3", "--horizon", "32",
+            "--page-tokens", "8"]
 
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
-    """(JAX's outputs, each rank's results)."""
+    """(JAX's outputs, each rank's results, the serve CLI's completed
+    process)."""
     tmp = str(tmp_path_factory.mktemp("decode"))
-    models = {(dc.SERVE_ARCH, ())} | {
+    models = {(arch, tuple(sorted(over.items())))
+              for arch, _, _, over in dc.SERVE_CASES.values()} | {
         (arch, tuple(sorted(over.items())))
         for arch, _, over in dc.LOGITS_CASES.values()}
     init = jax.jit(jmodel.init_params, static_argnums=0)
-    for arch, over in sorted(models):
-        jcfg = j_smoke_config(arch).replace(dtype="float32", **dc.LAYERS,
-                                            **dict(over))
+
+    def draw(arch, over):
+        jcfg = j_smoke_config(arch).replace(dtype="float32",
+                                            **{**dc.LAYERS, **dict(over)})
         tree = jax.tree.map(np.asarray, init(jcfg, jax.random.PRNGKey(0)))
         np.savez(dc.params_path(tmp, arch, dict(over)), **flatten_tree(tree))
+    # the draws compile apart, in threads of their own
+    with ThreadPoolExecutor(len(models)) as ex:
+        for f in [ex.submit(draw, *m) for m in sorted(models)]:
+            f.result()
     proc = dc.start_jax_side(tmp)
     try:
         with ThreadPoolExecutor(1) as ex:
             ranks = ex.submit(spawn_ranks, dc.decode_world, dc.WORLD, tmp,
                               device="cpu", timeout=300).result()
+        # after the world, while JAX compiles
+        env = dict(os.environ, PYTHONPATH=os.path.join(dc.ROOT, "src"))
+        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                              *CLI_ARGS, "--mesh", "2", "2"],
+                             capture_output=True, text=True, env=env,
+                             timeout=300)
     except BaseException:
         proc[0].kill()
         raise
-    return dc.finish_jax_side(proc), ranks
+    return dc.finish_jax_side(proc), ranks, cli
 
 
 @pytest.mark.parametrize("name", list(dc.ATTN_CASES))
 def test_channel_parallel_cache_matches_jax(name, worlds):
-    jax_out, ranks = worlds
+    jax_out, ranks, _ = worlds
     res = [r[f"attn/{name}"] for r in ranks]
     # the grouped order, flat = g * Dm + m, is the rank's on a 2-D mesh
     assert [r["flat"] for r in res] == list(range(dc.WORLD))
@@ -90,7 +109,7 @@ def test_channel_parallel_cache_matches_jax(name, worlds):
 
 @pytest.mark.parametrize("name", list(dc.LOGITS_CASES))
 def test_decode_step_logits_match_jax(name, worlds):
-    jax_out, ranks = worlds
+    jax_out, ranks, _ = worlds
     res = [r[f"logits/{name}"] for r in ranks]
     want = jax_out[f"logits/{name}/logits"]
     for r in res:
@@ -100,15 +119,48 @@ def test_decode_step_logits_match_jax(name, worlds):
                                    atol=TOL)
         np.testing.assert_array_equal(r["next"],
                                       jax_out[f"logits/{name}/next"])
-    for i in range(len(res[0]["pools"])):
-        got = np.concatenate([r["pools"][i] for r in res])
-        jp = jax_out[f"logits/{name}/pool{i}"]
-        np.testing.assert_allclose(got, jp, rtol=0, atol=TOL)
-        assert np.array_equal(got.any(axis=(1, 2, 3)),
-                              jp.any(axis=(1, 2, 3)))
     arch, mesh, over, _, _ = dc.logits_inputs(name)
     cfg = dc.torch_config(arch, over)
+    for i, layer in enumerate(res[0]["states"]):
+        for key in layer:
+            jp = jax_out[f"logits/{name}/L{i}/{key}"]
+            if key in ("k_pool", "v_pool"):
+                got = np.concatenate([r["states"][i][key] for r in res])
+                np.testing.assert_allclose(got, jp, rtol=0, atol=TOL)
+                assert np.array_equal(got.any(axis=(1, 2, 3)),
+                                      jp.any(axis=(1, 2, 3)))
+                continue
+            # a mamba state: the rank's rows and d_inner channels
+            axes = steps._STATE_AXES[(key, jp.ndim)]
+            spec = sharding.spec_for(dc.MESHES[mesh], axes, jp.shape)
+            assert spec[-1 if key == "conv" else 1] == "model", (key, spec)
+            for r, got in enumerate(res):
+                mm = ModelMesh(dc.MESHES[mesh], r, ranks[r]["coords"][mesh],
+                               torch.device("cpu"), "gloo", {})
+                want = sharding.local_block(torch.from_numpy(jp), spec,
+                                            mm).numpy()
+                assert got["states"][i][key].shape == want.shape
+                np.testing.assert_allclose(got["states"][i][key], want,
+                                           rtol=0, atol=TOL,
+                                           err_msg=f"rank {r} L{i} {key}")
     specs, shapes = res[0]["specs"], res[0]["shapes"]
+    if cfg.num_experts:
+        # the experts stay where they lie: no all-gather as large as one
+        # MoE layer's expert blocks (a gather of the layer packs them)
+        per_layer: dict = {}
+        for n, shp in shapes.items():
+            layer, _, leaf = n.partition(".ffn_moe.")
+            if leaf in ("gate", "up", "down"):
+                per_layer[layer] = per_layer.get(layer, 0) + 4 * int(
+                    np.prod(shp))
+        blocks = min(per_layer.values())
+        for r in res:
+            big = max(v.get("largest", 0) for k, v in
+                      r["collectives"]["by_kind"].items()
+                      if k.startswith("all_gather/"))
+            assert 0 < big < blocks, (big, blocks)
+    if "units.0.j0.attn.wq" not in specs:
+        return
     M = dc.MESHES[mesh]["model"]
     assert specs["units.0.j0.attn.wq"][1] == "model"
     assert shapes["units.0.j0.attn.wq"][1] == cfg.num_heads // M
@@ -122,7 +174,7 @@ def test_decode_step_logits_match_jax(name, worlds):
 
 @pytest.mark.parametrize("name", list(dc.SERVE_CASES))
 def test_serve_over_ranks_matches_jax(name, worlds):
-    jax_out, ranks = worlds
+    jax_out, ranks, _ = worlds
     res = [r[f"serve/{name}"] for r in ranks]
     want = {int(k.rsplit("out", 1)[1]): v.tolist()
             for k, v in jax_out.items() if k.startswith(f"serve/{name}/out")}
@@ -140,7 +192,7 @@ def test_serve_over_ranks_matches_jax(name, worlds):
 
 @pytest.mark.parametrize("name", list(dc.MESHES))
 def test_init_params_sharded_equals_slices(name, worlds):
-    _, ranks = worlds
+    _, ranks, _ = worlds
     cfg = dc.torch_config(dc.INIT_ARCH, {})
     full = dict(model.init_params(cfg, 3, "cpu").named_parameters())
     axes = model.leaf_axes(model.Model(cfg, "meta"))
@@ -159,7 +211,8 @@ def test_init_params_sharded_equals_slices(name, worlds):
 
 
 def test_other_families_refuse_to_decode_over_ranks(worlds):
-    _, ranks = worlds
+    _, ranks, _ = worlds
+    assert dc.REFUSED == ("xlstm-1.3b", "whisper-tiny")
     for r in ranks:
         assert set(r["refuse"]) == set(dc.REFUSED)
         for arch, msg in r["refuse"].items():
@@ -175,24 +228,19 @@ def test_other_families_refuse_to_decode_over_ranks(worlds):
 
 
 def test_collectives_are_counted(worlds):
-    _, ranks = worlds
+    _, ranks, _ = worlds
     for r in ranks:
         for name, st in r["collectives"].items():
             assert st["calls"] > 0 and st["bytes"] > 0, name
 
 
-def test_serve_cli_decodes_over_a_mesh_of_ranks():
+def test_serve_cli_decodes_over_a_mesh_of_ranks(worlds):
     """``--mesh 2 2``: four rank processes on the CPU (gloo) serve every
     request and drain the page table; rank 0 alone prints.  (The smoke
     config decodes in bfloat16, whose row-parallel partial sums round
-    apart from one device's; the float32 cases above hold the tokens.)"""
-    args = ["--arch", "qwen3-8b", "--smoke", "--device", "cpu", "--requests",
-            "3", "--batch", "2", "--max-new", "3", "--horizon", "32",
-            "--page-tokens", "8"]
-    env = dict(os.environ, PYTHONPATH=os.path.join(dc.ROOT, "src"))
-    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                        *args, "--mesh", "2", "2"], capture_output=True,
-                       text=True, env=env, timeout=300)
+    apart from one device's; the float32 cases above hold the tokens.)
+    The fixture runs it, after the world."""
+    _, _, r = worlds
     assert r.returncode == 0, r.stderr
     lines = r.stdout.splitlines()
     assert sum(ln.startswith("served 3 requests") for ln in lines) == 1

@@ -54,9 +54,20 @@ def t(a):
     return torch.from_numpy(np.asarray(a).copy())
 
 
+_TREES: dict = {}
+
+
 def j_params_tree(cfg, seed=0):
-    return jax.tree.map(np.asarray,
-                        jmodel.init_params(cfg, jax.random.PRNGKey(seed)))
+    """JAX's parameters of ``cfg`` from ``PRNGKey(seed)`` as numpy, drawn
+    once a module for every config that draws the same ones: JAX's init
+    reads ``param_dtype`` but not ``dtype``, ``sliding_window`` or
+    ``remat``.  A fresh top-level dict each call (the nested leaves are
+    shared, and no test writes them)."""
+    key = (cfg.replace(dtype="float32", sliding_window=0, remat=False), seed)
+    if key not in _TREES:
+        _TREES[key] = jax.tree.map(
+            np.asarray, jmodel.init_params(cfg, jax.random.PRNGKey(seed)))
+    return dict(_TREES[key])
 
 
 # ---------------------------------------------------------------------------

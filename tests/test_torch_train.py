@@ -146,35 +146,60 @@ def jax_train_step_once():
     same config, optimizer, mesh and batch shapes), and each build would
     compile it again.  The arguments are placed with the step's shardings
     first, as JAX's ``train`` places them, so both calls trace the same
-    types."""
+    types.  The one program also returns the gradient the step's update
+    takes (``adamw_update``'s argument, uncompressed here), which
+    ``jitted(batch).with_grads`` gives: the test needs no second program
+    that differentiates the loss again."""
     from repro.data import make_batch_specs
     build = jsteps.build_train_step
+    adamw_update = jsteps.adamw_update
+    taken = []
+
+    def taking_adamw_update(params, grads, opt_state, oc):
+        taken.append(grads)
+        return adamw_update(params, grads, opt_state, oc)
     cache = {}
 
     def build_once(cfg, oc, mesh, *, seq_shard=True,
                    grad_compression="none"):
         key = (cfg, oc, id(mesh), seq_shard, grad_compression)
         if key not in cache:
-            step, jitted, pshard, oshard = build(
+            step, _, pshard, oshard = build(
                 cfg, oc, mesh, seq_shard=seq_shard,
                 grad_compression=grad_compression)
             jits = {}
+
+            def step_and_grads(params, opt_state, batch):
+                taken.clear()
+                return (*step(params, opt_state, batch), taken[0])
 
             def jitted_once(batch_tree):
                 shapes = tuple(sorted((k, tuple(v.shape))
                                       for k, v in batch_tree.items()))
                 if shapes not in jits:
-                    fn = jitted(batch_tree)
                     where = (pshard, oshard,
                              make_batch_specs(mesh, batch_tree))
-                    jits[shapes] = lambda *args, fn=fn, where=where: fn(
-                        *jax.device_put(args, where))
+                    # JAX's jitted step (``build_train_step``'s
+                    # ``jitted``), the gradient its fourth output
+                    fn = jax.jit(step_and_grads, in_shardings=where,
+                                 out_shardings=(pshard, oshard, None, None),
+                                 donate_argnums=(0, 1))
+
+                    def with_grads(*args, fn=fn, where=where):
+                        return fn(*jax.device_put(args, where))
+
+                    def run(*args, with_grads=with_grads):
+                        return with_grads(*args)[:3]
+                    run.with_grads = with_grads
+                    jits[shapes] = run
                 return jits[shapes]
             cache[key] = (step, jitted_once, pshard, oshard)
         return cache[key]
     jsteps.build_train_step = build_once
+    jsteps.adamw_update = taking_adamw_update
     yield
     jsteps.build_train_step = build
+    jsteps.adamw_update = adamw_update
 
 
 def batch_np(cfg, step=0):
@@ -254,11 +279,11 @@ def test_train_step_matches_jax(c, mesh, jax_state):
     p = jax.tree.map(jnp.asarray, p_np)
     b = batch_np(cfg)
     jb = {k: jnp.asarray(v) for k, v in b.items()}
-    jgrads = flatten_tree(jax.tree.map(np.asarray, jax.jit(jax.grad(
-        lambda q: jmodel.loss_fn(q, jcfg, jb)[0]))(p)))
     _, jitted, _, _ = jsteps.build_train_step(jcfg, joc, mesh,
                                               seq_shard=False)
-    jp, _, jm = jitted(b)(p, jax.tree.map(jnp.asarray, opt_np), jb)
+    jp, _, jm, jg = jitted(b).with_grads(
+        p, jax.tree.map(jnp.asarray, opt_np), jb)
+    jgrads = flatten_tree(jax.tree.map(np.asarray, jg))
     want = flatten_tree(jax.tree.map(np.asarray, jp))
 
     tp = model.params_from_numpy(cfg, p_np, CPU)
@@ -311,9 +336,10 @@ def test_train_step_matches_jax(c, mesh, jax_state):
 
 
 def test_train_step_refuses_a_mesh_of_more_than_one_shard():
-    """A bare shape of more than one shard builds no world; the hybrid, ssm
-    and encdec families do not train over ranks (item 16b-iii).  Training
-    over a ``ModelMesh`` is ``tests/test_torch_train_ranks.py``'s."""
+    """A bare shape of more than one shard builds no world; the ssm and
+    encdec families do not train over ranks (item 16b-iii).  Training over
+    a ``ModelMesh`` (the hybrid family's too) is
+    ``tests/test_torch_train_ranks.py``'s."""
     from repro_torch.launch.mesh import ModelMesh, mesh_coords
     _, cfg = configs("llama3-8b", "float32")
     steps.build_train_step(cfg, OptimConfig(), {"data": 1, "model": 1})
@@ -324,7 +350,7 @@ def test_train_step_refuses_a_mesh_of_more_than_one_shard():
     shape = {"data": 2, "model": 2}
     mm = ModelMesh(shape, 0, mesh_coords(shape, 0), torch.device(CPU),
                    "gloo", {})
-    for arch in ("jamba-v0.1-52b", "xlstm-1.3b", "whisper-tiny"):
+    for arch in ("xlstm-1.3b", "whisper-tiny"):
         c = smoke_config(arch)
         with pytest.raises(NotImplementedError, match="item 16b-iii"):
             steps.build_train_step(c, OptimConfig(), mm)

@@ -10,7 +10,9 @@ both sides start from the same parameters, which the port draws here:
     qwen3-8b smoke at 2 layers on (2, 2) with ``seq_shard`` (2 steps), its
     2-KV-head variant on (1, 4) without ``seq_shard`` and with int8
     compression, olmoe-1b-7b with ``moe_impl="ep"`` (``moe.apply_ep``) and
-    ``"gspmd"`` on (2, 2);
+    ``"gspmd"`` on (2, 2) (the latter's loss also without autograd, its MoE
+    layers ``moe.apply_stationary``), jamba-v0.1-52b at 4 layers with
+    ``"ep"`` on (2, 2) with ``seq_shard`` (tensor-parallel mamba);
   * the ranks' step-1 checkpoint of the first case: JAX's ``Checkpointer``
     reads it as JAX's own state; the port restores it on one device
     bit-equal to the gathered blocks, and on (1, 4) bit-equal to the
@@ -20,8 +22,8 @@ both sides start from the same parameters, which the port draws here:
     one-device step (its -100 labels test the global token count);
   * ``--mesh 2 2 --inject-failure-at 2`` restarts once and its losses equal
     a run without the failure;
-  * the hybrid, ssm and encdec families, and a bare shape of more than one
-    shard, refuse (``tests/test_torch_train.py``).
+  * the ssm and encdec families, and a bare shape of more than one shard,
+    refuse (``tests/test_torch_train.py``).
 
 Bounds, those of ``tests/test_torch_train.py``, from what float32
 summation order can do: loss, cross-entropy, grad norm, lr, ``moe_aux`` and
@@ -60,15 +62,17 @@ def rel(a, b):
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """(JAX's outputs, each rank's results, the CLI's completed process,
-    the temp dir)."""
+    the temp dir, the vlm case's one-device step)."""
     tmp = str(tmp_path_factory.mktemp("train"))
     tc.write_params(tmp)
     proc = tc.start_jax_side(tmp)
     env = dict(os.environ, PYTHONPATH=os.path.join(tc.ROOT, "src"))
     try:
         with ThreadPoolExecutor(1) as ex:
-            ranks = ex.submit(spawn_ranks, tc.train_world, tc.WORLD, tmp,
-                              device="cpu", timeout=300).result()
+            world = ex.submit(spawn_ranks, tc.train_world, tc.WORLD, tmp,
+                              device="cpu", timeout=300)
+            vlm = vlm_one_device()          # while the ranks run
+            ranks = world.result()
         # after the world, while JAX compiles: the two worlds at once would
         # take the cores JAX's compiles need
         cli = subprocess.run(
@@ -79,7 +83,22 @@ def worlds(tmp_path_factory):
         proc[0].kill()
         raise
     return tc.finish_jax_side(proc), ranks, \
-        (cli.returncode, cli.stdout, cli.stderr), tmp
+        (cli.returncode, cli.stdout, cli.stderr), tmp, vlm
+
+
+def vlm_one_device():
+    """The vlm case's port step on one device: (its metrics, its gradient,
+    the stepped parameters, the batch's labels)."""
+    cfg = tc.torch_config(tc.VLM["arch"], {})
+    oc = OptimConfig(**tc.OC)
+    params = model.init_params(cfg, tc.VLM["seed"], CPU)
+    step = steps.build_train_step(cfg, oc)
+    b = {k: torch.from_numpy(v) for k, v in tc.batch_np(
+        SyntheticLMData, cfg, ShapeConfig, 0).items()}
+    _, _, grads = step.loss_and_grads(params, b)
+    params, _, m = step(params, steps.init_opt_state(params, oc), b)
+    want = {n: p.detach().numpy() for n, p in params.named_parameters()}
+    return m, grads, want, b["labels"]
 
 
 def rank_mesh(name, r, ranks):
@@ -134,7 +153,7 @@ def check_params(got, want, g, lr, what):
 
 @pytest.mark.parametrize("name", list(tc.CASES))
 def test_train_step_over_ranks_matches_jax(name, worlds):
-    jax_out, ranks, _, _ = worlds
+    jax_out, ranks, _, _, _ = worlds
     c = tc.CASES[name]
     for r, res in enumerate(ranks):
         mesh = rank_mesh(c["mesh"], r, ranks)
@@ -143,6 +162,9 @@ def test_train_step_over_ranks_matches_jax(name, worlds):
             want = {k.rsplit("/", 1)[1]: v for k, v in jax_out.items()
                     if k.startswith(f"{name}/metrics{s}/")}
             check_step(m, want)
+        if "nograd_loss" in got:
+            assert rel(got["nograd_loss"], jax_out[f"{name}/metrics0/loss"]) \
+                <= TOL
         lr = got["metrics"][0]["lr"]
         for n, g in got["grads"].items():
             path, i = model._jax_path(n)
@@ -161,7 +183,7 @@ def test_train_step_over_ranks_matches_jax(name, worlds):
 
 def test_moe_routes_over_the_mesh(worlds):
     """EP exchanges tokens by all-to-all, GSPMD gathers them; both drop."""
-    jax_out, ranks, _, _ = worlds
+    jax_out, ranks, _, _, _ = worlds
     for res in ranks:
         ep, gs = res["olmoe-ep-2x2"], res["olmoe-gspmd-2x2"]
         assert ep["collectives"].get("all_to_all/forward", 0) > 0
@@ -174,7 +196,7 @@ def test_moe_routes_over_the_mesh(worlds):
 
 def test_sharded_checkpoint_is_jax_s_and_restores_on_any_mesh(worlds):
     from repro.checkpoint import Checkpointer as JCheckpointer
-    jax_out, ranks, _, tmp = worlds
+    jax_out, ranks, _, tmp, _ = worlds
     import jax
     from repro.configs import smoke_config as j_smoke_config
     from repro.configs.base import OptimConfig as JOptimConfig
@@ -232,17 +254,9 @@ def test_sharded_checkpoint_is_jax_s_and_restores_on_any_mesh(worlds):
 
 
 def test_vlm_over_ranks_matches_one_device(worlds):
-    _, ranks, _, _ = worlds
+    _, ranks, _, _, (m, grads, want, labels) = worlds
     cfg = tc.torch_config(tc.VLM["arch"], {})
-    oc = OptimConfig(**tc.OC)
-    params = model.init_params(cfg, tc.VLM["seed"], CPU)
-    step = steps.build_train_step(cfg, oc)
-    b = {k: torch.from_numpy(v) for k, v in tc.batch_np(
-        SyntheticLMData, cfg, ShapeConfig, 0).items()}
-    assert (b["labels"][:, :cfg.num_prefix_embeds] == -100).all()
-    _, _, grads = step.loss_and_grads(params, b)
-    params, _, m = step(params, steps.init_opt_state(params, oc), b)
-    want = {n: p.detach().numpy() for n, p in params.named_parameters()}
+    assert (labels[:, :cfg.num_prefix_embeds] == -100).all()
     lr = float(m["lr"])
     for r, res in enumerate(ranks):
         mesh = rank_mesh(tc.VLM["mesh"], r, ranks)
@@ -259,7 +273,7 @@ def test_vlm_over_ranks_matches_one_device(worlds):
 
 def test_train_cli_over_a_mesh_restarts_and_follows_an_uninterrupted_run(
         worlds):
-    _, ranks, (rc, so, se), _ = worlds
+    _, ranks, (rc, so, se), _, _ = worlds
     assert rc == 0, se
     lines = so.splitlines()
     assert any("restarts=1" in ln for ln in lines), so
@@ -270,7 +284,7 @@ def test_train_cli_over_a_mesh_restarts_and_follows_an_uninterrupted_run(
 
 
 def test_collectives_are_counted_by_kind(worlds):
-    _, ranks, _, _ = worlds
+    _, ranks, _, _, _ = worlds
     for res in ranks:
         seen = res["qwen3-2x2"]["collectives"]
         # the sequence layout gathers and reduce-scatters; the remat'ed
@@ -284,7 +298,7 @@ def test_collectives_are_counted_by_kind(worlds):
 
 
 def test_meshes_are_laid_out_row_major(worlds):
-    _, ranks, _, _ = worlds
+    _, ranks, _, _, _ = worlds
     for r, res in enumerate(ranks):
         for name, shape in tc.MESHES.items():
             assert res["coords"][name] == mesh_coords(shape, r)

@@ -3,7 +3,8 @@ seeded inputs both sides take, and the JAX side (one subprocess with four
 forced XLA devices that writes every output to an ``.npz``).  This module
 imports no JAX itself, so a rank starts in a second or two; the JAX side
 is a source string run in the subprocess, one jitted program a case (the
-gradient, then every step), so no case compiles twice.
+gradient, then every step), so no case compiles twice; each compiles
+and runs in a thread of its own while the next is traced.
 
 Cases (``CASES``), float32 smoke configs at 2 layers, batch 4 x 64 with
 pads (-100 labels) in rows 0 and 2, from parameters the port draws
@@ -13,7 +14,10 @@ pads (-100 labels) in rows 0 and 2, from parameters the port draws
     (1, 4), and the step resumed from it;
   * qwen3-8b with 2 KV heads on (1, 4), ``seq_shard=False``, int8
     gradient compression (``wk``/``wv`` replicate over four ranks);
-  * olmoe-1b-7b with ``moe_impl="ep"`` and with ``"gspmd"`` on (2, 2).
+  * olmoe-1b-7b with ``moe_impl="ep"`` and with ``"gspmd"`` on (2, 2)
+    (the latter's loss also without autograd, its MoE expert-stationary);
+  * jamba-v0.1-52b at 4 layers (mamba, attention and MoE; the smoke
+    unit) with ``moe_impl="ep"`` on (2, 2) with ``seq_shard``.
 Then, without JAX: internvl2-2b on (2, 2) from ``init_params_sharded``
 (the test holds it against the port's one-device step), and the
 uninterrupted run the train CLI's ``--mesh 2 2`` restart must follow
@@ -39,6 +43,9 @@ CASES = {
                          mesh="2x2", seq_shard=True, comp="none", steps=1),
     "olmoe-gspmd-2x2": dict(arch="olmoe-1b-7b", over={}, mesh="2x2",
                             seq_shard=True, comp="none", steps=1),
+    "jamba-ep-2x2": dict(arch="jamba-v0.1-52b",
+                         over={"moe_impl": "ep", "num_layers": 4},
+                         mesh="2x2", seq_shard=True, comp="none", steps=1),
 }
 CKPT_CASE = "qwen3-2x2"
 VLM = dict(arch="internvl2-2b", mesh="2x2", seq_shard=True, seed=0)
@@ -57,7 +64,7 @@ def cli_args(ckpt_dir: str) -> list:
 
 def torch_config(arch, over):
     from repro_torch.configs import smoke_config
-    return smoke_config(arch).replace(dtype="float32", **LAYERS, **over)
+    return smoke_config(arch).replace(dtype="float32", **{**LAYERS, **over})
 
 
 def batch_np(data_cls, cfg, shape_cls, step: int) -> dict:
@@ -155,6 +162,13 @@ def _case_rank(meshes, name, tmp):
     _, _, grads = step.loss_and_grads(params, batches[0])
     out = {"grads": _blocks(grads), "metrics": [], "params": [],
            "specs": {n: p.spec for n, p in params.named_parameters()}}
+    if cfg.num_experts and cfg.moe_impl != "ep":
+        # the loss without autograd: its MoE layers expert-stationary
+        from repro_torch.distributed import sharding
+        ctx = sharding.ShardCtx(mesh, c["seq_shard"]).bind(B, S)
+        with torch.no_grad():
+            out["nograd_loss"] = float(model.loss_fn(
+                params, cfg, ctx.local_batch(batches[0]), shard_ctx=ctx)[0])
     for s, b in enumerate(batches):
         params, opt, m = step(params, opt, b)
         out["metrics"].append({k: float(v) for k, v in m.items()})
@@ -232,6 +246,7 @@ def train_world(world, tmp):
 JAX_SIDE = """
 import sys
 sys.path.insert(0, {tests!r})
+from concurrent.futures import ThreadPoolExecutor
 import numpy as np, jax, jax.numpy as jnp
 from repro.configs import smoke_config
 from repro.configs.base import OptimConfig, ShapeConfig
@@ -244,12 +259,23 @@ from repro.optim import init_opt_state
 import train_rank_cases as tc
 
 oc = OptimConfig(**tc.OC)
+# the gradients the steps' updates take, as the cases are traced
+taken = []
+adamw_update = jsteps.adamw_update
 
 
-def run(name):
+def _adamw_update(params, grads, opt, oc):
+    taken.append(grads)
+    return adamw_update(params, grads, opt, oc)
+
+
+jsteps.adamw_update = _adamw_update
+
+
+def lower(name):
     c = tc.CASES[name]
-    cfg = smoke_config(c["arch"]).replace(dtype="float32", **tc.LAYERS,
-                                          **c["over"])
+    cfg = smoke_config(c["arch"]).replace(dtype="float32",
+                                          **{{**tc.LAYERS, **c["over"]}})
     shape = tc.MESHES[c["mesh"]]
     mesh = make_mesh(tuple(shape.values()), tuple(shape))
     train_step, _, pshard, oshard = jsteps.build_train_step(
@@ -266,15 +292,23 @@ def run(name):
         for k, v in bs[0].items()}}
 
     def prog(params, opt, bs):
-        grads = jax.grad(lambda p: jmodel.loss_fn(
-            p, cfg, bs[0], shard_ctx=ctx)[0])(params)
+        # the first step's gradient is the one its update takes; where it
+        # is compressed first, the loss's own
+        taken.clear()
+        grads = None if c["comp"] == "none" else jax.grad(
+            lambda p: jmodel.loss_fn(p, cfg, bs[0], shard_ctx=ctx)[0])(params)
         outs = []
         for b in bs:
             params, opt, m = train_step(params, opt, b)
             outs.append((params, opt, m))
-        return grads, outs
-    grads, outs = jax.jit(prog, in_shardings=(
-        pshard, oshard, [bshard] * len(bs)))(params, opt, bs)
+        return taken[0] if grads is None else grads, outs
+    args = jax.device_put((params, opt, bs),
+                          (pshard, oshard, [bshard] * len(bs)))
+    return name, jax.jit(prog).lower(*args), args
+
+
+def finish(name, lowered, args):
+    grads, outs = lowered.compile()(*args)
     out = {{}}
     for k, v in tc.flatten(jax.tree.map(np.asarray, grads)).items():
         out[f"{{name}}/grads/{{k}}"] = v
@@ -290,9 +324,13 @@ def run(name):
     return out
 
 
+# the cases are traced one after another, the longest first, and each
+# compiles and runs in a thread of its own meanwhile
 out = {{}}
-for name in tc.CASES:
-    out.update(run(name))
+with ThreadPoolExecutor(len(tc.CASES)) as ex:
+    jobs = [ex.submit(finish, *lower(n)) for n in reversed(tc.CASES)]
+    for f in jobs:
+        out.update(f.result())
 np.savez({path!r}, **out)
 print("JAX OK")
 """
