@@ -83,12 +83,12 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      against ``forward`` at every position of 2 x 64 tokens in float32 with
      TF32 off, the block table probed through ``probe_perf``; then the
      served run at the config's dtypes (batch 16, horizon 4096, 32 requests
-     of 8 + 32 tokens), once checked (every admission's probed table against
+     of 8 + 16 tokens), once checked (every admission's probed table against
      the allocator, ``probe_perf`` against plain on the table's keys), once
      timed (tokens/s, step ms against its byte bound, page-table host ms,
      ``probe_perf`` launches a step, peak memory) and once profiled (device
      idle share), all under ``torch.no_grad()``; for phase 15 it keeps the
-     float32 logits of 16 teacher-forced steps and a one-wave serve's
+     float32 logits of 8 teacher-forced steps and a one-wave serve's
      tokens and top logits a step under ``build/decode_ranks``;
  11. trains and checkpoints (``launch/train.py`` ``train``,
      ``checkpoint/checkpointer.py``): (a) llama3-8b, qwen3-8b and
@@ -136,8 +136,8 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      against its forward on the same inputs within 5e-4, the whole model's
      decode against forward (a drift float32 grows with depth, reported),
      served at batch 16, horizon 4096 (checked, timed against a bound of
-     the weights and the mLSTM states, profiled), and at 16 of its 48
-     layers trained at batch 4 x 1024 through ``launch.train.train`` with
+     the weights and the mLSTM states, profiled), and at 8 of its 48
+     layers trained at batch 4 x 512 through ``launch.train.train`` with
      the sLSTM's host time
      metered and one profiled step at 4 x 16 (the sLSTM's device time by
      range); (c) whisper-tiny at its published widths: decode against
@@ -170,7 +170,7 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      5e-4 (keys on the same pages), the tokens of a two-wave serve equal to
      one card's with the mesh's geometry, every rank's page table equal;
      (b) Qwen3-8B at its published widths on (1, 4), each rank drawing its
-     shard with ``init_params_sharded``: the float32 logits of 16
+     shard with ``init_params_sharded``: the float32 logits of 8
      teacher-forced steps within 5e-4 of phase 10's, then 16 requests
      served at batch 16, horizon 4096 (ms a step, tokens/s, collectives a
      step, their bytes and host ms by rank, ``probe_perf`` launches by
@@ -218,7 +218,34 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      32 layers over NCCL, a card a rank, its decode against the forward
      over the ranks, then served; the ``kernels`` line adds every rank's
      launches;
- 18. prints the device line last.
+ 18. decodes and trains the ssm and encdec families over ("data",
+     "model") meshes of 4 rank processes (gloo with every rank on the one
+     card): (a) xlstm-1.3b (2 layers: an sLSTM and an mLSTM, head-parallel)
+     on (1, 4) and (2, 2), whisper-tiny on (2, 2) and with 6 heads on
+     (1, 4) (its attention heads replicated over "model") at
+     ``smoke_config`` widths in float32, 8 teacher-forced steps against one
+     card from the same draw (logits within 1e-5, greedy tokens equal),
+     xlstm served on (1, 4) as one card serves it, one training step each
+     of xlstm on (2, 2) and 6-head whisper on (1, 4) with ``seq_shard``
+     held as phase 16 holds its cases (xlstm's gradients within 1e-4 of
+     their leaf's largest) and whisper's ``final_norm/bias`` at zero; (b)
+     xlstm-1.3b at its published widths and depth on (1, 4), one head a
+     rank: each layer's float32 decode fed phase 13(b)'s one-card input of
+     that layer at each of 16 steps within 1e-5 of the norm of its own
+     output (or 4 x the one-card sensitivity there, where a one-ulp move
+     of the input moves one card's output further), the end-to-end drift
+     of 8 steps printed, then phase 15's bf16 serve (ms a step, tokens/s,
+     share of the byte bound, collectives a step by kind, peak a rank,
+     ``probe_perf`` launches by rank); (c) whisper-tiny at its published
+     widths on (1, 4) and (2, 2): the cross K/V blocks and 8 float32
+     teacher-forced steps over 1500 stub frames against one card, and one
+     float32 training step on (2, 2) at phase 13(c)'s shape (loss and grad
+     norm within 1e-5 relative, ``final_norm/bias`` zero); (d)
+     xlstm-1.3b's 8-layer cut trained one float32 step at 4 x 256 on (2, 2)
+     with ``seq_shard`` (loss within 1e-5 relative of one card's; ms, the
+     collectives by kind and pass, the same at 4 x 64; the sLSTM's host
+     share); the ``kernels`` line adds every rank's launches;
+ 19. prints the device line last.
 
 Any failed check raises and the script exits non-zero.  Without a card, or
 without the rest of the repo beside it, it exits non-zero and prints no
@@ -1848,17 +1875,22 @@ DECODE_TF = (2, 64, 16)          # teacher-forced: sequences, tokens, page
 # SHAPES["decode_32k"] (batch 128, horizon 32768) cut to one card: batch
 # 16, horizon 4096 (KV 19.3 GB in float32 beside 32.8 GB of weights)
 # two waves (pages recycle); the profiled serve 5 steps (with 15, phase 10
-# took 101 s, ≈ 50 s of it after the timed serve: the trace is read slowly)
+# took 101 s, ≈ 50 s of it after the timed serve: the trace is read
+# slowly); 16 new tokens a request, 32 until PR 25 (the script took 883.6 s
+# with phase 18 on a slow host, PR 25 chip run 5)
 DECODE_SERVE = dict(batch=16, horizon=4096, page_tokens=32, requests=32,
-                    prompt_len=8, max_new=32, backend="perf")
+                    prompt_len=8, max_new=16, backend="perf")
 DECODE_CHECKED = DECODE_SERVE
 DECODE_PROFILE = dict(DECODE_SERVE, requests=16, prompt_len=4, max_new=2)
 BF16_RATE = 989e12               # dense bf16 tensor-core rate (data sheet)
 # phase 15 against phase 10: the float32 teacher-forced logits of the first
-# 16 steps of DECODE_TF, and a one-wave serve whose top logits are kept
+# 8 steps of DECODE_TF (16 until PR 25, cut for time), and a one-wave serve
+# whose top logits are kept
 DECODE_RANK_DATA = ROOT / "build" / "decode_ranks"
-DECODE_RANK_TF = 16
-DECODE_RANK_SERVE = dict(DECODE_SERVE, requests=16, max_new=16)
+DECODE_RANK_TF = 8
+# the serve cut from 16 new tokens a request to 8 for time (the script
+# took 727.2 s in PR 24 and phase 18 adds ≈ 75; PR 25)
+DECODE_RANK_SERVE = dict(DECODE_SERVE, requests=16, max_new=8)
 TOP_LOGITS = 8
 BF16_U = 2.0 ** -8               # bfloat16 unit roundoff: 8 significant bits
 
@@ -2807,9 +2839,10 @@ HYBRID_SERVE = dict(batch=16, horizon=4096, page_tokens=32, requests=32,
                     prompt_len=8, max_new=16, backend="perf")
 MOE_ARCH = "olmoe-1b-7b"         # published widths and depth, random init
 # SHAPES["decode_32k"] (batch 128, horizon 32768) cut to one card as phase
-# 10 cuts it: batch 16, horizon 4096 (KV 17.2 GB beside 27.7 GB of weights)
+# 10 cuts it: batch 16, horizon 4096 (KV 17.2 GB beside 27.7 GB of
+# weights); 16 new tokens a request as phase 10 (32 until PR 25)
 MOE_SERVE = dict(batch=16, horizon=4096, page_tokens=32, requests=32,
-                 prompt_len=8, max_new=32, backend="perf")
+                 prompt_len=8, max_new=16, backend="perf")
 MOE_CHECKED = MOE_SERVE
 MOE_PROFILE = dict(MOE_SERVE, requests=16, prompt_len=4, max_new=2)
 # SHAPES["train_4k"] cut to batch 4 and 4 of 16 layers (4 layers peaked at
@@ -3267,9 +3300,10 @@ XLSTM_ARCH = "xlstm-1.3b"        # published widths and depth, random init
 XLSTM_TF = (2, 64, 16)           # teacher-forced: sequences, tokens, page
 # SHAPES["decode_32k"] (batch 128, horizon 32768) cut to one card as phase
 # 10 cuts it: batch 16, horizon 4096 (the mLSTM states 2.82 GB beside 5.97
-# GB of weights; xlstm holds no KV, but the page table still maps it)
+# GB of weights; xlstm holds no KV, but the page table still maps it); 16
+# new tokens a request as phase 10 (32 until PR 25)
 XLSTM_SERVE = dict(batch=16, horizon=4096, page_tokens=32, requests=32,
-                   prompt_len=8, max_new=32, backend="perf")
+                   prompt_len=8, max_new=16, backend="perf")
 XLSTM_CHECKED = XLSTM_SERVE
 XLSTM_PROFILE = dict(XLSTM_SERVE, requests=16, prompt_len=4, max_new=2)
 # SHAPES["train_4k"] (batch 256) cut to batch 4 as phase 11, and to 1024
@@ -3278,8 +3312,10 @@ XLSTM_PROFILE = dict(XLSTM_SERVE, requests=16, prompt_len=4, max_new=2)
 # profiled step at 16 tokens: reading the trace of a step took ~170 s at
 # 256 tokens, and at 64 (b)'s training took 111.6 s with 50.6 s of steps;
 # and to 16 of 48 layers (2 units, 2 sLSTM): at 48 a step took 35.5 s on a
-# slow host and the script 941.7 s (PR 24)
-XLSTM_TRAIN = dict(depth=16, seq=1024, batch=4, steps=2, profile_seq=16)
+# slow host and the script 941.7 s (PR 24); then to 8 (one unit, 1 sLSTM)
+# and 512 tokens for phase 18's time (PR 25: 24.7 s of training at 8
+# layers and 1024 tokens, the script 883.6 s on a slow host, chip run 5)
+XLSTM_TRAIN = dict(depth=8, seq=512, batch=4, steps=2, profile_seq=16)
 WHISPER_ARCH = "whisper-tiny"    # published widths and depth, random init
 WHISPER_TF = (2, 64, 16, 1500)   # sequences, decoder tokens, page, frames
 # SHAPES["train_4k"]: 4096 frames and 512 decoder tokens, cut from batch
@@ -3439,7 +3475,10 @@ def check_xlstm_decode_matches_forward(smi):
     ``perf`` PageTableManager against ``forward`` + ``logits_fn``, whose
     drift
     float32 rounding grows with depth in the reference too
-    (``tests/xlstm_drift.py``): reported, and held finite."""
+    (``tests/xlstm_drift.py``): reported, and held finite.  The first
+    ``XLSTM_RANK_TF`` steps' logits and every layer's decode input and
+    output in them are kept for phase 18(b)
+    (``save_xlstm_rank_reference``)."""
     import torch
     from repro_torch import configs
     from repro_torch.core.paged_kv import PageTableManager
@@ -3490,8 +3529,11 @@ def check_xlstm_decode_matches_forward(smi):
         errs.append((rel, kind, err, i))
     sync()
     layer_s = time.perf_counter() - t0
-    (dec, _), dec_s = host_s(lambda: teacher_forced(model, params, cfg,
-                                                    tokens, bt, ctx))
+    with LayerTape(cfg.num_layers, XLSTM_RANK_TF) as tape:
+        (dec, _), dec_s = host_s(lambda: teacher_forced(model, params, cfg,
+                                                        tokens, bt, ctx))
+    resp = layer_sensitivity(layers, cfg, tape, btt, ctx)
+    save_xlstm_rank_reference(tokens, dec, tape, resp)
     full = model.logits_fn(params, cfg, xs[-1]).transpose(0, 1)
     check(bool(torch.isfinite(dec).all()) and bool(torch.isfinite(full)
                                                    .all()),
@@ -3605,10 +3647,10 @@ class SlstmMeter:
         self._apply = xlstm.apply_slstm
         meter = self
 
-        def apply(p, cfg, x):
+        def apply(p, cfg, x, **kw):
             t0 = time.perf_counter()
             rf = meter._range(meter.NAMES[0]) if meter.ranges else None
-            y = meter._apply(p, cfg, x)
+            y = meter._apply(p, cfg, x, **kw)
             if rf is not None:
                 rf.__exit__(None, None, None)
             meter.fwd_s.append(time.perf_counter() - t0)
@@ -3669,7 +3711,7 @@ def kernels_in_ranges(prof, names) -> dict:
 def xlstm_train_full_width(smi):
     """(b) xlstm-1.3b at its published widths, ``XLSTM_TRAIN``'s depth
     (random init on the card; params float32, activations bfloat16, AdamW
-    float32, remat per unit of 8 layers) trains at batch 4 x 1024 through
+    float32, remat per unit of 8 layers) trains at batch 4 x 512 through
     ``launch.train.train``, the sLSTM's host time metered; then one step at
     batch 4 x 16 under torch.profiler: busy and idle, kernel groups, and
     the device time of the sLSTM's kernels (its forward passes and its
@@ -4746,7 +4788,8 @@ TRAIN_RANK_CKPT = "qwen3-8b@2x2"
 # (b): OLMoE-1B-7B at its published widths on (2, 2) with expert
 # parallelism, cut to 4 of 16 layers (1.885G params: 30.2 GB of float32
 # parameters, gradients and moments over the 4 ranks) at phase 12's
-# 4 x 4096, 3 steps (the first untimed), no checkpoint
+# 4 x 4096, 3 steps (the first untimed), no checkpoint; at 2 layers its
+# loss did not fall in 3 steps (11.26, 12.22, 11.31; PR 25 chip run 6)
 TRAIN_RANK_FULL = dict(arch="olmoe-1b-7b", mesh="2x2", depth=4, seq=4096,
                        batch=4, steps=3)
 TRAIN_RANK_NCCL_DEPTH = 16       # (c): all 16 layers, a card a rank
@@ -4986,10 +5029,14 @@ def _close_step(got, want, what):
               f"{want['moe_dropped']}")
 
 
-def check_small_train_ranks(refs, outs, cases=None, key="small"):
+def check_small_train_ranks(refs, outs, cases=None, key="small",
+                            grad_tols=None):
     """(a): every rank's metrics, gradient blocks and stepped parameter
-    blocks (``outs[r][key]``) against the one-card references; where the
-    cases (``train_rank_cases()`` by default) hold the checkpoint's, its
+    blocks (``outs[r][key]``) against the one-card references, a gradient
+    block within ``grad_tols[arch]`` (default ``TRAIN_RANK_TOL``) of its
+    leaf's largest, and a never-read ``final_norm.bias`` (whisper's) with
+    a zero gradient and zero after every step; where the cases
+    (``train_rank_cases()`` by default) hold the checkpoint's, its
     restore on (1, 4) and on one card, and the resumed step.  Returns
     (cases, worst gradient error over its leaf's largest, worst parameter
     error where |g| >= 1e-6, int8 elements a step apart)."""
@@ -5020,8 +5067,14 @@ def check_small_train_ranks(refs, outs, cases=None, key="small"):
                                            mesh).numpy()
                 err = float(np.abs(g - blk).max()) / scale
                 worst_g = max(worst_g, err)
-                check(err <= TRAIN_RANK_TOL, f"{name} rank {r}: gradient of "
-                      f"{k} off by {err:.3e} of its largest")
+                check(err <= (grad_tols or {}).get(arch, TRAIN_RANK_TOL),
+                      f"{name} rank {r}: gradient of {k} off by {err:.3e} "
+                      f"of its largest")
+                if k == "final_norm.bias":
+                    check(not g.any() and not any(
+                        got["params"][s][k].any() for s in range(n)),
+                        f"{name} rank {r}: final_norm.bias, which the loss "
+                        f"never reads, has a gradient or moved")
                 for s in range(n):
                     wp = sharding.local_block(torch.from_numpy(
                         ref["params"][s][k]), spec, mesh).numpy()
@@ -5036,7 +5089,8 @@ def check_small_train_ranks(refs, outs, cases=None, key="small"):
                     else:
                         worst_p = max(worst_p, float(d[sure].max(initial=0)))
                         check(not off.any(), f"{name} rank {r} step {s}: "
-                              f"parameter {k} off by {d[sure].max():.3e}")
+                              f"parameter {k} off by "
+                              f"{d[sure].max(initial=0):.3e}")
                     check(d.max() <= 2 * lr, f"{name} rank {r} step {s}: "
                           f"parameter {k} off by {d.max():.3e}")
     if all(c[0] != TRAIN_RANK_CKPT for c in cases):
@@ -5250,11 +5304,13 @@ def family_rank_config(depth, dtype="float32"):
     return cfg
 
 
-def small_family_rank_references() -> dict:
-    """(a) on one card, each case: its tokens, the teacher-forced logits
-    (S, B, V) on a one-card block table and their greedy tokens; for
-    ``FAMILY_RANK_SERVED`` the outputs of ``serve()`` at
-    ``DECODE_RANK_SMALL_SERVE`` with the mesh's geometry."""
+def small_family_rank_references(cases=FAMILY_RANK_CASES,
+                                 served=FAMILY_RANK_SERVED) -> dict:
+    """(a) on one card, each case: its tokens (an encdec case's stub frames
+    too, ``SSM_RANK_FRAMES`` of them), the teacher-forced logits (S, B, V)
+    on a one-card block table and their greedy tokens; for ``served`` the
+    outputs of ``serve()`` at ``DECODE_RANK_SMALL_SERVE`` with the mesh's
+    geometry."""
     import torch
     from repro_torch import configs
     from repro_torch.launch import serve
@@ -5263,18 +5319,22 @@ def small_family_rank_references() -> dict:
           "TF32 matmuls are on: float32 decode would not be float32")
     B, S, pt = DECODE_RANK_SMALL
     out = {}
-    for name, arch, mname, over in FAMILY_RANK_CASES:
+    for name, arch, mname, over in cases:
         cfg = small_config(arch, over)
         params = model.init_params(cfg, 0, "cuda")
-        tokens = np.random.default_rng(len(name)).integers(
-            0, cfg.vocab_size, (B, S)).astype(np.int32)
+        rng = np.random.default_rng(len(name))
+        tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+        frames = rng.standard_normal((B, SSM_RANK_FRAMES, cfg.d_model)) \
+            .astype(np.float32) if cfg.is_encoder_decoder else None
         ctx = decode_ctx(model, configs, cfg, B, S, pt)
         bt = np.arange(B * ctx.n_pages, dtype=np.int32).reshape(B, -1)
         with torch.no_grad():
-            lg, _ = teacher_forced(model, params, cfg, tokens, bt, ctx)
-        out[name] = dict(tokens=tokens, logits=lg.cpu().numpy(),
+            lg, _ = teacher_forced(
+                model, params, cfg, tokens, bt, ctx,
+                None if frames is None else torch.from_numpy(frames).cuda())
+        out[name] = dict(tokens=tokens, frames=frames, logits=lg.cpu().numpy(),
                          next=torch.argmax(lg, -1).cpu().numpy())
-        if name == FAMILY_RANK_SERVED:
+        if name == served:
             done, _, steps = serve.serve(
                 cfg, mesh=DECODE_MESHES[mname], seed=0, verbose=False,
                 device="cuda", **DECODE_RANK_SMALL_SERVE)
@@ -5333,11 +5393,13 @@ class StepCollectives:
                     if k.startswith("all_gather/")] or [0])
 
 
-def rank_family_small(meshes, refs):
+def rank_family_small(meshes, refs, cases=FAMILY_RANK_CASES,
+                      served=FAMILY_RANK_SERVED):
     """(a) on one rank: each case's teacher-forced logits rows and greedy
     tokens through the serve step on a grouped block table from the rank's
     ``PageTableManager`` (the largest all-gather of the steps against the
-    rank's expert blocks), and ``FAMILY_RANK_SERVED``'s ``serve()``."""
+    rank's expert blocks; an encdec case's cross K/V from its rows of the
+    stub frames), and ``served``'s ``serve()``."""
     import torch
     from repro_torch import configs
     from repro_torch.core.paged_kv import PageTableManager
@@ -5346,7 +5408,7 @@ def rank_family_small(meshes, refs):
     from repro_torch.models import model
     B, S, pt = DECODE_RANK_SMALL
     out = {}
-    for name, arch, mname, over in FAMILY_RANK_CASES:
+    for name, arch, mname, over in cases:
         mesh = meshes[mname]
         cfg = small_config(arch, over)
         params = model.init_params_sharded(cfg, 0, mesh)
@@ -5362,8 +5424,11 @@ def rank_family_small(meshes, refs):
                                for b in range(B)])
         bt = np.stack([phys[b] for b in range(B)])
         rows = ctx.local_batch(B)
-        states = model.init_decode_states(params, cfg, rows.stop - rows.start,
-                                          ctx, kv_dtype=torch.float32)
+        frames = refs[name]["frames"]
+        states = model.init_decode_states(
+            params, cfg, rows.stop - rows.start, ctx, kv_dtype=torch.float32,
+            enc_frames=None if frames is None else torch.from_numpy(
+                frames[rows]))
         tok = torch.from_numpy(refs[name]["tokens"][rows]).to(mesh.device)
         bt_d = torch.from_numpy(bt[rows]).to(mesh.device)
         lg, nts = [], []
@@ -5382,7 +5447,7 @@ def rank_family_small(meshes, refs):
                    experts=expert_block_bytes(params) if cfg.num_experts
                    else 0)
         del params, states
-        if name == FAMILY_RANK_SERVED:
+        if name == served:
             done, _, n_steps = serve.serve(
                 cfg, mesh=mesh, seed=0, verbose=False,
                 **DECODE_RANK_SMALL_SERVE)
@@ -5522,13 +5587,21 @@ def family_rank_main(world, refs, parts, depth):
     return out
 
 
-def check_small_family_ranks(refs, outs):
+def check_small_family_ranks(refs, outs, cases=FAMILY_RANK_CASES,
+                             served=FAMILY_RANK_SERVED):
     """(a): every rank's logits rows and greedy tokens against the one-card
     run, the MoE cases' steps moving no expert block, and the served
     case's outputs and steps.  Returns (cases, worst |logit| difference,
-    largest all-gather over the smallest expert layer's blocks)."""
+    largest all-gather over the smallest expert layer's blocks); each
+    case's worst difference is printed first."""
     worst = worst_share = 0.0
-    for name, arch, mname, _ in FAMILY_RANK_CASES:
+    errs = {name: max(float(np.abs(
+        o["small"][name]["logits"] - refs[name]["logits"][
+            :, slice(*o["small"][name]["rows"])]).max()) for o in outs)
+        for name, *_ in cases}
+    print("family ranks: worst |logit| difference by case: "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    for name, arch, mname, _ in cases:
         ref = refs[name]
         for r, o in enumerate(outs):
             got = o["small"][name]
@@ -5546,12 +5619,12 @@ def check_small_family_ranks(refs, outs):
                 check(share < 1, f"family ranks {name}: rank {r} gathered "
                       f"{got['largest_gather']} bytes at once, as much as "
                       f"a MoE layer's expert blocks ({got['experts']})")
-            if name == FAMILY_RANK_SERVED:
+            if name == served:
                 check(got["outs"] == ref["outs"]
                       and got["steps"] == ref["steps"],
                       f"family ranks {name}: rank {r}'s served tokens or "
                       f"steps differ from one card's")
-    return len(FAMILY_RANK_CASES), worst, worst_share
+    return len(cases), worst, worst_share
 
 
 def check_jamba_ranks(outs, label, smi, depth, cards):
@@ -5728,6 +5801,774 @@ def family_ranks_path(smi):
           f"{max(o['paper_s'] for o in outs):.3f} s, of which the serialised "
           f"draw {max(o['paper']['draw_s'] for o in outs):.3f} s); card: "
           f"{smi}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 18. the ssm and encdec families decoding and training over a (data,
+#     model) mesh of ranks
+# ---------------------------------------------------------------------------
+
+XLSTM_RANK_DATA = ROOT / "build" / "xlstm_ranks"
+# (a) at smoke widths in float32 (``small_config``: 2 layers, xlstm's an
+# sLSTM and an mLSTM, whisper's 2 + 2), phase 15's 8 teacher-forced steps
+# on 2-token pages against one card from the same draw: logits within
+# FAMILY_RANK_TOL (absolute), greedy tokens equal; whisper from seeded
+# stub frames
+SSM_RANK_CASES = (
+    ("xlstm-1.3b@1x4", "xlstm-1.3b", "1x4", {}),
+    ("xlstm-1.3b@2x2", "xlstm-1.3b", "2x2", {}),
+    ("whisper-tiny@2x2", "whisper-tiny", "2x2", {}),
+    # 6 heads, as published: 6 % 4 != 0, so the rules replicate the heads
+    # of every attention leaf over "model"
+    ("whisper-tiny-h6@1x4", "whisper-tiny", "1x4",
+     {"num_heads": 6, "num_kv_heads": 6}))
+SSM_RANK_SERVED = "xlstm-1.3b@1x4"
+SSM_RANK_FRAMES = 24             # whisper smoke stub frames
+SSM_RANK_TRAIN = [
+    ("xlstm-1.3b@2x2", "xlstm-1.3b", "2x2", {}, True, "none", 1),
+    ("whisper-tiny-h6@1x4", "whisper-tiny", "1x4",
+     {"num_heads": 6, "num_kv_heads": 6}, True, "none", 1)]
+# xLSTM's exponential gates amplify float32 rounding (ROADMAP Queue 3): JAX
+# against itself on (2, 2) against (1, 1) moves the smoke sLSTM's ``up1``
+# gradient by 1.07e-5 of its largest; xlstm keeps its one-device bound
+# (tests/test_torch_train.py)
+SSM_RANK_GRAD_TOL = {"xlstm-1.3b": 1e-4}
+# (b) xlstm-1.3b at its published widths and depth on (1, 4), one head a
+# rank, phase 13(b)'s first 16 teacher-forced steps.  The ranks' decode
+# drifts from one card's with depth (the same float32 sums in another
+# order, grown by the exponential gates: at smoke widths 7.7e-7 of the
+# largest logit at 2 layers, 6.8e-5 at 8, 9.7e-4 at 16, gloo on the CPU),
+# so each layer's decode, fed the one-card layer's input, is held within
+# 1e-5 of the norm of that layer's own output (1.1e-6 at 16 smoke
+# layers), and the end-to-end difference is printed.  At full width a few
+# (layer, step) points are ill-conditioned in float32: a one-ulp move of
+# the input moves one card's own output by up to 1.13e-4 of its norm
+# (``layer_sensitivity``; layer 39's mLSTM at step 0, where the ranks
+# differ by 1.36e-4; NVIDIA H100 80GB HBM3, PR 25 chip run 2).  A rank's
+# reordered sums round a few ulps apart, so a point is held within
+# XLSTM_RANK_SENS times its one-card sensitivity where that exceeds 1e-5
+XLSTM_RANK_TF = 16
+XLSTM_RANK_MESH = "1x4"
+XLSTM_RANK_TOL = 1e-5
+XLSTM_RANK_SENS = 4.0
+# cut for time (phase 18 took 88.7 s of its 80, PR 25 chip run 4; ≈ 0.5 s
+# a step, 98 gloo collectives): the printed end-to-end run to the first 8
+# of the 16 steps; phase 15's serve (cut to 8 new tokens a request)
+XLSTM_RANK_E2E = 8
+XLSTM_RANK_SERVE = DECODE_RANK_SERVE
+# (c) whisper-tiny at its published widths and depth: phase 13(c)'s 1500
+# stub frames and decoder tokens, 8 teacher-forced steps on (1, 4) (heads
+# replicated) and (2, 2) (3 heads a rank); one training step in float32 at
+# phase 13(c)'s shape on (2, 2) with seq_shard
+WHISPER_RANK_TF = 8
+WHISPER_RANK_TRAIN = dict(WHISPER_TRAIN, steps=1, mesh="2x2")
+# (d) xlstm-1.3b trained at its published widths, 8 of 48 layers (one
+# unit: 1 sLSTM, 7 mLSTM), one float32 step at 4 x 256 on (2, 2) with
+# seq_shard; the collectives of its loss and gradient counted again at
+# 4 x 64
+XLSTM_RANK_TRAIN = dict(depth=8, seq=256, batch=4, mesh="2x2")
+
+
+class LayerTape:
+    """``transformer._apply_layer_decode`` wrapped for the length of a
+    ``with`` block: every layer's input and output (B, d) of the first
+    ``steps`` decode steps copied into device buffers, call by call (no
+    synchronise)."""
+
+    def __init__(self, layers, steps):
+        self.layers, self.steps, self.calls = layers, steps, 0
+        self.x = self.y = None
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self._orig = orig = transformer._apply_layer_decode
+        tape = self
+
+        def apply(p, cfg, x, *a):
+            y, st = orig(p, cfg, x, *a)
+            t, layer = divmod(tape.calls, tape.layers)
+            tape.calls += 1
+            if t < tape.steps:
+                if tape.x is None:
+                    shape = (tape.layers, tape.steps) + tuple(x[:, 0].shape)
+                    tape.x, tape.y = x.new_empty(shape), x.new_empty(shape)
+                tape.x[layer, t].copy_(x[:, 0])
+                tape.y[layer, t].copy_(y[:, 0])
+            return y, st
+        transformer._apply_layer_decode = apply
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+        transformer._apply_layer_decode = self._orig
+
+
+def layer_sensitivity(layers, cfg, tape, bt, ctx):
+    """(layers, steps): how far each layer's one-card decode moves, over
+    the norm of the layer's own output, when every element of its taped
+    input moves by one float32 ulp (a seeded random sign an element), its
+    states carried from the moved inputs as the ranks' are from theirs:
+    the float32 conditioning of that layer at that step."""
+    import torch
+    from repro_torch.models import transformer
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B = tape.x.shape[2]
+    states = transformer.init_decode_states(cfg, B, ctx, torch.float32,
+                                            device="cuda")
+    resp = torch.zeros(tape.x.shape[:2], dtype=torch.float32, device="cuda")
+    for t in range(tape.steps):
+        pos = torch.full((B,), t, dtype=torch.int32, device="cuda")
+        for i, p in enumerate(layers):
+            x = tape.x[i, t]
+            sign = torch.randint(0, 2, x.shape, generator=g,
+                                 device="cuda") * 2 - 1
+            y, states[i] = transformer._apply_layer_decode(
+                p, cfg, (x * (1 + sign * 2.0 ** -23))[:, None], states[i],
+                bt, pos, ctx)
+            resp[i, t] = (y[:, 0] - tape.y[i, t]).norm() / \
+                (tape.y[i, t] - x).norm()
+    return resp.cpu().numpy()
+
+
+def save_xlstm_rank_reference(tokens, dec, tape, resp):
+    """Phase 13(b)'s one-card decode for phase 18(b): the tokens, the
+    first ``XLSTM_RANK_TF`` steps' float32 logits, every layer's input and
+    output in them and its sensitivity (``layer_sensitivity``)."""
+    check(tape.calls == tape.layers * tokens.shape[1],
+          f"the tape saw {tape.calls} layer calls")
+    XLSTM_RANK_DATA.mkdir(parents=True, exist_ok=True)
+    np.savez(XLSTM_RANK_DATA / "reference.npz", tokens=tokens,
+             logits=dec[:XLSTM_RANK_TF].cpu().numpy(),
+             layer_in=tape.x.cpu().numpy(), layer_out=tape.y.cpu().numpy(),
+             sensitivity=resp)
+
+
+def whisper_rank_references(smi):
+    """(c) on one card, float32, TF32 off, from ``init_params(cfg, 0)``:
+    the teacher-forced logits of ``WHISPER_RANK_TF`` steps over phase
+    13(c)'s stub frames and every layer's cross ``ek``/``ev``; then one
+    training step at ``WHISPER_RANK_TRAIN``'s shape (its loss, grad norm
+    and ms)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import steps
+    from repro_torch.models import model
+    cfg = configs.get_config(WHISPER_ARCH).replace(dtype="float32")
+    B, S, pt, n_frames = WHISPER_TF
+    params = model.init_params(cfg, 0, "cuda")
+    ctx = decode_ctx(model, configs, cfg, B, S, pt)
+    bt = np.arange(B * ctx.n_pages, dtype=np.int32).reshape(B, -1)
+    rng = np.random.default_rng(1)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    frames = rng.standard_normal((B, n_frames, cfg.d_model)).astype(
+        np.float32)
+    with torch.no_grad():
+        lg, states = teacher_forced(model, params, cfg,
+                                    tokens[:, :WHISPER_RANK_TF], bt, ctx,
+                                    torch.from_numpy(frames).cuda())
+    out = dict(tokens=tokens, frames=frames, logits=lg.cpu().numpy(),
+               next=torch.argmax(lg, -1).cpu().numpy(),
+               ek=np.stack([st["ek"].cpu().numpy() for st in states]),
+               ev=np.stack([st["ev"].cpu().numpy() for st in states]))
+    del states, lg
+    oc = configs.OptimConfig(lr=3e-4, warmup_steps=1, total_steps=1)
+    step = steps.build_train_step(cfg, oc)
+    batch = whisper_rank_batch(cfg, "cuda")
+    opt = steps.init_opt_state(params, oc)
+    torch.cuda.reset_peak_memory_stats()
+    (_, _, m), step_s = host_s(lambda: step(params, opt, batch))
+    out["train"] = dict(metrics={k: float(v) for k, v in m.items()},
+                        ms=step_s * 1e3,
+                        peak=torch.cuda.max_memory_allocated() / 2**30)
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def whisper_rank_batch(cfg, device):
+    """(c)'s training batch: phase 13(c)'s shape, step 0."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMData
+    f = WHISPER_RANK_TRAIN
+    data = SyntheticLMData(cfg, configs.ShapeConfig(
+        "train_4k_cut", f["seq"], f["batch"], "train"))
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in data.batch_at(0).items()}
+
+
+def xlstm_rank_train_config():
+    from repro_torch import configs
+    return configs.get_config(XLSTM_ARCH).replace(
+        num_layers=XLSTM_RANK_TRAIN["depth"], dtype="float32")
+
+
+def xlstm_rank_batch(cfg, seq, device):
+    """(d)'s training batch of ``seq`` tokens, step 0."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMData
+    data = SyntheticLMData(cfg, configs.ShapeConfig(
+        "t", seq, XLSTM_RANK_TRAIN["batch"], "train"))
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in data.batch_at(0).items()}
+
+
+def xlstm_train_reference():
+    """(d) on one card: the cut's loss and grad norm of one float32 step
+    from ``init_params(cfg, 0)``, TF32 off, and its ms."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import steps
+    from repro_torch.models import model
+    cfg = xlstm_rank_train_config()
+    oc = configs.OptimConfig(lr=3e-4, warmup_steps=1, total_steps=1)
+    params = model.init_params(cfg, 0, "cuda")
+    opt = steps.init_opt_state(params, oc)
+    step = steps.build_train_step(cfg, oc)
+    batch = xlstm_rank_batch(cfg, XLSTM_RANK_TRAIN["seq"], "cuda")
+    (_, _, m), step_s = host_s(lambda: step(params, opt, batch))
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return dict(metrics={k: float(v) for k, v in m.items()},
+                ms=step_s * 1e3)
+
+
+def rank_xlstm_decode(mesh, k):
+    """(b) on one rank: xlstm-1.3b at its published widths and depth, the
+    rank's block drawn by ``init_params_sharded``; ``XLSTM_RANK_E2E``
+    float32 teacher-forced steps of phase 13(b)'s tokens through the serve
+    step (the logits rows) and, from fresh states, each layer's decode fed
+    phase 13(b)'s input of that layer at each of ``XLSTM_RANK_TF`` steps
+    (its error over the norm of the one-card layer's own output); then ``XLSTM_RANK_SERVE`` in bfloat16
+    from the same draw, timed (``DecodeTimer``), its collectives by kind,
+    launches and peak."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import hashmap
+    from repro_torch.core.paged_kv import PageTableManager
+    from repro_torch.distributed import steps
+    from repro_torch.launch import serve
+    from repro_torch.models import model, transformer
+    dev = mesh.device
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 matmuls are on: float32 decode would not be float32")
+    cfg32 = configs.get_config(XLSTM_ARCH).replace(dtype="float32")
+    B, S, pt = XLSTM_TF
+    T = XLSTM_RANK_TF
+    with np.load(XLSTM_RANK_DATA / "reference.npz") as z:
+        ref = {n: z[n] for n in ("tokens", "layer_in", "layer_out")}
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(k)
+    params, draw_s = host_s(lambda: model.init_params_sharded(cfg32, 0,
+                                                              mesh))
+    n_local = sum(p.numel() for p in params.parameters())
+    scfg = configs.ServeConfig(model=cfg32, shape=configs.ShapeConfig(
+        "t", S, B, "decode"), kv_page_tokens=pt)
+    step, ctx = steps.build_serve_step(cfg32, scfg, mesh=mesh)
+    check(not ctx.batch_axes, "(b) expects every rank on every row")
+    mgr = PageTableManager(ctx.pool_pages,
+                           num_channels=mesh.size(ctx.channel_axes),
+                           backend="perf", device=dev)
+    mgr.alloc_seqs([(b, ctx.n_pages, 0) for b in range(B)])
+    bt_d = torch.from_numpy(mgr.block_table(list(range(B)),
+                                            ctx.n_pages)).to(dev)
+    tok = torch.from_numpy(ref["tokens"]).to(dev)
+
+    def positions(i):
+        return torch.full((B,), i, dtype=torch.int32, device=dev)
+
+    def end_to_end():
+        states = model.init_decode_states(params, cfg32, B, ctx,
+                                          kv_dtype=torch.float32)
+        got = []
+        for i in range(XLSTM_RANK_E2E):
+            _, lg, states = step(params, states, tok[:, i:i + 1],
+                                 positions(i), bt_d)
+            got.append(lg[:, 0].cpu())
+        return torch.stack(got)
+    with StepCollectives(mesh) as coll_tf:
+        got, tf_s = host_s(end_to_end)
+
+    layers = [p for unit in params.units for p in unit.values()]
+    x_in = torch.from_numpy(ref["layer_in"]).to(dev)
+    y_one = torch.from_numpy(ref["layer_out"]).to(dev)
+    errs = torch.zeros((len(layers), T), dtype=torch.float32, device=dev)
+
+    def layer_by_layer():
+        states = model.init_decode_states(params, cfg32, B, ctx,
+                                          kv_dtype=torch.float32)
+        with torch.no_grad():
+            for t in range(T):
+                for i, p in enumerate(layers):
+                    y, states[i] = transformer._apply_layer_decode(
+                        p, cfg32, x_in[i, t][:, None], states[i], bt_d,
+                        positions(t), ctx)
+                    errs[i, t] = (y[:, 0] - y_one[i, t]).norm() / \
+                        (y_one[i, t] - x_in[i, t]).norm()
+    _, layer_s = host_s(layer_by_layer)
+    tf = dict(got=got.numpy(), seconds=tf_s, layer_s=layer_s,
+              layer_err=errs.cpu().numpy(), coll=coll_tf.counts,
+              launches=read_launches(k)["probe_perf"])
+    del x_in, y_one
+    torch.cuda.empty_cache()
+
+    cfg = configs.get_config(XLSTM_ARCH)
+    drawn = model.init_params_sharded
+    model.init_params_sharded = lambda *a, **kw: params     # the same draw
+    reset_launches(k)
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        with DecodeTimer() as timer, StepCollectives(mesh) as coll:
+            done, smgr, n_steps = serve.serve(cfg, mesh=mesh, seed=0,
+                                              verbose=False,
+                                              **XLSTM_RANK_SERVE)
+            sync()
+            wall = time.perf_counter() - timer.t_first
+    finally:
+        model.init_params_sharded = drawn
+    return dict(draw_s=draw_s, n_local=n_local, tf=tf,
+                outs={r["id"]: r["out"] for r in done}, steps=n_steps,
+                step_ms=timer.step_ms, wall=wall, table_ms=timer.table_ms,
+                collectives=coll.counts,
+                launches=read_launches(k)["probe_perf"],
+                peak=torch.cuda.max_memory_allocated(dev) / 2**30,
+                live=smgr.live_pages(), table=table_digests(hashmap, smgr.hm))
+
+
+def rank_whisper(meshes, ref):
+    """(c) on one rank: whisper-tiny at its published widths, the rank's
+    block drawn by ``init_params_sharded``, on both meshes: the cross
+    ``ek``/``ev`` of its rows of the stub frames (encoded over the ranks)
+    against its block of one card's, ``WHISPER_RANK_TF`` float32
+    teacher-forced steps through the serve step (logits rows, greedy
+    tokens); then one training step on ``WHISPER_RANK_TRAIN``'s mesh from
+    the whole batch."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.paged_kv import PageTableManager
+    from repro_torch.distributed import sharding, steps
+    from repro_torch.models import model
+    cfg = configs.get_config(WHISPER_ARCH).replace(dtype="float32")
+    B, S, pt, _ = WHISPER_TF
+    out = {}
+    for mname, mesh in meshes.items():
+        dev = mesh.device
+        params = model.init_params_sharded(cfg, 0, mesh)
+        scfg = configs.ServeConfig(model=cfg, shape=configs.ShapeConfig(
+            "t", S, B, "decode"), kv_page_tokens=pt)
+        step, ctx = steps.build_serve_step(cfg, scfg, mesh=mesh)
+        groups = mesh.size(ctx.batch_axes)
+        mgr = PageTableManager(ctx.pool_pages,
+                               num_channels=mesh.size(ctx.channel_axes),
+                               num_groups=groups, backend="perf", device=dev)
+        phys = mgr.alloc_seqs([(b, ctx.n_pages, b // (B // groups))
+                               for b in range(B)])
+        bt = np.stack([phys[b] for b in range(B)])
+        rows = ctx.local_batch(B)
+        n = rows.stop - rows.start
+        states, enc_s = host_s(lambda: model.init_decode_states(
+            params, cfg, n, ctx, kv_dtype=torch.float32,
+            enc_frames=torch.from_numpy(ref["frames"][rows])))
+        kv_err = 0.0
+        for layer, st in enumerate(states):
+            for key in ("ek", "ev"):
+                whole = torch.from_numpy(ref[key][layer])
+                spec = sharding.spec_for(
+                    mesh, steps._STATE_AXES[(key, whole.dim())], whole.shape)
+                want = sharding.local_block(whole, spec, mesh)
+                check(tuple(st[key].shape) == tuple(want.shape),
+                      f"whisper {mname}: rank {mesh.rank}'s {key} of layer "
+                      f"{layer} is {tuple(st[key].shape)}, its block "
+                      f"{tuple(want.shape)}")
+                # relative to the largest |value| of the whole layer's K/V
+                kv_err = max(kv_err, float((st[key].cpu() - want).abs()
+                                           .max()) / float(whole.abs().max()))
+        tok = torch.from_numpy(ref["tokens"][rows]).to(dev)
+        bt_d = torch.from_numpy(bt[rows]).to(dev)
+        lg, nts = [], []
+        with StepCollectives(mesh) as coll:
+            for i in range(WHISPER_RANK_TF):
+                pos = torch.full((n,), i, dtype=torch.int32, device=dev)
+                nt, logits, states = step(params, states, tok[:, i:i + 1],
+                                          pos, bt_d)
+                lg.append(logits[:, 0].cpu())
+                nts.append(nt.cpu())
+        out[mname] = dict(rows=(rows.start, rows.stop), kv_err=kv_err,
+                          enc_s=enc_s, logits=torch.stack(lg).numpy(),
+                          next=torch.stack(nts).numpy(),
+                          heads=int(params.decoder[0].attn.wq.shape[1]),
+                          coll=coll.counts)
+        del params, states
+    torch.cuda.empty_cache()
+    mesh = meshes[WHISPER_RANK_TRAIN["mesh"]]
+    oc = configs.OptimConfig(lr=3e-4, warmup_steps=1, total_steps=1)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    params, opt = steps.init_train_state(cfg, oc, mesh, 0)
+    step = steps.build_train_step(cfg, oc, mesh, seq_shard=True)
+    batch = whisper_rank_batch(cfg, "cpu")
+    before = collective_counts(mesh)
+    (params, opt, m), step_s = host_s(lambda: step(params, opt, batch))
+    n = "final_norm.bias"
+    out["train"] = dict(
+        metrics={k: float(v) for k, v in m.items()}, ms=step_s * 1e3,
+        coll=collectives_since(mesh, before),
+        bias_zero=not bool(dict(params.named_parameters())[n].any()
+                           or opt["m"][n].any() or opt["v"][n].any()),
+        peak=torch.cuda.max_memory_allocated(mesh.device) / 2**30)
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_xlstm_train(mesh):
+    """(d) on one rank: one float32 step of ``XLSTM_RANK_TRAIN``'s cut from
+    ``init_train_state`` (the one-card draw's blocks) through the train
+    step on ``mesh`` with ``seq_shard``, timed, the sLSTM's host time
+    metered, its collectives by kind and pass (its loss and gradient's
+    apart); then the collectives of the loss and gradient at 4 x 64, which
+    equal the step's at 4 x 256 (the sLSTM's loop issues none, so they do
+    not grow with the sequence)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import steps
+    cfg = xlstm_rank_train_config()
+    f = XLSTM_RANK_TRAIN
+    oc = configs.OptimConfig(lr=3e-4, warmup_steps=1, total_steps=1)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    params, opt = steps.init_train_state(cfg, oc, mesh, 0)
+    step = steps.build_train_step(cfg, oc, mesh, seq_shard=True)
+    batch = xlstm_rank_batch(cfg, f["seq"], "cpu")
+    def calls(before):
+        return {k: v["calls"] for k, v in collectives_since(
+            mesh, before)["by_kind"].items()}
+
+    def timed_step():
+        # the step's halves, its loss and gradient counted apart
+        nonlocal grad_calls
+        b0 = collective_counts(mesh)
+        loss, metrics, grads = step.loss_and_grads(params, batch)
+        grad_calls = calls(b0)
+        p, o, stats = step.apply_grads(params, opt, grads)
+        return p, o, {"loss": loss, **metrics, **stats}
+    grad_calls = None
+    before = collective_counts(mesh)
+    with SlstmMeter() as sm:
+        (params, opt, m), step_s = host_s(timed_step)
+    coll = collectives_since(mesh, before)
+    short = f["seq"] // 4
+    before = collective_counts(mesh)
+    step.loss_and_grads(params, xlstm_rank_batch(cfg, short, "cpu"))
+    by_seq = {f["seq"]: grad_calls, short: calls(before)}
+    out = dict(metrics={k: float(v) for k, v in m.items()}, ms=step_s * 1e3,
+               coll=coll, by_seq=by_seq,
+               slstm_s=sum(sm.fwd_s) + sum(sm.bwd_s),
+               slstm_calls=(len(sm.fwd_s), len(sm.bwd_s)),
+               peak=torch.cuda.max_memory_allocated(mesh.device) / 2**30)
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_rank_main(world, refs, whisper_ref):
+    """Phase 18 on one rank: (a) to (d)."""
+    from repro_torch.launch.mesh import make_model_mesh
+    t_enter = time.time()
+    k = rank_kernels()
+    meshes = {n: make_model_mesh(world, s) for n, s in DECODE_MESHES.items()}
+    out = dict(device=str(world.device), backend=world.backend,
+               coords={n: m.coords for n, m in meshes.items()})
+    reset_launches(k)
+    t0 = time.perf_counter()
+    out["small"] = rank_family_small(meshes, refs, SSM_RANK_CASES,
+                                     SSM_RANK_SERVED)
+    out["small_launches"] = read_launches(k)["probe_perf"]
+    out["train"] = rank_small_train(meshes, SSM_RANK_TRAIN)
+    out["small_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["paper"] = rank_xlstm_decode(meshes[XLSTM_RANK_MESH], k)
+    out["paper_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["whisper"] = rank_whisper(meshes, whisper_ref)
+    out["whisper_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["xtrain"] = rank_xlstm_train(meshes[XLSTM_RANK_TRAIN["mesh"]])
+    out["xtrain_s"] = time.perf_counter() - t0
+    out["span"] = (t_enter, time.time())
+    return out
+
+
+def check_xlstm_ranks(outs, smi):
+    """(b): every layer's decode at every step within ``XLSTM_RANK_TOL``
+    of its one-card output (normwise), or within ``XLSTM_RANK_SENS`` times
+    the one-card sensitivity there where that is larger, the end-to-end
+    logits against phase 13(b)'s
+    (finite, printed), the served run (finite, every request whole, the
+    same on every rank, drained) and its figures.  Returns the ranks'
+    ``probe_perf`` launches."""
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    papers = [o["paper"] for o in outs]
+    want = np.load(XLSTM_RANK_DATA / "reference.npz")["logits"][
+        :XLSTM_RANK_E2E]
+    kw = XLSTM_RANK_SERVE
+    cfg = configs.get_config(XLSTM_ARCH)
+    kinds = [transformer.layer_kind(cfg, i) for i in range(cfg.num_layers)]
+    worst_layer = {}
+    sens = np.load(XLSTM_RANK_DATA / "reference.npz")["sensitivity"]
+    bound = np.maximum(XLSTM_RANK_TOL, XLSTM_RANK_SENS * sens)
+    for r, p in enumerate(papers):
+        got, errs = p["tf"]["got"], p["tf"]["layer_err"]
+        check(bool(np.isfinite(got).all()) and bool(np.isfinite(errs).all()),
+              f"xlstm ranks: rank {r}'s logits or layer errors not finite")
+        i, t = np.unravel_index(np.argmax(errs / bound), errs.shape)
+        check(float(errs[i, t]) <= float(bound[i, t]), f"xlstm ranks: rank "
+              f"{r}'s layer {i} ({kinds[i]}) decode at step {t}, fed one "
+              f"card's input, is {float(errs[i, t]):.3e} of the layer's "
+              f"output norm from one card's, past its bound "
+              f"{float(bound[i, t]):.3e} (one-card sensitivity "
+              f"{float(sens[i, t]):.3e})")
+        for kind in ("mlstm", "slstm"):
+            rows = [j for j, kk in enumerate(kinds) if kk == kind]
+            worst_layer[kind] = max(worst_layer.get(kind, 0.0),
+                                    float(errs[rows].max()))
+        p["tf"]["err"] = float(np.abs(got - want).max())
+        check(p["outs"] == papers[0]["outs"] and p["table"] ==
+              papers[0]["table"] and p["live"] == 0,
+              f"xlstm ranks: rank {r}'s tokens or page table differ from "
+              f"rank 0's, or pages stay live")
+        check(p["launches"] > 0 and p["tf"]["launches"] > 0,
+              f"xlstm ranks: rank {r} launched no probe_perf")
+    outs0 = papers[0]["outs"]
+    check(sorted(outs0) == list(range(kw["requests"])) and all(
+        len(v) == kw["max_new"] and all(0 <= t < cfg.padded_vocab for t in v)
+        for v in outs0.values()), "xlstm ranks: requests ended short")
+    largest = float(np.abs(want).max())
+    e2e = max(p["tf"]["err"] for p in papers)
+    tf = papers[0]["tf"]
+    print(f"xlstm_ranks_tf {XLSTM_ARCH}: {cfg.num_layers} layers at its "
+          f"published widths ({kinds.count('slstm')} sLSTM + "
+          f"{kinds.count('mlstm')} mLSTM, {cfg.num_heads} heads of "
+          f"{cfg.head_dim}: one a rank) over {len(outs)} ranks on "
+          f"{XLSTM_RANK_MESH} ({outs[0]['backend']}, 1 card); "
+          f"{papers[0]['n_local']} params a rank (float32), drawn in "
+          f"{max(p['draw_s'] for p in papers):.3f} s; end to end, "
+          f"{XLSTM_RANK_E2E} teacher-forced steps x {XLSTM_TF[0]} sequences "
+          f"in float32 through the serve step ({tf['seconds']:.3f} s, "
+          f"{tf['coll']['calls'] / XLSTM_RANK_E2E:.1f} collectives a step) "
+          f"drift from phase 13(b)'s one-card logits by max |diff| "
+          f"{e2e:.3e} ({e2e / largest:.3e} of the largest |logit| "
+          f"{largest:.3f}; reported: the same sums in another order, grown "
+          f"with depth by the exponential gates)")
+    errs = np.stack([p["tf"]["layer_err"] for p in papers]).max(0)
+    over = errs > XLSTM_RANK_TOL
+    print(f"xlstm_ranks_layers: each of the {cfg.num_layers} layers' decode "
+          f"on the ranks, fed phase 13(b)'s one-card input of that layer at "
+          f"each of {XLSTM_RANK_TF} steps from fresh states, against the "
+          f"norm of the one-card layer's own output: worst mLSTM "
+          f"{worst_layer['mlstm']:.3e}, sLSTM {worst_layer['slstm']:.3e}, "
+          f"median {float(np.median(errs)):.3e}; within {XLSTM_RANK_TOL} at "
+          f"{int((~over).sum())} of {errs.size} (layer, step) points; the "
+          f"other {int(over.sum())} within {XLSTM_RANK_SENS:g} x the "
+          f"one-card sensitivity there (a one-ulp move of the input: median "
+          f"{float(np.median(sens)):.3e}, max {float(sens.max()):.3e}), "
+          f"error / sensitivity at most "
+          f"{float((errs[over] / sens[over]).max(initial=0)):.2f}: "
+          + ", ".join(f"layer {i} step {t} {errs[i, t]:.3e} "
+                      f"({sens[i, t]:.3e})" for i, t in zip(*np.nonzero(over)))
+          + f" ({tf['layer_s']:.3f} s)")
+    bound_ms, w_bytes, _, st_bytes = decode_bound(cfg, kw)
+    st = np.asarray(papers[0]["step_ms"])
+    med = float(np.median(st))
+    steps = papers[0]["steps"]
+    gen = kw["requests"] * kw["max_new"]
+    wall = max(p["wall"] for p in papers)
+    colls = [p["collectives"] for p in papers]
+    print(f"xlstm_ranks_serve {XLSTM_ARCH} (params float32, activations "
+          f"{cfg.dtype}, float32 states, one head a rank) over {len(outs)} "
+          f"ranks: {kw['requests']} requests of prompt {kw['prompt_len']} + "
+          f"{kw['max_new']} new at batch {kw['batch']}, horizon "
+          f"{kw['horizon']}; {steps} steps, {gen} tokens in {wall:.3f} s = "
+          f"{gen / wall:.1f} tokens/s; step ms median {med:.3f} (min "
+          f"{st.min():.3f}, max {st.max():.3f}) against a bound of "
+          f"{bound_ms:.3f} ms (weights {w_bytes / 1e9:.3f} GB + states read "
+          f"and written {st_bytes / 1e9:.3f} GB at {HBM_RATE / 1e12:.2f} "
+          f"TB/s, one card; {bound_ms / med * 100:.2f}% of bound); "
+          f"collectives a step {colls[0]['calls'] / steps:.1f} "
+          f"({colls[0]['calls'] / steps / cfg.num_layers:.2f} a layer), "
+          f"{colls[0]['bytes'] / steps / 1e6:.3f} MB sent by rank 0, host ms "
+          f"in them a step by rank "
+          f"{[round(c['seconds'] / steps * 1e3, 3) for c in colls]} "
+          f"({colls[0]['seconds'] / papers[0]['wall'] * 100:.1f}% of rank "
+          f"0's serve; by kind a step on rank 0: "
+          f"{kinds_line(colls[0]['by_kind'], steps)}); page-table host ms a "
+          f"step {papers[0]['table_ms'] / steps:.3f}; probe_perf launches by "
+          f"rank {[p['tf']['launches'] + p['launches'] for p in papers]}; "
+          f"peak a rank {max(p['peak'] for p in papers):.2f} GiB; card: "
+          f"{smi}")
+    return sum(p["tf"]["launches"] + p["launches"] for p in papers)
+
+
+def check_whisper_ranks(ref, outs, smi):
+    """(c): every rank's logits rows and greedy tokens against one card's
+    (within ``FAMILY_RANK_TOL``), its cross K/V blocks (within it of the
+    largest |value|: the encoder's float32 sums over 1500 frames grow them
+    to tens), the heads it holds, and the training step's loss, grad norm
+    and ``final_norm/bias``."""
+    from repro_torch import configs
+    cfg = configs.get_config(WHISPER_ARCH)
+    lines = []
+    for mname, shape in DECODE_MESHES.items():
+        worst = kv = 0.0
+        for r, o in enumerate(outs):
+            got = o["whisper"][mname]
+            a, b = got["rows"]
+            err = float(np.abs(got["logits"] - ref["logits"][:, a:b]).max())
+            worst, kv = max(worst, err), max(kv, got["kv_err"])
+            check(err <= FAMILY_RANK_TOL and got["kv_err"] <= FAMILY_RANK_TOL,
+                  f"whisper ranks {mname}: rank {r}'s logits {err:.3e} or "
+                  f"cross K/V {got['kv_err']:.3e} of the largest from one "
+                  f"card's")
+            check(np.array_equal(got["next"], ref["next"]),
+                  f"whisper ranks {mname}: rank {r}'s greedy tokens differ")
+            split = cfg.num_heads % shape["model"] == 0
+            check(got["heads"] == cfg.num_heads // (shape["model"] if split
+                                                   else 1),
+                  f"whisper ranks {mname}: rank {r} holds {got['heads']} "
+                  f"heads")
+        got = outs[0]["whisper"][mname]
+        steps = WHISPER_RANK_TF
+        lines.append(f"{mname} ({got['heads']} heads a rank"
+                     + (", replicated" if got["heads"] == cfg.num_heads
+                        else "") + f"): logits within {worst:.3e}, cross "
+                     f"K/V within {kv:.3e} of its largest, encode "
+                     f"{got['enc_s']:.3f} s, "
+                     f"{got['coll']['calls'] / steps:.1f} collectives a "
+                     f"step")
+    want = ref["train"]["metrics"]
+    for r, o in enumerate(outs):
+        m = o["whisper"]["train"]["metrics"]
+        for key in ("loss", "grad_norm"):
+            check(abs(m[key] - want[key]) <= TRAIN_RANK_TOL * abs(want[key]),
+                  f"whisper ranks training: rank {r}'s {key} {m[key]} "
+                  f"against one card's {want[key]}")
+        check(o["whisper"]["train"]["bias_zero"], f"whisper ranks training: "
+              f"rank {r}'s final_norm/bias or its moments moved from zero")
+    t = outs[0]["whisper"]["train"]
+    f = WHISPER_RANK_TRAIN
+    rel = {key: abs(t["metrics"][key] - want[key]) / abs(want[key])
+           for key in ("loss", "grad_norm")}
+    print(f"whisper_ranks {WHISPER_ARCH} at its published widths (float32, "
+          f"{WHISPER_TF[3]} stub frames, {WHISPER_RANK_TF} teacher-forced "
+          f"steps x {WHISPER_TF[0]}) over {len(outs)} ranks against one "
+          f"card within {FAMILY_RANK_TOL}, greedy tokens equal: "
+          + "; ".join(lines))
+    print(f"whisper_ranks_train: one float32 step on {f['mesh']} with "
+          f"seq_shard at batch {f['batch']} x ({f['seq']} frames, "
+          f"{min(512, f['seq'])} decoder tokens; phase 13(c)'s shape): loss "
+          f"{t['metrics']['loss']:.6f} (one card {want['loss']:.6f}, "
+          f"{rel['loss']:.3e} apart), grad norm "
+          f"{t['metrics']['grad_norm']:.6f} ({rel['grad_norm']:.3e} apart), "
+          f"final_norm/bias and its moments exactly 0 on every rank; "
+          f"{max(o['whisper']['train']['ms'] for o in outs):.1f} ms (one "
+          f"card {ref['train']['ms']:.1f} ms); collectives on rank 0: "
+          f"{kinds_line(t['coll']['by_kind'], 1)}; peak a rank "
+          f"{max(o['whisper']['train']['peak'] for o in outs):.2f} GiB (one "
+          f"card {ref['train']['peak']:.2f}); card: {smi}")
+
+
+def check_xlstm_train_ranks(ref, outs, smi):
+    """(d): the loss against the cut's one-card step, the same on every
+    rank; the collectives the same at half the sequence; the figures."""
+    want = ref["metrics"]
+    for r, o in enumerate(outs):
+        x = o["xtrain"]
+        check(abs(x["metrics"]["loss"] - want["loss"]) <= TRAIN_RANK_TOL
+              * abs(want["loss"]), f"xlstm ranks training: rank {r}'s loss "
+              f"{x['metrics']['loss']} against one card's {want['loss']}")
+        seqs = list(x["by_seq"])
+        check(x["by_seq"][seqs[0]] == x["by_seq"][seqs[1]],
+              f"xlstm ranks training: rank {r}'s collectives grow with the "
+              f"sequence: {x['by_seq']}")
+    x = outs[0]["xtrain"]
+    f = XLSTM_RANK_TRAIN
+    cfg = xlstm_rank_train_config()
+    n_slstm = sum(cfg.is_slstm_layer(i) for i in range(cfg.num_layers))
+    print(f"xlstm_ranks_train {XLSTM_ARCH} at its published widths, "
+          f"{f['depth']} of 48 layers ({n_slstm} sLSTM), one float32 step at "
+          f"batch {f['batch']} x {f['seq']} over {len(outs)} ranks on "
+          f"{f['mesh']} with seq_shard: loss {x['metrics']['loss']:.6f} (one "
+          f"card {want['loss']:.6f}, "
+          f"{abs(x['metrics']['loss'] - want['loss']) / want['loss']:.3e} "
+          f"apart; grad norm {x['metrics']['grad_norm']:.6f}, one card "
+          f"{want['grad_norm']:.6f}); "
+          f"{max(o['xtrain']['ms'] for o in outs):.1f} ms a step (one card "
+          f"{ref['ms']:.1f} ms); the sLSTM's host time {x['slstm_s']:.3f} s "
+          f"= {x['slstm_s'] / (x['ms'] / 1e3) * 100:.1f}% of rank 0's step "
+          f"({x['slstm_calls'][0]} passes, {x['slstm_calls'][1]} backward); "
+          f"collectives {x['coll']['calls']}, "
+          f"{x['coll']['bytes'] / 1e6:.1f} MB sent by rank 0, "
+          f"{x['coll']['seconds'] * 1e3:.1f} host ms; by kind and pass: "
+          f"{kinds_line(x['coll']['by_kind'], 1)}; the loss and gradient "
+          f"alone issue the same collectives at {list(x['by_seq'])} tokens "
+          f"({sum(next(iter(x['by_seq'].values())).values())}); peak a rank "
+          f"{max(o['xtrain']['peak'] for o in outs):.2f} GiB; card: {smi}")
+
+
+def ssm_ranks_path(smi):
+    """Phase 18: the ssm and encdec families decoding and training over
+    (data, model) meshes of ``RANKS`` rank processes (gloo, every rank on
+    the one card, as phases 15–17): (a) the small cases against one card,
+    (b) xlstm-1.3b at its published widths and depth on (1, 4) against
+    phase 13(b), then served, (c) whisper-tiny at its published widths on
+    both meshes and trained on (2, 2), (d) xlstm-1.3b's 8-layer cut trained
+    on (2, 2).  Returns the ranks' ``probe_perf`` launches."""
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks
+    t_phase = time.perf_counter()
+    refs = small_family_rank_references(SSM_RANK_CASES, SSM_RANK_SERVED)
+    train_refs = small_train_rank_references(SSM_RANK_TRAIN)
+    wref = whisper_rank_references(smi)
+    xref = xlstm_train_reference()
+    ref_s = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    t0, w0 = time.perf_counter(), time.time()
+    outs = spawn_ranks(ssm_rank_main, RANKS, refs,
+                       {k: v for k, v in wref.items() if k != "train"},
+                       backend="gloo", device="cuda:0", timeout=RANK_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    start_s = max(o["span"][0] for o in outs) - w0
+    n, worst, _ = check_small_family_ranks(refs, outs, SSM_RANK_CASES,
+                                           SSM_RANK_SERVED)
+    nt, worst_g, worst_p, _ = check_small_train_ranks(
+        train_refs, outs, SSM_RANK_TRAIN, key="train",
+        grad_tols=SSM_RANK_GRAD_TOL)
+    small_l = sum(o["small_launches"] for o in outs)
+    print(f"ssm_ranks_small: {n} decode cases (xlstm-1.3b on 1x4 and 2x2, "
+          f"whisper-tiny on 2x2 and with 6 heads, replicated, on 1x4; smoke "
+          f"widths, 2 layers, float32) over {RANKS} ranks (gloo, all on "
+          f"cuda:0) equal one card: {DECODE_RANK_SMALL[1]} teacher-forced "
+          f"steps' logits within {worst:.3e} (bound {FAMILY_RANK_TOL}), "
+          f"greedy tokens equal; {SSM_RANK_SERVED} served as one card "
+          f"(tokens, steps); {nt} training cases (xlstm on 2x2 and 6-head "
+          f"whisper on 1x4, seq_shard) equal one card: every gradient block "
+          f"within {worst_g:.3e} of its leaf's largest (bounds "
+          f"{TRAIN_RANK_TOL}, xlstm {SSM_RANK_GRAD_TOL['xlstm-1.3b']}), "
+          f"parameters within {worst_p:.3e} where |g| >= 1e-6, whisper's "
+          f"final_norm/bias gradient 0; probe_perf launches over the ranks "
+          f"{small_l}; ranks {max(o['small_s'] for o in outs):.3f} s")
+    launches = small_l + check_xlstm_ranks(outs, smi)
+    check_whisper_ranks(wref, outs, smi)
+    check_xlstm_train_ranks(xref, outs, smi)
+    print(f"ssm_ranks_time: phase 18 took "
+          f"{time.perf_counter() - t_phase:.3f} s (one-card references "
+          f"{ref_s:.3f} s; gloo {spawn_s:.3f} s, the ranks started "
+          f"{start_s:.3f} s after the spawn; in the ranks (a) "
+          f"{max(o['small_s'] for o in outs):.3f} s, (b) "
+          f"{max(o['paper_s'] for o in outs):.3f} s, (c) "
+          f"{max(o['whisper_s'] for o in outs):.3f} s, (d) "
+          f"{max(o['xtrain_s'] for o in outs):.3f} s); card: {smi}")
     return launches
 
 
@@ -6090,6 +6931,10 @@ def main() -> int:
     family_rank_launches = family_ranks_path(smi)
     lap("17")
 
+    # -- 18. the ssm and encdec families over a mesh of ranks ---------------
+    ssm_rank_launches = ssm_ranks_path(smi)
+    lap("18")
+
     replaces = {"probe_perf": "src/repro/kernels/probe_perf.py:34",
                 "probe_area": "src/repro/kernels/probe_area.py:32",
                 "probe_bitserial": "src/repro/kernels/probe_bitserial.py:36"}
@@ -6102,12 +6947,12 @@ def main() -> int:
     launches = {"probe_perf": perf_path["probe_perf"] + decode_launches
                 + ckpt_launches + family_launches + rest_launches
                 + rank_launches["probe_perf"] + decode_rank_launches
-                + family_rank_launches,
+                + family_rank_launches + ssm_rank_launches,
                 "probe_area": bs_path["probe_area"]
                 + rank_launches["probe_area"],
                 "probe_bitserial": bs_path["probe_bitserial"]
                 + rank_launches["probe_bitserial"]}
-    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_script:.1f} "
+    print(f"chip_smoke: phases 1-18 in {time.perf_counter() - t_script:.1f} "
           f"s (by phase, s: {json.dumps(laps)}); card: {smi}")
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda",

@@ -6,12 +6,9 @@ optional gradient compression, then the AdamW update, in place.
 ``decode_step`` and the greedy next token, under ``torch.no_grad()``.  JAX
 jits both with their parameter and state shardings.  The port runs them
 eagerly, on one device or on each rank of a ``launch.mesh.ModelMesh``: the
-serve step and the train step for the dense, moe, hybrid and vlm families
-(``decode_state_specs`` places the decode states as JAX's), each rank with
-its blocks of the parameters and moments (``param_specs``) and its rows of
-the batch.  The ssm and encdec families decode and train over one shard
-only (their xLSTM leaves and the encoder's cross states wait for ROADMAP
-Queue 1 item 16b-iii).
+serve step and the train step for every family (``decode_state_specs``
+places the decode states as JAX's), each rank with its blocks of the
+parameters and moments (``param_specs``) and its rows of the batch.
 """
 from __future__ import annotations
 
@@ -26,26 +23,16 @@ from repro_torch.launch.mesh import ModelMesh
 from repro_torch.models import model
 from repro_torch.optim import adamw_update, init_opt_state
 
-UNSHARDED_FAMILIES = ("ssm", "encdec")
-
-
-def train_mesh(cfg, mesh):
+def train_mesh(mesh):
     """The ``ModelMesh`` to train over, or None for one device: ``mesh`` is
     None, a ``ModelMesh``, or a shape {axis: size} of one shard.  A bare
-    shape of more than one shard builds no world, and the ssm and encdec
-    families do not train over more than one shard: both raise."""
+    shape of more than one shard builds no world: it raises."""
     if mesh is None:
         return None
+    if isinstance(mesh, ModelMesh):
+        return mesh
     shape = sharding.mesh_shape(mesh)
     n = math.prod(shape.values())
-    if isinstance(mesh, ModelMesh):
-        if n > 1 and cfg.family in UNSHARDED_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}): training over a mesh of "
-                f"{shape} needs tensor parallelism of its xLSTM and "
-                f"encoder leaves, ROADMAP Queue 1 item 16b-iii; the dense, "
-                f"moe, hybrid and vlm families train over ranks")
-        return mesh
     if n > 1:
         raise NotImplementedError(
             f"a training mesh of {shape} as a bare shape builds no world: "
@@ -75,7 +62,7 @@ def build_train_step(cfg, oc, mesh=None, *, seq_shard: bool = True,
     are ``train_step.loss_and_grads(params, batch) -> (loss, metrics,
     grads)`` and ``train_step.apply_grads(params, opt_state, grads) ->
     (params, opt_state, {"grad_norm", "lr"})``."""
-    mesh = train_mesh(cfg, mesh)
+    mesh = train_mesh(mesh)
     base = sharding.ShardCtx(mesh, seq_shard=seq_shard) if mesh else None
 
     def loss_and_grads(params, batch):
@@ -117,7 +104,7 @@ def init_train_state(cfg, oc, mesh=None, seed: int = 0, device=None):
     the card) and zero AdamW moments beside it; on a ``ModelMesh`` this
     rank's blocks of them (``model.init_params_sharded``), on the mesh's
     device."""
-    mesh = train_mesh(cfg, mesh)
+    mesh = train_mesh(mesh)
     if mesh is not None:
         params = model.init_params_sharded(cfg, seed, mesh)
     else:
@@ -170,7 +157,6 @@ def build_serve_step(cfg, serve_cfg, mesh=None):
     logits are the rank's rows, over the whole vocabulary with
     ``full_logits``, else its vocabulary block (no collective)."""
     B = serve_cfg.shape.global_batch
-    model.refuse_sharded_decode(cfg, mesh)
     ctx = model.make_decode_ctx(cfg, serve_cfg, B, mesh=mesh)
 
     @torch.no_grad()

@@ -290,21 +290,23 @@ def gather_heads(mesh, pairs):
     return out
 
 
-def narrow_to(x, dim: int, w, w_dim: int, mesh):
+def narrow_to(x, dim: int, w, w_dim: int, mesh, unit: int = 1):
     """``x`` (whole along ``dim``) cut to the rank's block where ``w``'s
     dimension ``w_dim`` is on ``"model"``: the input of a row-parallel
-    product."""
+    product.  ``unit`` elements of ``x`` stand for one of ``w`` (a head's
+    channels)."""
     if not _tp(w, w_dim, mesh):
         return x
-    n = w.shape[w_dim]
+    n = w.shape[w_dim] * unit
     return x.narrow(dim, mesh.index(TP_AXES) * n, n)
 
 
 def reduce_partial(y, w, w_dim: int, mesh):
     """The partial product ``y`` of a row-parallel weight ``w`` (its
     contracting dimension ``w_dim`` on ``"model"``) summed over the ranks
-    in float32 and rounded once to ``y``'s dtype."""
-    if not _tp(w, w_dim, mesh):
+    in float32 and rounded once to ``y``'s dtype; ``y`` itself on one
+    device (``mesh`` None) or where ``w`` is not row-parallel."""
+    if mesh is None or not _tp(w, w_dim, mesh):
         return y
     return all_reduce(y.to(F32), mesh, TP_AXES).to(y.dtype)
 

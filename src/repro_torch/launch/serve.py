@@ -26,6 +26,8 @@
     python -m repro_torch.launch.serve --arch jamba-v0.1-52b --smoke \\
         --device cpu --mesh 2 2                     # experts stationary
     python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke --device cpu \\
+        --mesh 1 4                                  # head-parallel xLSTM
     python -m repro_torch.launch.serve --mode kv --workloads A,B,E \\
         --requests 64 --slots 16 [--device cpu]
     python -m repro_torch.launch.serve --mode kv --device cpu \\
@@ -36,9 +38,9 @@
 The flags are the JAX CLI's, plus ``--device``.  ``--mesh D M`` decodes
 over a ``("data", "model")`` mesh: with D x M > 1, D x M rank processes
 over ``torch.distributed`` (``serve_ranks``), each holding its shard of the
-parameters and its slice of every KV pool (every family but ssm and
-encdec: the experts stay where they lie, mamba runs tensor-parallel on its
-channels); without
+parameters and its slice of every KV pool (the experts stay where they
+lie, mamba runs tensor-parallel on its channels and the xLSTM cells on
+their heads); without
 it, one device, with the geometry of JAX's default ``(1, 1)`` mesh.
 ``--backend`` defaults to ``perf`` here (``ref`` in the JAX CLI): on the
 card ``ref`` is the plain PyTorch compare and launches no kernel.
@@ -121,10 +123,8 @@ def serve(cfg, *, mesh=None, batch=4, horizon=256, page_tokens=32,
     ``PageTableManager`` (arenas by channel and batch group, a sequence's
     group ``slot // b_loc``), the next tokens gathered whole on every rank;
     rank 0 prints.  Returns (done requests, the
-    PageTableManager, steps run).  Refuses encdec (``refuse_encdec``), and
-    on a mesh of more than one shard the ssm family
-    (``model.refuse_sharded_decode``)."""
-    model.refuse_sharded_decode(cfg, mesh)
+    PageTableManager, steps run).  Refuses encdec (``refuse_encdec``) on
+    one device and on a mesh alike."""
     refuse_encdec(cfg)
     mesh = DECODE_MESH if mesh is None else mesh
     ranked = isinstance(mesh, ModelMesh)
@@ -360,7 +360,7 @@ def main(argv=None):
                     help="(decode mode) a (data, model) mesh: with D x M > "
                          "1, D x M rank processes over torch.distributed "
                          "(nccl with a card a rank, else gloo), every "
-                         "family but ssm and encdec; only rank 0 prints")
+                         "family but encdec; only rank 0 prints")
     ap.add_argument("--compact-chain-len", type=int, default=None,
                     help="page-table compaction when any bucket chain "
                          "exceeds this many pages (skewed frees); default: "
@@ -401,9 +401,8 @@ def main(argv=None):
         cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
         shape = dict(zip(MESH_AXES, args.mesh or (1, 1)))
         try:
-            model.refuse_sharded_decode(cfg, shape)
             refuse_encdec(cfg)
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             ap.error(str(e))
         kw = dict(batch=args.batch, requests=args.requests,
                   max_new=args.max_new, horizon=args.horizon,

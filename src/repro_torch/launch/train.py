@@ -53,7 +53,7 @@ def train(cfg, shape, oc, mesh=None, *, num_steps, ckpt_dir, ckpt_every=50,
     blocks of the state on the mesh's device, and takes part in every
     save and restore; rank 0 alone prints.  Returns (params, opt_state,
     {step: loss}, the StragglerMonitor, the RestartPolicy)."""
-    mesh = dsteps.train_mesh(cfg, mesh)
+    mesh = dsteps.train_mesh(mesh)
     dev = mesh.device if mesh is not None else resolve_device(device)
     verbose = verbose and (mesh is None or mesh.rank == 0)
     ckpt = Checkpointer(ckpt_dir, mesh=mesh) if ckpt_dir is not None \

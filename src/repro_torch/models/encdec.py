@@ -12,6 +12,21 @@ The layers of a stack are an ``nn.ModuleList``, ``encoder.{l}`` and
 ``stacks/decoder`` on a leading layer axis; with ``cfg.remat`` and autograd
 on, each layer is recomputed in the backward pass from its inputs, as
 JAX's ``jax.checkpoint`` of the layer body does.
+
+Over the ranks of a ``ModelMesh`` (``mesh``; a model from
+``model.shard_params``) every layer is tensor-parallel as JAX's rules place
+its leaves: each layer's FSDP dimensions gathered in one collective
+(``tensor_parallel.view``), the attention leaves' heads (self and cross)
+on ``"model"`` where they divide it and replicated where they do not
+(whisper-tiny's 6 heads on 4 ranks: every rank then runs every head and
+``wo``'s output is whole, not summed), the GELU MLP column-parallel
+(``up``) and row-parallel (``down``).  Row-parallel partial products are
+summed over ``"model"`` in float32 and rounded once
+(``tensor_parallel.reduce_partial``, differentiable).  Training keeps a
+rank's (B_loc, S, d) rows through both stacks: JAX's ``encode`` and
+``decode_train`` take no sharding context.  In decode a rank holds its
+slice of every self-attention pool and its rows and heads of every
+layer's cross K/V.
 """
 from __future__ import annotations
 
@@ -20,6 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import paged_kv
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import attention, mlp
 from repro_torch.models.layers import (F32, LayerNorm, layer_norm, project,
                                        sinusoid_positions)
@@ -79,68 +95,101 @@ def _layers(fn, layers, cfg, x, *args):
     return x
 
 
-def _encoder_layer(p: EncoderLayer, cfg, x):
+def _view(p, mesh):
+    """A layer's leaves, on a rank (``mesh``) with their FSDP dimensions
+    gathered."""
+    return p if mesh is None else tp.view(p, mesh)
+
+
+def _self_attn(pa, cfg, h, positions, causal, mesh):
+    """Self-attention over the rank's heads (all of them where they are
+    replicated)."""
+    q, k, v = attention.qkv(pa, cfg, h, positions)
+    if mesh is not None:
+        k, v = tp.kv_for_local_heads(cfg, k, v, pa.wq, pa.wk, mesh)
+    o = attention.chunked_attention(q, k, v, cfg, causal=causal)
+    return tp.reduce_partial(attention.out_proj(pa, cfg, o), pa.wo, 0, mesh)
+
+
+def _gelu_mlp(p, x, mesh):
+    return tp.reduce_partial(mlp.gelu_mlp(p, x), p.down, 0, mesh)
+
+
+def _encoder_layer(p: EncoderLayer, cfg, x, mesh=None):
+    p = _view(p, mesh)
     h = layer_norm(x, p.norm1, cfg.norm_eps)
-    q, k, v = attention.qkv(p.attn, cfg, h, None)     # no rope: abs pos
-    o = attention.chunked_attention(q, k, v, cfg, causal=False)
-    x = x + attention.out_proj(p.attn, cfg, o)
+    x = x + _self_attn(p.attn, cfg, h, None, False, mesh)  # no rope: abs pos
     h2 = layer_norm(x, p.norm2, cfg.norm_eps)
-    return x + mlp.gelu_mlp(p.ffn, h2)
+    return x + _gelu_mlp(p.ffn, h2, mesh)
 
 
-def encode(encoder, cfg, frames):
+def encode(encoder, cfg, frames, mesh=None):
     """frames (B, S_enc, d) stub embeddings -> encoder output (B, S_enc,
-    d)."""
+    d); on a rank (``mesh``) its rows, every layer tensor-parallel."""
     _, S, d = frames.shape
     x = frames + sinusoid_positions(S, d, frames.device)[None].to(
         frames.dtype)
-    return _layers(_encoder_layer, encoder, cfg, x)
+    return _layers(_encoder_layer, encoder, cfg, x, mesh)
 
 
-def cross_kv(decoder, cfg, enc_out):
+def _cross_kv_of(p, enc_out, mesh=None):
+    """(ek, ev) (B, S_enc, K, hd) of the encoder output through one decoder
+    layer's cross ``wk``/``wv`` (its view on a rank: the rank's KV heads
+    where they are on ``"model"``)."""
+    c = _view(p.cross, mesh)
+    return project(enc_out, c.wk), project(enc_out, c.wv)
+
+
+def cross_kv(decoder, cfg, enc_out, mesh=None):
     """Each decoder layer's cross-attention K/V of the encoder output:
-    (ek, ev), each (L, B, S_enc, K, hd)."""
-    ek = torch.stack([project(enc_out, p.cross.wk) for p in decoder])
-    ev = torch.stack([project(enc_out, p.cross.wv) for p in decoder])
-    return ek, ev
+    (ek, ev), each (L, B, S_enc, K, hd); on a rank (``mesh``) its rows and
+    KV heads, as ``steps.decode_state_specs`` places them."""
+    kv = [_cross_kv_of(p, enc_out, mesh) for p in decoder]
+    return torch.stack([k for k, _ in kv]), torch.stack([v for _, v in kv])
 
 
-def _cross_sub(p: DecoderLayer, cfg, h, ek, ev):
+def _cross_sub(p: DecoderLayer, cfg, h, ek, ev, mesh=None):
     q = project(h, p.cross.wq)
+    if mesh is not None:
+        ek, ev = tp.kv_for_local_heads(cfg, ek, ev, p.cross.wq, p.cross.wk,
+                                       mesh)
     o = attention.chunked_attention(q, ek, ev, cfg, causal=False,
                                     chunk=min(cfg.attn_chunk, ek.shape[1]))
-    return project(o, p.cross.wo, in_dims=2)
+    return tp.reduce_partial(project(o, p.cross.wo, in_dims=2), p.cross.wo,
+                             0, mesh)
 
 
-def _decoder_layer(p: DecoderLayer, cfg, x, enc_out, positions):
+def _decoder_layer(p: DecoderLayer, cfg, x, enc_out, positions, mesh=None):
+    p = _view(p, mesh)
     h = layer_norm(x, p.norm1, cfg.norm_eps)
-    q, k, v = attention.qkv(p.attn, cfg, h, positions)
-    o = attention.chunked_attention(q, k, v, cfg, causal=True)
-    x = x + attention.out_proj(p.attn, cfg, o)
+    x = x + _self_attn(p.attn, cfg, h, positions, True, mesh)
     hx = layer_norm(x, p.norm_x, cfg.norm_eps)
     ek = project(enc_out, p.cross.wk)
     ev = project(enc_out, p.cross.wv)
-    x = x + _cross_sub(p, cfg, hx, ek, ev)
+    x = x + _cross_sub(p, cfg, hx, ek, ev, mesh)
     h2 = layer_norm(x, p.norm2, cfg.norm_eps)
-    return x + mlp.gelu_mlp(p.ffn, h2)
+    return x + _gelu_mlp(p.ffn, h2, mesh)
 
 
-def decode_train(decoder, cfg, x, enc_out, positions):
-    """Teacher-forced decoder forward.  x (B, S_dec, d) token
-    embeddings."""
-    return _layers(_decoder_layer, decoder, cfg, x, enc_out, positions)
+def decode_train(decoder, cfg, x, enc_out, positions, mesh=None):
+    """Teacher-forced decoder forward.  x (B, S_dec, d) token embeddings;
+    on a rank (``mesh``) its rows."""
+    return _layers(_decoder_layer, decoder, cfg, x, enc_out, positions, mesh)
 
 
 def init_decode_states(cfg, B: int, ctx, enc_kv, kv_dtype=torch.bfloat16,
                        device=None):
     """One state a decoder layer, in layer order: zeroed paged self-KV
     pools and the layer's static cross K/V, ``{"k_pool", "v_pool", "ek",
-    "ev"}``.  ``B`` is the batch ``enc_kv`` was computed for."""
+    "ev"}``.  ``B`` is the batch ``enc_kv`` was computed for.  On a rank
+    (``ctx.ranked``) a pool is its slice, ``pages_per_shard`` pages, and
+    ``enc_kv`` its block (``cross_kv`` with the mesh)."""
     ek, ev = enc_kv                                       # (L,B,Se,K,hd)
+    pages = ctx.pages_per_shard if ctx.ranked else ctx.pool_pages
     out = []
     for layer in range(cfg.num_layers):
         k_pool, v_pool = paged_kv.init_pool(
-            ctx.pool_pages, ctx.page_tokens, cfg.num_kv_heads, cfg.head_dim,
+            pages, ctx.page_tokens, cfg.num_kv_heads, cfg.head_dim,
             kv_dtype, device)
         out.append({"k_pool": k_pool, "v_pool": v_pool, "ek": ek[layer],
                     "ev": ev[layer]})
@@ -149,24 +198,32 @@ def init_decode_states(cfg, B: int, ctx, enc_kv, kv_dtype=torch.bfloat16,
 
 def decode_step_stack(decoder, cfg, x, states, block_table, pos, ctx):
     """One decoder token step.  x (B,1,d); the self-KV pools are written in
-    place and the new states returned."""
+    place and the new states returned.  On a rank (``ctx.ranked``) x is its
+    rows: self-attention through the channel-parallel pools, the cross
+    attention over its heads of ``ek``/``ev``, the rest tensor-parallel."""
     B = x.shape[0]
+    mesh = ctx.mesh if ctx.ranked else None
     dense = cfg.replace(sliding_window=0)
     new_states = []
     for p, st in zip(decoder, states):
+        p = _view(p, mesh)
         h = layer_norm(x, p.norm1, cfg.norm_eps)
         sub, new_kv = _paged_attn_sub(p.attn, cfg, h, st, block_table, pos,
                                       ctx)
         x = x + sub
         hx = layer_norm(x, p.norm_x, cfg.norm_eps)
         q = project(hx, p.cross.wq)
-        S_enc = st["ek"].shape[1]
+        ek, ev = st["ek"], st["ev"]
+        if mesh is not None:
+            ek, ev = tp.kv_for_local_heads(cfg, ek, ev, p.cross.wq,
+                                           p.cross.wk, mesh)
         o = attention.decode_attention_dense(
-            q, st["ek"], st["ev"],
-            torch.full((B,), S_enc, dtype=torch.int32, device=x.device),
+            q, ek, ev,
+            torch.full((B,), ek.shape[1], dtype=torch.int32, device=x.device),
             dense)
-        x = x + project(o, p.cross.wo, in_dims=2)
+        x = x + tp.reduce_partial(project(o, p.cross.wo, in_dims=2),
+                                  p.cross.wo, 0, mesh)
         h2 = layer_norm(x, p.norm2, cfg.norm_eps)
-        x = x + mlp.gelu_mlp(p.ffn, h2)
+        x = x + _gelu_mlp(p.ffn, h2, mesh)
         new_states.append({**new_kv, "ek": st["ek"], "ev": st["ev"]})
     return x, new_states

@@ -87,18 +87,13 @@ def softplus(x):
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _row_sum(y, w, mesh):
-    """The row-parallel product ``y`` of ``w`` summed over ``"model"`` on a
-    rank (``mesh``), else ``y``."""
-    return y if mesh is None else tp.reduce_partial(y, w, 0, mesh)
-
-
 def _ssm_inputs(p: Mamba, cfg, xc, mesh=None):
     """xc (B, L, di), the conv + SiLU output -> the discretised dA, dBx
     (B, L, di, N) float32 and C (B, L, N).  On a rank (``mesh``) xc holds
     its channels and ``x_proj``'s partial products are summed first."""
     N, dtr = cfg.ssm_state_dim, cfg.dt_rank
-    proj = _row_sum(project(xc, p.x_proj), p.x_proj, mesh).to(F32)
+    proj = tp.reduce_partial(project(xc, p.x_proj), p.x_proj, 0,
+                             mesh).to(F32)
     dt_raw, Bs, Cs = torch.split(proj, [dtr, N, N], dim=-1)
     dt = softplus(project(dt_raw, p.dt_proj) + p.dt_bias)
     A = -torch.exp(p.A_log)                                      # (di, N)
@@ -216,5 +211,6 @@ def decode_step(p: Mamba, cfg, state: dict, x, mesh=None):
     y = (h @ Cs[:, 0, :, None])[..., 0][:, None]                 # (B,1,di)
     y = y + p.D * xc.to(F32)
     y = y * F.silu(z.to(F32))
-    out = _row_sum(project(y.to(dt), p.out_proj), p.out_proj, mesh)
+    out = tp.reduce_partial(project(y.to(dt), p.out_proj), p.out_proj, 0,
+                            mesh)
     return out, {"conv": conv_state, "ssm": h}

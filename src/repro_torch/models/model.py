@@ -25,12 +25,12 @@ inputs of each shape kind as meta tensors.
 Over a ``launch.mesh.ModelMesh`` a rank holds its block of every leaf
 (``shard_params``, ``init_params_sharded``: the blocks of
 ``distributed.sharding.param_specs``, each tensor with its ``.spec``),
-decodes the dense, moe, hybrid and vlm families tensor-parallel
-(``distributed/tensor_parallel.py``): a vocab-parallel embedding, the
-layers (``transformer.decode_stack``; the experts stationary), vocab-sharded
-logits; and trains the dense, moe, hybrid and vlm families: ``loss_fn`` with a ``ShardCtx`` (the
-layers tensor-parallel, the MoE over the mesh, the cross-entropy against
-the vocabulary blocks, ``vocab_cross_entropy``).
+decodes every family tensor-parallel (``distributed/tensor_parallel.py``):
+a vocab-parallel embedding, the layers (``transformer.decode_stack``, the
+experts stationary, the xLSTM cells head-parallel; ``encdec``'s stacks),
+vocab-sharded logits; and trains every family: ``loss_fn`` with a
+``ShardCtx`` (the layers tensor-parallel, the MoE over the mesh, the
+cross-entropy against the vocabulary blocks, ``vocab_cross_entropy``).
 ``param_axes`` gives each leaf's logical axes, as JAX's init records them.
 """
 from __future__ import annotations
@@ -322,22 +322,6 @@ def rank_model_meta(cfg, mesh) -> Model:
     return out
 
 
-UNSHARDED_DECODE = ("ssm", "encdec")
-
-
-def refuse_sharded_decode(cfg, mesh):
-    """Raise unless ``cfg``'s family decodes over ``mesh`` (a shape, a
-    ``ModelMesh`` or None): on a mesh of more than one shard the ssm and
-    encdec families do not."""
-    shape = sharding.mesh_shape(mesh) if mesh is not None else {}
-    if cfg.family in UNSHARDED_DECODE and math.prod(shape.values()) > 1:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): decode over a mesh of {shape} needs "
-            f"tensor parallelism of its xLSTM leaves and the encoder's "
-            f"cross states, ROADMAP Queue 1 item 16b-iii; the dense, moe, "
-            f"hybrid and vlm families decode over ranks")
-
-
 # ---------------------------------------------------------------------------
 # Forward (train / prefill)
 # ---------------------------------------------------------------------------
@@ -378,11 +362,14 @@ def forward(params: Model, cfg, batch, shard_ctx=None):
     ``sharding.ShardCtx``) ``params`` is a rank's model, ``batch`` its rows
     and the hidden states come back in the context's residual layout."""
     if cfg.is_encoder_decoder:
+        # JAX's encode and decode_train take no sharding context: over
+        # ranks both stacks keep the rank's (B_loc, S, d) rows
         frames = batch["frames"].to(DTYPES[cfg.dtype])
-        enc_out = encdec.encode(params.encoder, cfg, frames)
+        enc_out = encdec.encode(params.encoder, cfg, frames, params.mesh)
         xd = _embed(params, cfg, batch["dec_tokens"])
-        return encdec.decode_train(params.decoder, cfg, xd, enc_out,
-                                   _positions(xd)), {}
+        x = encdec.decode_train(params.decoder, cfg, xd, enc_out,
+                                _positions(xd), params.mesh)
+        return (x if shard_ctx is None else shard_ctx.to_residual(x)), {}
     x, positions = _trunk_inputs(params, cfg, batch)
     return transformer.apply_stack(params.units, cfg, x, positions,
                                    shard_ctx=shard_ctx)
@@ -553,21 +540,27 @@ def make_decode_ctx(cfg, serve_cfg, B, mesh=None):
         pages_per_shard=pool // n_shards, mesh=mesh)
 
 
+@torch.no_grad()
 def init_decode_states(params: Model, cfg, B, ctx, kv_dtype=torch.bfloat16,
                        enc_frames=None):
     """Decode states, one a layer, on the params' device: an attention
     layer's zeroed paged KV pools; for ``B`` sequences the zeroed
     recurrent states of a mamba, mLSTM or sLSTM layer.  An encdec model
     encodes ``enc_frames`` (B, S_enc, d) and gives each decoder layer its
-    pools and its cross K/V (``encdec.init_decode_states``)."""
+    pools and its cross K/V (``encdec.init_decode_states``).  On a rank
+    (``ctx.ranked``, a model from ``shard_params``) ``B`` and
+    ``enc_frames`` are its rows (``ctx.local_batch``), which it encodes
+    tensor-parallel, and each state is its block.  Builds no autograd
+    graph."""
     dev = params.embed.device
     if cfg.is_encoder_decoder:
         if enc_frames is None:
             raise ValueError(f"{cfg.name}: an encoder-decoder decode needs "
                              f"enc_frames, the encoder's input")
         enc_out = encdec.encode(params.encoder, cfg,
-                                enc_frames.to(DTYPES[cfg.dtype]))
-        enc_kv = encdec.cross_kv(params.decoder, cfg, enc_out)
+                                enc_frames.to(dev, DTYPES[cfg.dtype]),
+                                params.mesh)
+        enc_kv = encdec.cross_kv(params.decoder, cfg, enc_out, params.mesh)
         return encdec.init_decode_states(cfg, B, ctx, enc_kv, kv_dtype,
                                          device=dev)
     return transformer.init_decode_states(cfg, B, ctx, kv_dtype, device=dev)
@@ -579,10 +572,8 @@ def decode_step(params: Model, cfg, states, tokens, pos, block_table, ctx):
     recurrent layers' new states, encdec's cross K/V) returned.  A vlm
     decodes tokens only, as JAX's does.  On a rank (``ctx.ranked``, a model
     from ``shard_params``) the inputs are its batch group's rows, the
-    states its pool slices and mamba channels, and the logits its
-    vocabulary block; not the ssm and encdec families
-    (``refuse_sharded_decode``)."""
-    refuse_sharded_decode(cfg, ctx.mesh)
+    states its blocks (pool slices, mamba channels, xLSTM heads, cross
+    K/V rows and heads), and the logits its vocabulary block."""
     x = _embed(params, cfg, tokens)
     if cfg.is_encoder_decoder:
         x, new_states = encdec.decode_step_stack(

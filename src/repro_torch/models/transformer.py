@@ -19,8 +19,9 @@ context's mesh is a ``ModelMesh`` of ranks (``DecodeCtx.ranked``): each
 rank appends to and attends over its slice of every pool
 (``paged_kv.append_sharded``, ``decode_attention_sharded``), runs the
 dense and mamba layers tensor-parallel (``distributed/tensor_parallel.py``)
-with its batch group's rows and its channels of every mamba state, and the
-MoE layers expert-stationary (``moe.apply_stationary``).  On one
+with its batch group's rows and its channels of every mamba state, the
+xLSTM layers head-parallel with its heads of every (C, n, m) and (c, n, h,
+m), and the MoE layers expert-stationary (``moe.apply_stationary``).  On one
 device a context of any mesh shape decodes through the gather path, which
 computes what the channels do.  The encoder-decoder family has stacks of
 its own (``models/encdec.py``).
@@ -202,9 +203,9 @@ def _apply_layer(p: Layer, cfg, x, positions, *, causal=True, ctx=None):
     elif hasattr(p, "mamba"):
         sub = mamba.apply(p.mamba, cfg, h, ctx=ctx)
     elif hasattr(p, "mlstm"):
-        sub = xlstm.apply_mlstm(p.mlstm, cfg, h)
+        sub = xlstm.apply_mlstm(p.mlstm, cfg, h, ctx=ctx)
     else:
-        sub = xlstm.apply_slstm(p.slstm, cfg, h)
+        sub = xlstm.apply_slstm(p.slstm, cfg, h, ctx=ctx)
     x = x + sub
     if not hasattr(p, "norm2"):
         return x, aux
@@ -271,12 +272,14 @@ def init_decode_states(cfg, B: int, ctx: DecodeCtx, kv_dtype=torch.bfloat16,
     layer's ``{"conv", "ssm"}`` (``mamba.init_state``), an mLSTM's ``{"C",
     "n", "m"}`` and an sLSTM's ``{"c", "n", "h", "m"}``, float32 zeros.
     On a rank (``ctx.ranked``; ``B`` its rows) a pool is its slice,
-    ``pages_per_shard`` pages, and a mamba state its block of ``d_inner``,
-    as ``steps.decode_state_specs`` places it."""
-    di = cfg.d_inner
+    ``pages_per_shard`` pages, a mamba state its block of ``d_inner`` and
+    an xLSTM state its heads, as ``steps.decode_state_specs`` places
+    them."""
+    di, heads = cfg.d_inner, cfg.num_heads
     if ctx.ranked:
-        di = sharding.local_shape((di,), sharding.spec_for(
-            ctx.mesh, ("mlp",), (di,)), ctx.mesh)[0]
+        di, heads = (sharding.local_shape((n,), sharding.spec_for(
+            ctx.mesh, (axis,), (n,)), ctx.mesh)[0]
+            for axis, n in (("mlp", di), ("heads", heads)))
     states = {"mlstm": xlstm.init_mlstm_state,
               "slstm": xlstm.init_slstm_state}
     out = []
@@ -286,7 +289,7 @@ def init_decode_states(cfg, B: int, ctx: DecodeCtx, kv_dtype=torch.bfloat16,
             out.append(mamba.init_state(cfg, B, device=device, di=di))
             continue
         if kind in states:
-            out.append(states[kind](cfg, B, device=device))
+            out.append(states[kind](cfg, B, device=device, heads=heads))
             continue
         k_pool, v_pool = paged_kv.init_pool(
             ctx.pages_per_shard if ctx.ranked else ctx.pool_pages,
@@ -355,9 +358,9 @@ def _apply_layer_decode(p: Layer, cfg, x, state, block_table, pos, ctx):
     elif hasattr(p, "mamba"):
         sub, state = mamba.decode_step(p.mamba, cfg, state, h, mesh)
     elif hasattr(p, "mlstm"):
-        sub, state = xlstm.decode_mlstm(p.mlstm, cfg, state, h)
+        sub, state = xlstm.decode_mlstm(p.mlstm, cfg, state, h, mesh)
     else:
-        sub, state = xlstm.decode_slstm(p.slstm, cfg, state, h)
+        sub, state = xlstm.decode_slstm(p.slstm, cfg, state, h, mesh)
     x = x + sub
     if not hasattr(p, "norm2"):
         return x, state

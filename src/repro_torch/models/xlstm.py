@@ -15,6 +15,21 @@ a Python loop over time where JAX has ``lax.scan``, one cell step (about
 
 States are stored stabilised, all float32: C_tilde = C*exp(-m), n_tilde =
 n*exp(-m).  GELU is the tanh form, ``jax.nn.gelu``'s default.
+
+Over the ranks of a ``ModelMesh`` both cells are head-parallel (``"heads"``
+on ``"model"``), as JAX's rules place them; both recurrences are
+block-diagonal by head, so a rank runs them on its heads unchanged and no
+collective enters the chunk loop or the sLSTM's time loop.  The mLSTM's
+``wup`` is column-parallel on its 2d outputs, whose halves are ``xm`` and
+the gate ``z``: a rank's block of ``up`` holds only one half's columns, so
+``up`` is all-gathered over ``"model"`` before the split (``q``, ``k``,
+``v`` and the gates contract all of ``xm``), and the rank keeps ``z``'s
+channels of its heads; ``wdown`` is row-parallel.  The sLSTM gathers its
+heads' normed ``h`` once after the loop, and its GLU post-MLP runs
+column-parallel (``up1``, ``up2``) and row-parallel (``down``).  A cell has
+two collectives a call: the gather and the float32 sum of the row-parallel
+partial products (``tensor_parallel.reduce_partial``; in training
+``ShardCtx.leave_tp``).
 """
 from __future__ import annotations
 
@@ -23,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.layers import F32, dense_init_, norm_init_, param, \
     project
 from repro_torch.models.mlp import gelu
@@ -71,12 +87,18 @@ def init_mlstm(cfg, generator: torch.Generator, device=None,
     return p
 
 
-def _mlstm_proj(p: MLSTM, cfg, x):
+def _mlstm_proj(p: MLSTM, cfg, x, mesh=None):
     """x (B,S,d) -> q, k, v (B,H,S,dh) in x's dtype (k scaled by dh^-0.5),
-    log_i, log_f (B,H,S) float32, and the gate z (B,S,d)."""
+    log_i, log_f (B,H,S) float32, and the gate z (B,S,H*dh).  On a rank
+    (``mesh``) the heads are its own, ``up``'s columns are gathered whole
+    before the split, and z holds its heads' channels."""
     dh = cfg.head_dim
     up = project(x, p.wup)
+    if mesh is not None and tp._tp(p.wup, 1, mesh):
+        up = tp.all_gather(up, mesh, tp.TP_AXES, up.dim() - 1)
     xm, z = up.chunk(2, dim=-1)                                   # (B,S,d)
+    if mesh is not None:
+        z = tp.narrow_to(z, -1, p.wq, 1, mesh, unit=dh)
     q = project(xm, p.wq).transpose(1, 2)
     k = project(xm, p.wk).transpose(1, 2) * (dh ** -0.5)
     v = project(xm, p.wv).transpose(1, 2)
@@ -84,6 +106,22 @@ def _mlstm_proj(p: MLSTM, cfg, x):
     log_i = (x32 @ p.wi.to(F32)).transpose(1, 2)
     log_f = F.logsigmoid(x32 @ p.wf.to(F32)).transpose(1, 2)
     return q, k, v, log_i, log_f, z
+
+
+def _rows_of(out, w, mesh):
+    """``out`` (B,S,e), the channels of the heads a rank runs, as the input
+    of the row-parallel ``w``: cut to ``w``'s rows where it is whole (the
+    heads replicated over ``"model"``, ``w`` not), else as it is."""
+    if out.shape[-1] == w.shape[0]:
+        return out
+    return tp.narrow_to(out, -1, w, 0, mesh)
+
+
+def _down(out, w, mesh):
+    """The down projection of ``out`` (B,S,e); on a rank in decode
+    (``mesh``) row-parallel, its partial products summed over ``"model"``
+    in float32."""
+    return tp.reduce_partial(project(_rows_of(out, w, mesh), w), w, 0, mesh)
 
 
 def _head_norm(h, scale, eps):
@@ -142,18 +180,25 @@ def _mlstm_scan(C, n, m, q, k, v, log_i, log_f, L: int):
     return C, n, m, torch.cat(hs, dim=2)
 
 
-def apply_mlstm(p: MLSTM, cfg, x, *, chunk=None):
+def apply_mlstm(p: MLSTM, cfg, x, *, chunk=None, ctx=None):
     """x (B,S,d) -> (B,S,d), chunks of ``min(chunk or cfg.mlstm_chunk, S)``
-    tokens, which must divide S."""
+    tokens, which must divide S.  Over ranks (``ctx``, a bound
+    ``sharding.ShardCtx``; ``p`` the rank's blocks) x enters in the
+    residual layout and is gathered whole along the sequence (the chunk
+    recurrence needs all of it), the rank runs its heads, and ``wdown``'s
+    partial products leave in the residual layout."""
+    mesh = None
+    if ctx is not None:
+        x, mesh = ctx.enter_tp(x), ctx.mesh
     B, S, d = x.shape
-    H, dh = cfg.num_heads, cfg.head_dim
+    H, dh = p.gn_scale.shape
     L = min(chunk or cfg.mlstm_chunk, S)
     if S % L:
         raise ValueError(f"sequence length {S} is not a multiple of the "
                          f"{L}-token mLSTM chunk")
     nc = S // L
     dt = x.dtype
-    q, k, v, log_i, log_f, z = _mlstm_proj(p, cfg, x)
+    q, k, v, log_i, log_f, z = _mlstm_proj(p, cfg, x, mesh)
     q, k, v = q.to(F32), k.to(F32), v.to(F32)
     carry = (torch.zeros((B, H, dh, dh), dtype=F32, device=x.device),
              torch.zeros((B, H, dh), dtype=F32, device=x.device),
@@ -174,23 +219,30 @@ def apply_mlstm(p: MLSTM, cfg, x, *, chunk=None):
     else:
         *_, h = _mlstm_scan(*carry, q, k, v, log_i, log_f, L)
     h = _head_norm(h, p.gn_scale, cfg.norm_eps)
-    h = h.transpose(1, 2).reshape(B, S, d)
-    out = h * F.silu(z.to(F32))
-    return project(out.to(dt), p.wdown)
+    h = h.transpose(1, 2).reshape(B, S, H * dh)
+    out = (h * F.silu(z.to(F32))).to(dt)
+    if ctx is None:
+        return project(out, p.wdown)
+    out = _rows_of(out, p.wdown, mesh)
+    return ctx.leave_tp(project(out, p.wdown), p.wdown, 0)
 
 
-def init_mlstm_state(cfg, B: int, device=None) -> dict:
-    H, dh = cfg.num_heads, cfg.head_dim
+def init_mlstm_state(cfg, B: int, device=None, heads=None) -> dict:
+    """``{"C": (B,H,dh,dh), "n": (B,H,dh), "m": (B,H)}`` float32 zeros;
+    ``heads`` (default all) the heads a rank holds."""
+    H, dh = heads or cfg.num_heads, cfg.head_dim
     return {"C": torch.zeros((B, H, dh, dh), dtype=F32, device=device),
             "n": torch.zeros((B, H, dh), dtype=F32, device=device),
             "m": torch.zeros((B, H), dtype=F32, device=device)}
 
 
-def decode_mlstm(p: MLSTM, cfg, state: dict, x):
-    """Single-token exact recurrence.  x (B,1,d) -> (y (B,1,d), state)."""
+def decode_mlstm(p: MLSTM, cfg, state: dict, x, mesh=None):
+    """Single-token exact recurrence.  x (B,1,d) -> (y (B,1,d), state).  On
+    a rank (``mesh``) ``p`` holds its blocks (the FSDP dimensions gathered)
+    and ``state`` its heads; x and y are whole."""
     B = x.shape[0]
     dt = x.dtype
-    q, k, v, log_i, log_f, z = _mlstm_proj(p, cfg, x)
+    q, k, v, log_i, log_f, z = _mlstm_proj(p, cfg, x, mesh)
     q1, k1, v1 = (t.to(F32)[:, :, 0] for t in (q, k, v))        # (B,H,dh)
     li, lf = log_i[..., 0], log_f[..., 0]                         # (B,H)
     C, n, m = state["C"], state["n"], state["m"]
@@ -206,7 +258,7 @@ def decode_mlstm(p: MLSTM, cfg, state: dict, x):
     h = _head_norm(h, p.gn_scale, cfg.norm_eps)
     h = h.transpose(1, 2).reshape(B, 1, -1)
     out = h * F.silu(z.to(F32))
-    y = project(out.to(dt), p.wdown)
+    y = _down(out.to(dt), p.wdown, mesh)
     return y, {"C": C, "n": n, "m": m_new}
 
 
@@ -287,24 +339,38 @@ def _slstm_cell(r, bg, carry, gx):
     return c_new, n_new, h_new, m_new
 
 
-def _slstm_out(p: SLSTM, cfg, h, dt):
+def _slstm_out(p: SLSTM, cfg, h, dt, mesh=None, ctx=None):
     """h (B,S,H,dh) float32 -> RMS per head, then the GLU post-MLP (the
-    xLSTM sLSTM block) in ``dt`` -> (B,S,d)."""
+    xLSTM sLSTM block) in ``dt`` -> (B,S,d).  On a rank (``mesh``) h holds
+    its heads, gathered whole after the norm (one collective), ``up1`` and
+    ``up2`` are column-parallel and ``down`` row-parallel: its partial
+    products summed in float32 (decode) or leaving through ``ctx`` in the
+    residual layout (training)."""
     B, S = h.shape[:2]
     var = h.square().mean(-1, keepdim=True)
     h = h * torch.rsqrt(var + cfg.norm_eps) * p.gn_scale[None, None]
+    if mesh is not None and tp._tp(p.wg, 2, mesh):
+        h = tp.all_gather(h, mesh, tp.TP_AXES, 2)
     y = h.reshape(B, S, -1).to(dt)
     u = project(y, p.up1)
     g = project(y, p.up2)
     u = u * gelu(g.to(F32)).to(dt)
-    return project(u, p.down)
+    if ctx is not None:
+        return ctx.leave_tp(project(u, p.down), p.down, 0)
+    return _down(u, p.down, mesh)
 
 
-def apply_slstm(p: SLSTM, cfg, x):
+def apply_slstm(p: SLSTM, cfg, x, ctx=None):
     """x (B,S,d) -> (B,S,d); a sequential loop over S (inherently
-    serial)."""
+    serial).  Over ranks (``ctx``) x enters in the residual layout and is
+    gathered whole along the sequence, the loop runs on the rank's heads
+    with no collective inside it, and the output leaves in the residual
+    layout."""
+    mesh = None
+    if ctx is not None:
+        x, mesh = ctx.enter_tp(x), ctx.mesh
     B, S, d = x.shape
-    H, dh = cfg.num_heads, cfg.head_dim
+    H, dh = p.gn_scale.shape
     gx = project(x.to(F32), p.wg)                                 # (B,S,4,H,dh)
     r = _recurrent(p)
     z0 = torch.zeros((B, H, dh), dtype=F32, device=x.device)
@@ -315,19 +381,22 @@ def apply_slstm(p: SLSTM, cfg, x):
     for g in gx.unbind(1):
         carry = _slstm_cell(r, p.bg, carry, g)
         hs.append(carry[2])
-    return _slstm_out(p, cfg, torch.stack(hs, dim=1), x.dtype)
+    return _slstm_out(p, cfg, torch.stack(hs, dim=1), x.dtype, mesh, ctx)
 
 
-def init_slstm_state(cfg, B: int, device=None) -> dict:
-    z = torch.zeros((B, cfg.num_heads, cfg.head_dim), dtype=F32,
+def init_slstm_state(cfg, B: int, device=None, heads=None) -> dict:
+    """``{"c", "n", "h", "m"}``, each (B,H,dh) float32 zeros; ``heads``
+    (default all) the heads a rank holds."""
+    z = torch.zeros((B, heads or cfg.num_heads, cfg.head_dim), dtype=F32,
                     device=device)
     return {"c": z, "n": z, "h": z, "m": z}
 
 
-def decode_slstm(p: SLSTM, cfg, state: dict, x):
-    """One cell step.  x (B,1,d) -> (y (B,1,d), state)."""
+def decode_slstm(p: SLSTM, cfg, state: dict, x, mesh=None):
+    """One cell step.  x (B,1,d) -> (y (B,1,d), state); on a rank
+    (``mesh``) ``state`` holds its heads."""
     gx = project(x[:, 0].to(F32), p.wg)                           # (B,4,H,dh)
     carry = (state["c"], state["n"], state["h"], state["m"])
     c, n, h, m = _slstm_cell(_recurrent(p), p.bg, carry, gx)
-    out = _slstm_out(p, cfg, h[:, None], x.dtype)
+    out = _slstm_out(p, cfg, h[:, None], x.dtype, mesh)
     return out, {"c": c, "n": n, "h": h, "m": m}

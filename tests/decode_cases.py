@@ -15,12 +15,17 @@ Cases, on the ("data", "model") meshes (1, 4) and (2, 2):
     replicate; olmoe-1b-7b at 2 layers on (2, 2) and jamba-v0.1-52b at 4
     (mamba, attention and MoE) on both meshes, their experts stationary
     (the largest all-gather of the MoE archs' steps is kept); internvl2-2b
-    at 2 layers on (1, 4);
-  * ``serve``: ``serve`` of qwen3-8b on both meshes and of jamba on (2, 2)
-    from JAX's parameters, each rank returning its outputs, steps,
-    page-table trace and leaves;
+    at 2 layers on (1, 4); xlstm-1.3b at 2 layers (an sLSTM and an mLSTM,
+    head-parallel) on both meshes; whisper-tiny (2 + 2 layers) on (2, 2)
+    and with 6 heads on (1, 4), whose attention leaves the rules replicate
+    over ``"model"``, both from seeded stub frames (``enc_frames``);
+  * ``serve``: ``serve`` of qwen3-8b on both meshes, of jamba on (2, 2)
+    and of xlstm on (1, 4) from JAX's parameters, each rank returning its
+    outputs, steps, page-table trace and leaves;
   * ``init``: each rank's ``init_params_sharded`` leaves;
-  * ``refuse``: the ssm and encdec families' serve on a mesh of ranks."""
+  * ``refuse``: whisper's ``serve`` on a mesh of ranks, which refuses
+    encoder-decoder archs as on one device (``REFUSED``, the families
+    that would refuse a mesh, is empty)."""
 import os
 import subprocess
 import sys
@@ -44,15 +49,27 @@ LOGITS_CASES = {"qwen3-1x4": ("qwen3-8b", "1x4", {}),
                 "olmoe-2x2": ("olmoe-1b-7b", "2x2", {}),
                 "jamba-1x4": (JAMBA[0], "1x4", JAMBA[1]),
                 "jamba-2x2": (JAMBA[0], "2x2", JAMBA[1]),
-                "internvl2-1x4": ("internvl2-2b", "1x4", {})}
+                "internvl2-1x4": ("internvl2-2b", "1x4", {}),
+                "xlstm-1x4": ("xlstm-1.3b", "1x4", {}),
+                "xlstm-2x2": ("xlstm-1.3b", "2x2", {}),
+                "whisper-2x2": ("whisper-tiny", "2x2", {}),
+                # 6 heads, as published: 6 % 4 != 0 replicates them
+                "whisper-h6-1x4": ("whisper-tiny", "1x4",
+                                   {"num_heads": 6, "num_kv_heads": 6})}
+# stub frames of the encdec cases
+ENC_FRAMES = 24
 SERVE = dict(batch=4, requests=6, max_new=4, horizon=32, page_tokens=8,
              prompt_len=3)
 # name: (arch, mesh, backend, config overrides)
 SERVE_CASES = {"1x4": ("qwen3-8b", "1x4", "perf", {}),
                "2x2": ("qwen3-8b", "2x2", "ref", {}),
-               "jamba-2x2": (JAMBA[0], "2x2", "perf", JAMBA[1])}
+               "jamba-2x2": (JAMBA[0], "2x2", "perf", JAMBA[1]),
+               "xlstm-1x4": ("xlstm-1.3b", "1x4", "perf", {})}
 INIT_ARCH = "qwen3-8b"
-REFUSED = ("xlstm-1.3b", "whisper-tiny")
+# the families that refuse a mesh of ranks: none; the serving loop refuses
+# encoder-decoder archs on any mesh, as on one device
+REFUSED = ()
+ENCDEC_ARCH = "whisper-tiny"
 # threads of the JAX side, one case each
 JAX_THREADS = 8
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -110,6 +127,18 @@ def logits_inputs(name: str):
     n_pages = L["horizon"] // L["pt"]
     bt = grouped_table(MESHES[mesh], L["B"], n_pages, L["B"] * n_pages)
     return arch, mesh, over, tokens, bt
+
+
+def enc_frames(name: str):
+    """The seeded stub frames (B, ENC_FRAMES, d) float32 of an encdec
+    case, else None."""
+    arch, _, over = LOGITS_CASES[name]
+    cfg = torch_config(arch, over)
+    if not cfg.is_encoder_decoder:
+        return None
+    rng = np.random.default_rng(13)
+    return rng.standard_normal(
+        (LOGITS["B"], ENC_FRAMES, cfg.d_model)).astype(np.float32)
 
 
 def torch_config(arch, over):
@@ -174,8 +203,11 @@ def _logits_rank(mm, name, tmp):
         "t", L["horizon"], L["B"], "decode"), kv_page_tokens=L["pt"])
     step, ctx = steps.build_serve_step(cfg, scfg, mesh=mm)
     rows = ctx.local_batch(L["B"])
+    frames = enc_frames(name)
+    kw = {} if frames is None else {
+        "enc_frames": torch.from_numpy(frames[rows])}
     states = model.init_decode_states(params, cfg, rows.stop - rows.start,
-                                      ctx, kv_dtype=torch.float32)
+                                      ctx, kv_dtype=torch.float32, **kw)
     tok = torch.from_numpy(tokens[rows])
     bt_t = torch.from_numpy(bt[rows])
     out, nts = [], []
@@ -249,7 +281,7 @@ def _refuse_rank(mm):
     from repro_torch.configs import smoke_config
     from repro_torch.launch import serve as tserve
     out = {}
-    for arch in REFUSED:
+    for arch in REFUSED + (ENCDEC_ARCH,):
         try:
             tserve.serve(smoke_config(arch), mesh=mm, verbose=False,
                          batch=2, requests=2, max_new=2, horizon=16,
@@ -344,8 +376,10 @@ def logits_case(name):
         "t", L["horizon"], L["B"], "decode"), kv_page_tokens=L["pt"])
     _, jitted, ctx, _ = jsteps.build_serve_step(cfg, scfg, jmeshes[mname])
     params = jtree(arch, over)
+    frames = dc.enc_frames(name)
+    kw = {{}} if frames is None else {{"enc_frames": jnp.asarray(frames)}}
     states = jmodel.init_decode_states(params, cfg, L["B"], ctx,
-                                       kv_dtype=jnp.float32)
+                                       kv_dtype=jnp.float32, **kw)
     fn = jitted(states)
     lg, nts = [], []
     for i in range(L["steps"]):
@@ -356,6 +390,12 @@ def logits_case(name):
         nts.append(np.asarray(nt))
     out[f"logits/{{name}}/logits"] = np.stack(lg)
     out[f"logits/{{name}}/next"] = np.stack(nts)
+    if cfg.is_encoder_decoder:
+        # one state a leaf, stacked by decoder layer
+        for key, a in states.items():
+            for layer, blk in enumerate(np.asarray(a)):
+                out[f"logits/{{name}}/L{{layer}}/{{key}}"] = blk
+        return
     unit = scan_unit_size(cfg)
     for j in range(unit):
         for key, a in states[f"j{{j}}"].items():
@@ -375,8 +415,9 @@ def serve_case(name):
     out[f"serve/{{name}}/steps"] = np.asarray(steps)
 
 
-# every case in a thread of its own, so their compiles overlap; a serve
-# draws its case's parameters, any other config JAX's own
+# every case in a thread of its own, so their compiles overlap, the serves
+# (the longest) first; a serve draws its case's parameters, any other
+# config JAX's own
 serve_params = {{smoke_config(arch).replace(
     dtype="float32", **{{**dc.LAYERS, **over}}): jtree(arch, over)
     for arch, _, _, over in dc.SERVE_CASES.values()}}
@@ -386,8 +427,8 @@ mp.setattr(jmodel, "init_params", lambda c, key: serve_params[c]
            if c in serve_params else init_params(c, key))
 try:
     with ThreadPoolExecutor(THREADS) as ex:
-        jobs = [ex.submit(logits_case, n) for n in dc.LOGITS_CASES]
-        jobs += [ex.submit(serve_case, n) for n in dc.SERVE_CASES]
+        jobs = [ex.submit(serve_case, n) for n in dc.SERVE_CASES]
+        jobs += [ex.submit(logits_case, n) for n in dc.LOGITS_CASES]
         for j in jobs:
             j.result()
 finally:

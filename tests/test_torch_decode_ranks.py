@@ -15,15 +15,20 @@ carry them across with ``params_from_numpy`` and ``shard_params``):
     (qwen3-8b smoke at 2 layers on both meshes, and its 2-KV-head variant,
     whose ``wk``/``wv`` the rules replicate on 4 ranks; olmoe-1b-7b on
     (2, 2), jamba-v0.1-52b at 4 layers on both meshes, internvl2-2b on
-    (1, 4)); the MoE archs' steps gather no expert weight;
+    (1, 4), xlstm-1.3b at 2 layers on both meshes, each rank's blocks of
+    every mLSTM (C, n, m) and sLSTM (c, n, h, m) within 1e-5 of JAX's,
+    whisper-tiny on (2, 2) and with 6 heads on (1, 4), whose attention
+    leaves replicate over ``"model"``, from the same stub frames, each
+    rank's cross ``ek``/``ev`` block within 1e-5 of JAX's); the MoE archs'
+    steps gather no expert weight;
   * ``serve``: every rank's outputs and steps equal JAX's ``serve`` on
-    the same mesh (qwen3-8b on both meshes, jamba on (2, 2)), and every
-    rank's page-table trace (so its block tables), leaves and free lists
-    equal rank 0's;
+    the same mesh (qwen3-8b on both meshes, jamba on (2, 2), xlstm on
+    (1, 4)), and every rank's page-table trace (so its block tables),
+    leaves and free lists equal rank 0's;
   * ``init_params_sharded``: every rank's blocks equal the slices of
     ``init_params`` on the same device;
-  * the ssm and encdec families refuse to decode over ranks, naming
-    ROADMAP item 16b-iii;
+  * no family refuses a mesh; whisper's ``serve`` on a mesh of ranks
+    refuses encoder-decoder archs as on one device (``refuse_encdec``);
   * the CLI's ``--mesh 2 2`` serves from four rank processes.
 float32 on both sides; the tolerance covers the order of the partial
 sums."""
@@ -130,10 +135,17 @@ def test_decode_step_logits_match_jax(name, worlds):
                 assert np.array_equal(got.any(axis=(1, 2, 3)),
                                       jp.any(axis=(1, 2, 3)))
                 continue
-            # a mamba state: the rank's rows and d_inner channels
+            # a recurrent state: the rank's rows and its d_inner channels
+            # (mamba) or heads (xLSTM); the cross K/V its rows and KV heads
+            # where they divide "model"
             axes = steps._STATE_AXES[(key, jp.ndim)]
             spec = sharding.spec_for(dc.MESHES[mesh], axes, jp.shape)
-            assert spec[-1 if key == "conv" else 1] == "model", (key, spec)
+            if key in ("ek", "ev"):
+                assert (spec[2:3] == ("model",)) == \
+                    (cfg.num_kv_heads % dc.MESHES[mesh]["model"] == 0), spec
+            else:
+                assert spec[-1 if key == "conv" else 1] == "model", (key,
+                                                                     spec)
             for r, got in enumerate(res):
                 mm = ModelMesh(dc.MESHES[mesh], r, ranks[r]["coords"][mesh],
                                torch.device("cpu"), "gloo", {})
@@ -159,9 +171,20 @@ def test_decode_step_logits_match_jax(name, worlds):
                       r["collectives"]["by_kind"].items()
                       if k.startswith("all_gather/"))
             assert 0 < big < blocks, (big, blocks)
+    M = dc.MESHES[mesh]["model"]
+    if cfg.is_encoder_decoder:
+        # the heads of every attention leaf on "model" where they divide
+        # it, replicated where they do not (6 heads on 4 ranks)
+        split = cfg.num_heads % M == 0
+        for n in ("encoder.0.attn.wq", "decoder.0.attn.wo",
+                  "decoder.0.cross.wq", "decoder.1.cross.wk"):
+            axis = 0 if n.endswith("wo") else 1
+            assert (specs[n][axis:axis + 1] == ("model",)) == split, n
+            assert shapes[n][axis] == cfg.num_heads // (M if split else 1)
+        assert split == (name != "whisper-h6-1x4")
+        return
     if "units.0.j0.attn.wq" not in specs:
         return
-    M = dc.MESHES[mesh]["model"]
     assert specs["units.0.j0.attn.wq"][1] == "model"
     assert shapes["units.0.j0.attn.wq"][1] == cfg.num_heads // M
     kv_split = cfg.num_kv_heads % M == 0
@@ -211,20 +234,29 @@ def test_init_params_sharded_equals_slices(name, worlds):
 
 
 def test_other_families_refuse_to_decode_over_ranks(worlds):
+    """No family refuses a mesh of ranks: the step builds for every family
+    on a bare shape of more than one shard, and whisper's ``serve`` on a
+    mesh of ranks refuses encoder-decoder archs with the error it gives on
+    one device (the reference's serving loop cannot serve them; whisper
+    decodes over ranks at the library level, ``LOGITS_CASES``)."""
+    from repro_torch.launch import serve as tserve
     _, ranks, _ = worlds
-    assert dc.REFUSED == ("xlstm-1.3b", "whisper-tiny")
+    assert dc.REFUSED == ()
+    cfg = smoke_config(dc.ENCDEC_ARCH)
+    with pytest.raises(ValueError) as one_device:
+        tserve.serve(cfg, device="cpu", verbose=False, batch=2, requests=2,
+                     max_new=2, horizon=16, page_tokens=8)
+    want = f"ValueError: {one_device.value}"
+    assert "enc_frames" in want
     for r in ranks:
-        assert set(r["refuse"]) == set(dc.REFUSED)
-        for arch, msg in r["refuse"].items():
-            assert msg.startswith("NotImplementedError") and "16b-ii" in msg, \
-                (arch, msg)
-    for arch in dc.REFUSED:
+        assert r["refuse"] == {dc.ENCDEC_ARCH: want}
+    for arch in ("xlstm-1.3b", dc.ENCDEC_ARCH):
         cfg = smoke_config(arch)
         scfg = ServeConfig(model=cfg, shape=ShapeConfig("t", 16, 2, "decode"),
                            kv_page_tokens=8)
-        with pytest.raises(NotImplementedError, match="16b-ii"):
-            steps.build_serve_step(cfg, scfg, mesh={"data": 1, "model": 2})
-        steps.build_serve_step(cfg, scfg, mesh={"data": 1, "model": 1})
+        for shape in ({"data": 1, "model": 2}, {"data": 1, "model": 1}):
+            _, ctx = steps.build_serve_step(cfg, scfg, mesh=shape)
+            assert ctx.mesh == shape
 
 
 def test_collectives_are_counted(worlds):

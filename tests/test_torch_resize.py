@@ -21,9 +21,19 @@ from repro_torch.core import layout as tlayout
 
 from model import DictModel
 from test_torch_hashmap import assert_same_state
+from test_torch_paged_kv import jitted_jax_page_table
 
 CPU = "cpu"
 BACKENDS = ("ref", "perf", "area", "bitserial")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jitted_jax():
+    """The JAX hashmap's insert, delete, grow and compact jitted while the
+    file runs (eager JAX compiles every primitive anew, call after call)."""
+    mp = jitted_jax_page_table()
+    yield
+    mp.undo()
 
 
 def jcfg(cfg: HashMemConfig) -> JaxConfig:

@@ -336,29 +336,15 @@ def test_train_step_matches_jax(c, mesh, jax_state):
 
 
 def test_train_step_refuses_a_mesh_of_more_than_one_shard():
-    """A bare shape of more than one shard builds no world; the ssm and
-    encdec families do not train over ranks (item 16b-iii).  Training over
-    a ``ModelMesh`` (the hybrid family's too) is
+    """A bare shape of more than one shard builds no world.  Training over
+    a ``ModelMesh`` (every family's) is
     ``tests/test_torch_train_ranks.py``'s."""
-    from repro_torch.launch.mesh import ModelMesh, mesh_coords
     _, cfg = configs("llama3-8b", "float32")
     steps.build_train_step(cfg, OptimConfig(), {"data": 1, "model": 1})
     with pytest.raises(NotImplementedError, match="ModelMesh"):
         steps.build_train_step(cfg, OptimConfig(), {"data": 2, "model": 1})
     with pytest.raises(NotImplementedError, match="ModelMesh"):
         steps.init_train_state(cfg, OptimConfig(), {"model": 4}, 0, CPU)
-    shape = {"data": 2, "model": 2}
-    mm = ModelMesh(shape, 0, mesh_coords(shape, 0), torch.device(CPU),
-                   "gloo", {})
-    for arch in ("xlstm-1.3b", "whisper-tiny"):
-        c = smoke_config(arch)
-        with pytest.raises(NotImplementedError, match="item 16b-iii"):
-            steps.build_train_step(c, OptimConfig(), mm)
-        with pytest.raises(NotImplementedError, match="item 16b-iii"):
-            steps.init_train_state(c, OptimConfig(), mm, 0)
-        with pytest.raises(NotImplementedError, match="item 16b-iii"):
-            ttrain.train(c, ShapeConfig("t", S, B, "train"), OptimConfig(),
-                         mm, num_steps=1, ckpt_dir=None, verbose=False)
 
 
 # ---------------------------------------------------------------------------

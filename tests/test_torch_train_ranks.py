@@ -22,13 +22,16 @@ both sides start from the same parameters, which the port draws here:
     one-device step (its -100 labels test the global token count);
   * ``--mesh 2 2 --inject-failure-at 2`` restarts once and its losses equal
     a run without the failure;
-  * the ssm and encdec families, and a bare shape of more than one shard,
-    refuse (``tests/test_torch_train.py``).
+  * the xlstm step's collectives do not grow with the sequence (the
+    sLSTM's time loop issues none);
+  * a bare shape of more than one shard refuses
+    (``tests/test_torch_train.py``).
 
 Bounds, those of ``tests/test_torch_train.py``, from what float32
 summation order can do: loss, cross-entropy, grad norm, lr, ``moe_aux`` and
 ``moe_z`` within 1e-5 relative; ``moe_dropped`` exactly; each rank's
-gradient block within 1e-5 of its leaf's largest |g|; the stepped
+gradient block within 1e-5 of its leaf's largest |g| (xlstm's within
+1e-4, its one-device bound: JAX's own mesh runs differ by 1.07e-5); the stepped
 parameters within 1e-5 where |g| >= 1e-6 and within 2 lr everywhere (the
 first AdamW step moves an element with |g| near eps by a sign)."""
 import os
@@ -52,6 +55,11 @@ from repro_torch.models.layers import flatten_tree
 import train_rank_cases as tc
 
 TOL = 1e-5
+# xLSTM's exponential gates amplify float32 rounding (ROADMAP Queue 3):
+# JAX against itself on (2, 2) and (1, 4) against (1, 1) moves the smoke
+# case's sLSTM ``up1`` gradient by 1.07e-5 of its largest, so its
+# gradients take tests/test_torch_train.py's xLSTM bound
+GRAD_TOL = {"xlstm-1.3b": 1e-4}
 CPU = torch.device("cpu")
 
 
@@ -173,12 +181,16 @@ def test_train_step_over_ranks_matches_jax(name, worlds):
             spec = got["specs"][n]
             assert g.shape == sharding.local_shape(wg.shape, spec, mesh)
             assert np.abs(g - block(wg, spec, mesh)).max() <= \
-                TOL * np.abs(wg).max(), (r, n)
+                GRAD_TOL.get(c["arch"], TOL) * np.abs(wg).max(), (r, n)
             for s, params in enumerate(got["params"]):
                 wp = jax_out[f"{name}/params{s}/{path}"]
                 wp = wp if i is None else wp[i]
                 check_params(params[n], block(wp, spec, mesh),
                              block(wg, spec, mesh), lr, (r, n, s))
+        if "final_norm.bias" in got["grads"]:
+            # the loss reads final_norm's scale only, as JAX's
+            assert not np.any(got["grads"]["final_norm.bias"])
+            assert not np.any(jax_out[f"{name}/grads/final_norm/bias"])
 
 
 def test_moe_routes_over_the_mesh(worlds):
@@ -295,6 +307,18 @@ def test_collectives_are_counted_by_kind(worlds):
             assert seen.get(k, 0) > 0, (k, seen)
         assert "reduce_scatter/forward" not in \
             res["qwen3-kv2-1x4"]["collectives"]
+
+
+def test_slstm_loop_issues_no_collective(worlds):
+    """The sLSTM's time loop runs on the rank's heads alone: the xlstm
+    step's collectives, counted by kind and pass, are the same at 4 x 64
+    and 4 x 32 (and some are made)."""
+    _, ranks, _, _, _ = worlds
+    for res in ranks:
+        by_seq = res[tc.SEQ_CASE]["by_seq"]
+        assert list(by_seq) == [tc.S, tc.S // 2]
+        assert by_seq[tc.S] == by_seq[tc.S // 2]
+        assert by_seq[tc.S].get("all_gather/forward", 0) > 0
 
 
 def test_meshes_are_laid_out_row_major(worlds):

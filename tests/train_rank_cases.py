@@ -17,8 +17,15 @@ pads (-100 labels) in rows 0 and 2, from parameters the port draws
   * olmoe-1b-7b with ``moe_impl="ep"`` and with ``"gspmd"`` on (2, 2)
     (the latter's loss also without autograd, its MoE expert-stationary);
   * jamba-v0.1-52b at 4 layers (mamba, attention and MoE; the smoke
-    unit) with ``moe_impl="ep"`` on (2, 2) with ``seq_shard``.
-Then, without JAX: internvl2-2b on (2, 2) from ``init_params_sharded``
+    unit) with ``moe_impl="ep"`` on (2, 2) with ``seq_shard``;
+  * xlstm-1.3b (an sLSTM and an mLSTM, head-parallel) on (2, 2) with
+    ``seq_shard``;
+  * whisper-tiny with 6 heads on (1, 4) with ``seq_shard`` (its attention
+    leaves replicated over ``"model"``; its ``final_norm/bias``, which the
+    loss never reads, gets a zero gradient).
+The xlstm case's loss and gradient also run at 4 x 32, their collectives
+counted by kind at both lengths (``SEQ_CASE``).  Then, without JAX:
+internvl2-2b on (2, 2) from ``init_params_sharded``
 (the test holds it against the port's one-device step), and the
 uninterrupted run the train CLI's ``--mesh 2 2`` restart must follow
 (``CLI``)."""
@@ -46,8 +53,15 @@ CASES = {
     "jamba-ep-2x2": dict(arch="jamba-v0.1-52b",
                          over={"moe_impl": "ep", "num_layers": 4},
                          mesh="2x2", seq_shard=True, comp="none", steps=1),
+    "xlstm-2x2": dict(arch="xlstm-1.3b", over={}, mesh="2x2",
+                      seq_shard=True, comp="none", steps=1),
+    "whisper-h6-1x4": dict(arch="whisper-tiny",
+                           over={"num_heads": 6, "num_kv_heads": 6},
+                           mesh="1x4", seq_shard=True, comp="none", steps=1),
 }
 CKPT_CASE = "qwen3-2x2"
+# the case whose collectives are counted at S and at S / 2
+SEQ_CASE = "xlstm-2x2"
 VLM = dict(arch="internvl2-2b", mesh="2x2", seq_shard=True, seed=0)
 # the train CLI's --mesh 2 2 run (olmoe smoke at its dtypes) and the same
 # run without a failure, here in the world
@@ -178,6 +192,14 @@ def _case_rank(meshes, name, tmp):
             ck.save(1, {"params": params, "opt": opt})
             ck.wait()
     out["collectives"] = _collectives_since(mesh, before)
+    if name == SEQ_CASE:
+        # the loss and gradient alone at the whole and half the sequence
+        out["by_seq"] = {}
+        for seq in (S, S // 2):
+            before = copy.deepcopy(mesh.collectives["by_kind"])
+            step.loss_and_grads(params, {k: v[:, :seq] if v.dim() > 1 else v
+                                         for k, v in batches[0].items()})
+            out["by_seq"][seq] = _collectives_since(mesh, before)
     if name == CKPT_CASE:
         # restored on the other mesh, and the step resumed on this one
         other = meshes["1x4"]
