@@ -87,7 +87,9 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      the allocator, ``probe_perf`` against plain on the table's keys), once
      timed (tokens/s, step ms against its byte bound, page-table host ms,
      ``probe_perf`` launches a step, peak memory) and once profiled (device
-     idle share), all under ``torch.no_grad()``; for phase 15 it keeps the
+     idle share), all under ``torch.no_grad()``, beside the dry-run's
+     record of the same cell (``launch/dryrun.py`` on fake tensors:
+     argument bytes, estimated peak, FLOPs); for phase 15 it keeps the
      float32 logits of 8 teacher-forced steps and a one-wave serve's
      tokens and top logits a step under ``build/decode_ranks``;
  11. trains and checkpoints (``launch/train.py`` ``train``,
@@ -107,7 +109,7 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      a second run resumed from it whose steps 4-5 and final checkpoint
      equal the first run's bit for bit: losses, ms a step, tokens/s, FLOP share of the bf16
      peak, peak memory, checkpoint seconds, and the device idle share over
-     a profiled step;
+     a profiled step, beside the dry-run's record of the step;
  12. runs the moe and hybrid families: (a) ``moe.apply`` of olmoe-1b-7b,
      jamba-v0.1-52b and llama4-maverick-400b-a17b at ``smoke_config``
      (learned and hash routing, capacity_factor 0.25 with drops) and jamba's
@@ -177,8 +179,11 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      rank, peak a rank), the tokens against phase 10's one-card run of the
      same settings (where they differ, the one-card margin at the first
      divergence must be within the bfloat16 rounding bound ``TopLogits``
-     states); (c) with four cards, (b) again over NCCL, a card a rank; the
-     ``kernels`` line adds every rank's launches;
+     states), every rank's collectives equal, call for call and byte for
+     byte by kind, to the steps times the dry-run's ``RecordingMesh``
+     trace of one serve step of the cell; (c) with four cards, (b) again
+     over NCCL, a card a rank; the ``kernels`` line adds every rank's
+     launches;
  16. trains over ("data", "model") meshes of 4 rank processes (gloo with
      every rank on the one card): (a) qwen3-8b at ``smoke_config`` widths,
      2 layers, float32, on (2, 2) with ``seq_shard`` (2 steps), with 2 KV
@@ -242,9 +247,13 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      float32 training step on (2, 2) at phase 13(c)'s shape (loss and grad
      norm within 1e-5 relative, ``final_norm/bias`` zero); (d)
      xlstm-1.3b's 8-layer cut trained one float32 step at 4 x 256 on (2, 2)
-     with ``seq_shard`` (loss within 1e-5 relative of one card's; ms, the
-     collectives by kind and pass, the same at 4 x 64; the sLSTM's host
-     share); the ``kernels`` line adds every rank's launches;
+     with ``seq_shard`` (loss within 1e-5 relative of one card's; every
+     leaf's gradient block against one card's: the step run in float64
+     within 1e-4 of the leaf's largest, the float32 step within the larger
+     of 1e-4 and 4 times the most a one-ulp move of the parameters moves
+     that leaf of one card's gradient; ms, the collectives by kind and
+     pass, the same at 4 x 64; the sLSTM's host share); the ``kernels``
+     line adds every rank's launches;
  19. prints the device line last.
 
 Any failed check raises and the script exits non-zero.  Without a card, or
@@ -266,17 +275,25 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    # the card's rates and the bounds of a step, kept with the dry-run
+    from repro_torch.launch.dryrun import (BF16_RATE, HBM_RATE,
+                                           decode_bound, train_flops)
+except ModuleNotFoundError as e:
+    sys.exit(f"chip_smoke: {e}: src/repro_torch not found beside "
+             f"{Path(__file__).name}; run it from the root of a checkout")
 N_BUILD = 100_000_000            # PAPER_WORKLOAD["num_pairs"]
 N_HELD = 1_000_000               # generated beyond the build, inserted later
 N_DELETE = 1_000_000
 TIMED_RUNS = 7
 KERNELS = ("probe_perf", "probe_area", "probe_bitserial")
 
-# The card the port targets, the H100 SXM (NVIDIA data sheet): its memory
-# rate in bytes/s, and its 67 TFLOP/s non-tensor float32 rate, which bounds
-# the probes' 32-bit compares.  Memory moves in 32-byte sectors.
+# The card the port targets, the H100 SXM (NVIDIA data sheet): its 67
+# TFLOP/s non-tensor float32 rate, which bounds the probes' 32-bit
+# compares (its memory and bf16 rates are ``dryrun.HBM_RATE`` and
+# ``BF16_RATE``).  Memory moves in 32-byte sectors.
 CARD = "H100 80GB HBM3"
-HBM_RATE = 3.35e12
 ALU32_RATE = 67e12
 SECTOR = 32
 
@@ -1882,7 +1899,6 @@ DECODE_SERVE = dict(batch=16, horizon=4096, page_tokens=32, requests=32,
                     prompt_len=8, max_new=16, backend="perf")
 DECODE_CHECKED = DECODE_SERVE
 DECODE_PROFILE = dict(DECODE_SERVE, requests=16, prompt_len=4, max_new=2)
-BF16_RATE = 989e12               # dense bf16 tensor-core rate (data sheet)
 # phase 15 against phase 10: the float32 teacher-forced logits of the first
 # 8 steps of DECODE_TF (16 until PR 25, cut for time), and a one-wave serve
 # whose top logits are kept
@@ -2213,34 +2229,27 @@ def check_served(cfg, done, mgr, kw, what):
           f"{what}: an arena is not full after the drain")
 
 
-def decode_bound(cfg, kw):
-    """(bound ms, weight bytes, KV bytes, recurrent state bytes) of one
-    decode step of ``serve(cfg, **kw)``: every weight read once as stored,
-    every attention layer's KV pools once (the gather path reads whole
-    block tables), every recurrent state read and written once (a mamba
-    layer's conv and SSM states, an mLSTM's float32 (C, n, m), an sLSTM's
-    (c, n, h, m)); against the operations of 2 x batch x the parameters
-    plus an mLSTM step's state products (k v^T, q C: 4 dh^2 a head) at the
-    bf16 rate."""
-    from repro_torch.models import model, transformer
-    meta = model.Model(cfg, "meta")
-    n_params = sum(p.numel() for p in meta.parameters())
-    w_bytes = sum(p.numel() * p.element_size() for p in meta.parameters())
-    B, pt = kw["batch"], kw["page_tokens"]
-    n_pages = kw["horizon"] // pt
-    kinds = [transformer.layer_kind(cfg, i) for i in range(cfg.num_layers)]
-    H, dh = cfg.num_heads, cfg.head_dim
-    kv_bytes = 2 * kinds.count("attn") * B * n_pages * pt \
-        * cfg.num_kv_heads * cfg.head_dim * 4
-    state_bytes = 2 * B * (
-        kinds.count("mamba") * cfg.d_inner * (
-            cfg.ssm_state_dim * 4 + (cfg.ssm_conv_width - 1) * 2)
-        + kinds.count("mlstm") * H * (dh * dh + dh + 1) * 4
-        + kinds.count("slstm") * 4 * H * dh * 4)
-    ops = 2 * B * n_params + kinds.count("mlstm") * B * H * 4 * dh * dh
-    bound_ms = max((w_bytes + kv_bytes + state_bytes) / HBM_RATE,
-                   ops / BF16_RATE) * 1e3
-    return bound_ms, w_bytes, kv_bytes, state_bytes
+def dryrun_line(label, traced, peak_gib, step_ms, smi):
+    """Print the dry-run's record of a phase's own cut cell (one device,
+    traced on fake tensors: ``dryrun.trace_decode``/``trace_train``)
+    beside what the card measured: its peak memory and its median step."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.analyze(traced, {})
+    gib = {k: rec[f"{k}_bytes"] / 2**30
+           for k in ("params", "opt", "state", "batch")}
+    est = rec["peak_memory_in_bytes"] / 2**30
+    print(f"{label}: the dry-run's record of this cell (one device, fake "
+          f"tensors, traced in {rec['trace_s']:.1f} s): arguments "
+          f"{rec['argument_size_in_bytes'] / 2**30:.3f} GiB (parameters "
+          f"{gib['params']:.3f}, optimizer {gib['opt']:.3f}, states "
+          f"{gib['state']:.3f}, batch {gib['batch']:.6f}), estimated peak "
+          f"{est:.3f} GiB against the measured {peak_gib:.3f} GiB "
+          f"({est / peak_gib * 100:.1f}%); {rec['flops_per_device']:.4e} "
+          f"FLOPs a step (matmuls), "
+          f"{rec['flops_per_device'] / (step_ms / 1e3) / 1e12:.1f} TFLOP/s "
+          f"at the measured median step of {step_ms:.3f} ms; "
+          f"{rec['bytes_per_device'] / 1e9:.3f} GB of eager op traffic; "
+          f"card: {smi}")
 
 
 class TopLogits:
@@ -2298,8 +2307,9 @@ def rank_reference_serve(serve, k, cfg):
 
 def decode_path(k, ref, smi):
     """Phase 10: LM decode serving over the HashMem page table."""
+    import torch
     from repro_torch import configs
-    from repro_torch.launch import serve
+    from repro_torch.launch import dryrun, serve
     t0 = time.perf_counter()
     small_launches = check_small_decode_vs_cpu(k)
     t1 = time.perf_counter()
@@ -2347,6 +2357,11 @@ def decode_path(k, ref, smi):
           f"= {launches / steps:.4f} a step; grows {mgr.grow_events}, "
           f"compactions {mgr.compact_events}; peak {peak:.2f} GiB; "
           f"card: {smi}")
+    dryrun_line("decode_dryrun", dryrun.trace_decode(
+        cfg, configs.ServeConfig(model=cfg, shape=configs.ShapeConfig(
+            "serve", DECODE_SERVE["horizon"], B, "decode"),
+            kv_page_tokens=pt), None, kv_dtype=torch.float32), peak, med,
+        smi)
 
     rank_reference_serve(serve, k, cfg)
 
@@ -2608,56 +2623,6 @@ def kernel_groups(prof) -> dict:
     return out
 
 
-def train_flops(cfg, B, S):
-    """(matmul FLOPs of one remat train step, attention and mLSTM FLOPs,
-    parameters, active parameters): 8 x the parameters of every matmul
-    (forward, its recompute, and a backward of twice the forward) x the
-    tokens it takes, plus 4 passes of QK^T and PV on each attention layer
-    (causal: the scores at or below the diagonal, inside the window; an
-    encoder layer: all S^2; a cross-attention: S_dec x S_enc) and of each
-    mLSTM chunk's products (QK^T and the decayed PV over the chunk, q C and
-    the state update k^T v: 4 L dh + 4 dh^2 a token and head).  A dense
-    matmul, the router and a shared expert take every token; a routed
-    expert's weights take the C capacity-padded rows of its buffer (T k cf
-    / E tokens), which it computes whether a pair fills them or not.
-    Encdec: S frames and min(512, S) decoder tokens; the encoder's weights
-    and the cross K/V projections take the frames, the rest the decoder
-    tokens, the tied embedding the logits.  The embedding (a gather),
-    mamba's depthwise conv and A_log, and the norm scales and gate biases
-    are not matmuls."""
-    from repro_torch.models import model, moe, transformer
-    meta = model.Model(cfg, "meta")
-    n_params = sum(p.numel() for p in meta.parameters())
-    Sd = min(512, S) if cfg.is_encoder_decoder else S
-    T, Td = B * S, B * Sd
-    C = moe._capacity(cfg, T) if cfg.num_experts else 0
-    mm = 0
-    for n, p in meta.named_parameters():
-        leaf = n.split(".")[-1]
-        if n == "embed" and cfg.tie_embeddings:
-            mm += 8 * p.numel() * Td                 # the logits
-            continue
-        if p.dim() < 2 or n == "embed" or \
-                leaf in ("conv_w", "A_log", "gn_scale", "bg"):
-            continue
-        routed = ".ffn_moe." in n and ".shared." not in n and \
-            leaf != "router"
-        frames = n.startswith("encoder.") or ".cross.wk" in n or \
-            ".cross.wv" in n
-        mm += 8 * p.numel() * (C if routed else T if frames else Td)
-    per_pair = 4 * 2 * 2 * B * cfg.num_heads * cfg.head_dim
-    kinds = [transformer.layer_kind(cfg, i) for i in range(cfg.num_layers)]
-    w = min(cfg.sliding_window or Sd, Sd)
-    pairs = sum(min(i + 1, w) for i in range(Sd)) * kinds.count("attn")
-    if cfg.is_encoder_decoder:
-        pairs += cfg.num_encoder_layers * S * S + cfg.num_layers * Sd * S
-    L, dh = min(cfg.mlstm_chunk, S), cfg.head_dim
-    mlstm = 4 * kinds.count("mlstm") * T * cfg.num_heads * (
-        4 * L * dh + 4 * dh * dh)
-    return mm, per_pair * pairs + mlstm, n_params, \
-        model.count_params(cfg, active_only=True)
-
-
 def train_full_width(smi):
     """(d) h2o-danube-1.8b at its published widths, ``TRAIN_FULL``'s depth
     (random init from seed 0 on the card; params float32, activations
@@ -2675,6 +2640,7 @@ def train_full_width(smi):
     from repro_torch import configs
     from repro_torch.data import SyntheticLMData
     from repro_torch.distributed import steps
+    from repro_torch.launch import dryrun
     from repro_torch.launch.train import train
     f = TRAIN_FULL
     cfg = configs.get_config(TRAIN_ARCH).replace(num_layers=f["depth"])
@@ -2777,6 +2743,8 @@ def train_full_width(smi):
           f"{share * 100:.2f}% of the {BF16_RATE / 1e12:.0f} TFLOP/s bf16 "
           f"dense peak; peak memory {peak:.2f} GiB; run {run_a:.1f} s; "
           f"card: {smi}")
+    dryrun_line("train_dryrun", dryrun.trace_train(cfg, oc, shape), peak,
+                med, smi)
     print(f"train_ckpt: {state_gb:.3f} GB a checkpoint; snapshot to host "
           f"{snap:.3f} s ({state_gb / snap:.2f} GB/s); writes (.npy, sha256, "
           f"fsync, rename; {len(writes)} of them) "
@@ -4627,6 +4595,46 @@ def first_divergence(ref, outs, prompt_len):
     return out
 
 
+def check_recorded_serve(papers, label, smi):
+    """(b)'s collectives on every rank against the dry-run's: a
+    ``RecordingMesh``'s trace of one serve step of the same cell
+    (``dryrun.trace_decode``: Qwen3-8B at its published widths,
+    ``DECODE_RANK_SERVE``'s batch, horizon and pages, float32 pools, the
+    vocabulary block's logits) on the first and the last rank; its calls
+    and bytes by kind, times the steps served, must be what each rank's
+    gloo or NCCL mesh counted."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import recording_mesh
+    kw = DECODE_RANK_SERVE
+    cfg = configs.get_config(DECODE_ARCH)
+    scfg = configs.ServeConfig(model=cfg, shape=configs.ShapeConfig(
+        "serve", kw["horizon"], kw["batch"], "decode"),
+        kv_page_tokens=kw["page_tokens"])
+    t0 = time.perf_counter()
+    for r in (0, RANKS - 1):
+        tr = dryrun.trace_decode(cfg, scfg, recording_mesh(
+            DECODE_MESHES[DECODE_RANK_MESH], r), kv_dtype=torch.float32)
+        step = {k: (v["calls"], v["bytes"])
+                for k, v in tr.counts.by_kind.items()}
+        for q, p in enumerate(papers):
+            n = p["steps"]
+            got = {k: (v["calls"], v["bytes"])
+                   for k, v in p["collectives"]["by_kind"].items()}
+            check(got == {k: (c * n, b * n) for k, (c, b) in step.items()},
+                  f"{label}: rank {q}'s collectives over {n} steps {got} "
+                  f"are not {n} x the RecordingMesh's step of rank {r} "
+                  f"{step}")
+    print(f"{label}_recorded: the dry-run's RecordingMesh trace of one "
+          f"serve step on ranks 0 and {RANKS - 1} (fake tensors, "
+          f"{time.perf_counter() - t0:.1f} s) counts every rank's "
+          f"collectives a step, call for call and byte for byte by kind: "
+          + ", ".join(f"{k} {c} x {b / max(c, 1) / 1e6:.3f} MB"
+                      for k, (c, b) in sorted(step.items()))
+          + f"; card: {smi}")
+
+
 def check_paper_ranks(outs, label, smi, one_card_ms):
     """(b): the float32 logits, the served tokens against phase 10's
     reference, and the timing line."""
@@ -4664,6 +4672,7 @@ def check_paper_ranks(outs, label, smi, one_card_ms):
     gen = kw["requests"] * kw["max_new"]
     wall = max(p["wall"] for p in papers)
     colls = [p["collectives"] for p in papers]
+    check_recorded_serve(papers, label, smi)
     tf = papers[0]["tf"]
     print(f"{label}_tf {DECODE_ARCH}: {DECODE_RANK_TF} teacher-forced steps "
           f"x {DECODE_TF[0]} sequences in float32 on {DECODE_RANK_MESH}, "
@@ -5868,6 +5877,20 @@ WHISPER_RANK_TRAIN = dict(WHISPER_TRAIN, steps=1, mesh="2x2")
 # seq_shard; the collectives of its loss and gradient counted again at
 # 4 x 64
 XLSTM_RANK_TRAIN = dict(depth=8, seq=256, batch=4, mesh="2x2")
+# (d)'s one-card gradients, every leaf whole, which each rank holds its
+# blocks against, leaf by leaf.  The step run in float64 (``float64_mode``:
+# every float32 tensor of it made float64) within SSM_RANK_GRAD_TOL of the
+# leaf's largest: there the ranks' sums in another order round 2^29 times
+# finer than in float32 (the worst leaf 8.9e-12; NVIDIA H100 80GB HBM3),
+# while a wrong term (a shard boundary, a missing block) would stay as
+# large.  The float32 step within XLSTM_RANK_SENS times the leaf's own
+# conditioning, where that exceeds SSM_RANK_GRAD_TOL: the most a one-ulp
+# move of every parameter (``one_ulp``, over XLSTM_RANK_ULP_DRAWS seeded
+# draws) moves that leaf of one card's gradient (5.5e-5 to 1.4e-2 of a
+# leaf's largest; the ranks' leaves at most 1.26 times it)
+XLSTM_RANK_GRADS = XLSTM_RANK_DATA / "xtrain_grads.pt"
+XLSTM_RANK_GRADS64 = XLSTM_RANK_DATA / "xtrain_grads64.pt"
+XLSTM_RANK_ULP_DRAWS = 3
 
 
 class LayerTape:
@@ -6017,22 +6040,109 @@ def xlstm_rank_batch(cfg, seq, device):
 
 def xlstm_train_reference():
     """(d) on one card: the cut's loss and grad norm of one float32 step
-    from ``init_params(cfg, 0)``, TF32 off, and its ms."""
+    from ``init_params(cfg, 0)``, TF32 off, and its ms; its gradient,
+    every leaf whole, saved to ``XLSTM_RANK_GRADS`` for the ranks; each
+    leaf's one-ulp sensitivity (the most over ``XLSTM_RANK_ULP_DRAWS``
+    draws); and the loss and gradient of the same step in float64
+    (``float64_mode``), saved to ``XLSTM_RANK_GRADS64``."""
     import torch
     from repro_torch import configs
     from repro_torch.distributed import steps
     from repro_torch.models import model
     cfg = xlstm_rank_train_config()
     oc = configs.OptimConfig(lr=3e-4, warmup_steps=1, total_steps=1)
-    params = model.init_params(cfg, 0, "cuda")
-    opt = steps.init_opt_state(params, oc)
     step = steps.build_train_step(cfg, oc)
     batch = xlstm_rank_batch(cfg, XLSTM_RANK_TRAIN["seq"], "cuda")
-    (_, _, m), step_s = host_s(lambda: step(params, opt, batch))
-    del params, opt, batch
+    moved_g = []
+    for seed in range(XLSTM_RANK_ULP_DRAWS):
+        moved = model.init_params(cfg, 0, "cuda")
+        one_ulp(moved, seed)
+        moved_g.append(step.loss_and_grads(moved, batch)[2])
+        del moved
+    params = model.init_params(cfg, 0, "cuda")
+    opt = steps.init_opt_state(params, oc)
+    grads = None
+
+    def one_step():
+        nonlocal grads
+        loss, metrics, grads = step.loss_and_grads(params, batch)
+        _, _, stats = step.apply_grads(params, opt, grads)
+        return {"loss": loss, **metrics, **stats}
+    m, step_s = host_s(one_step)
+    sens = {k: max(float((mg[k] - g).abs().max()) for mg in moved_g)
+            / max(float(g.abs().max()), 1e-30) for k, g in grads.items()}
+    XLSTM_RANK_DATA.mkdir(parents=True, exist_ok=True)
+    torch.save({k: g.cpu() for k, g in grads.items()}, XLSTM_RANK_GRADS)
+    del params, opt, grads, moved_g
+    with float64_mode():
+        step64 = steps.build_train_step(cfg, oc)
+        loss64, _, g64 = step64.loss_and_grads(
+            model.init_params(cfg, 0, "cuda"), batch)
+    check(all(g.dtype == torch.float64 for g in g64.values()),
+          "xlstm ranks training: float64_mode left a gradient leaf in "
+          "another type")
+    torch.save({k: g.cpu() for k, g in g64.items()}, XLSTM_RANK_GRADS64)
+    del batch, g64
     torch.cuda.empty_cache()
     return dict(metrics={k: float(v) for k, v in m.items()},
-                ms=step_s * 1e3)
+                ms=step_s * 1e3, sens=sens, loss64=float(loss64))
+
+
+def one_ulp(params, seed: int):
+    """Move every parameter element by one float32 ulp, up or down by a
+    random sign drawn from ``seed``: a gradient taken there against the
+    one taken at the draw is the float32 conditioning of the step's
+    gradient."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for p in params.parameters():
+            up = torch.randint(0, 2, p.shape, generator=g, device="cuda")
+            p.copy_(torch.nextafter(p, torch.where(
+                up.bool(), float("inf"), float("-inf")).to(p.dtype)))
+
+
+def float64_mode():
+    """A context in which every op that would make a float32 tensor makes
+    it float64, and the default type is float64: a float32 step run in
+    float64, its backward and its remat recompute included (a dispatch
+    mode, which the autograd engine keeps in its threads)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Float64(TorchDispatchMode):
+        def __enter__(self):
+            self.default = torch.get_default_dtype()
+            torch.set_default_dtype(torch.float64)
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            torch.set_default_dtype(self.default)
+            return super().__exit__(*exc)
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if kwargs.get("dtype") is torch.float32:
+                kwargs = dict(kwargs, dtype=torch.float64)
+            return func(*args, **kwargs)
+    return Float64()
+
+
+def grad_errors(grads, params, mesh, path) -> dict:
+    """{leaf: the largest |difference| of this rank's gradient block from
+    its block of the one-card gradient saved at ``path``, over that
+    leaf's largest |g|}."""
+    import torch
+    from repro_torch.distributed import sharding
+    want = torch.load(path, mmap=True)
+    specs = {k: p.spec for k, p in params.named_parameters()}
+    out = {}
+    for k, g in grads.items():
+        w = want[k]
+        blk = sharding.local_block(w, specs[k], mesh).to(g.device)
+        scale = max(float(w.abs().max()), 1e-30)
+        out[k] = float((g - blk).abs().max()) / scale
+    return out
 
 
 def rank_xlstm_decode(mesh, k):
@@ -6227,12 +6337,14 @@ def rank_xlstm_train(mesh):
     ``init_train_state`` (the one-card draw's blocks) through the train
     step on ``mesh`` with ``seq_shard``, timed, the sLSTM's host time
     metered, its collectives by kind and pass (its loss and gradient's
-    apart); then the collectives of the loss and gradient at 4 x 64, which
-    equal the step's at 4 x 256 (the sLSTM's loop issues none, so they do
-    not grow with the sequence)."""
+    apart); the loss and gradient of the same draw in float64
+    (``float64_mode``); then the collectives of the loss and gradient at
+    4 x 64, which equal the step's at 4 x 256 (the sLSTM's loop issues
+    none, so they do not grow with the sequence)."""
     import torch
     from repro_torch import configs
     from repro_torch.distributed import steps
+    from repro_torch.models import model
     cfg = xlstm_rank_train_config()
     f = XLSTM_RANK_TRAIN
     oc = configs.OptimConfig(lr=3e-4, warmup_steps=1, total_steps=1)
@@ -6246,26 +6358,38 @@ def rank_xlstm_train(mesh):
 
     def timed_step():
         # the step's halves, its loss and gradient counted apart
-        nonlocal grad_calls
+        nonlocal grad_calls, grads
         b0 = collective_counts(mesh)
         loss, metrics, grads = step.loss_and_grads(params, batch)
         grad_calls = calls(b0)
         p, o, stats = step.apply_grads(params, opt, grads)
         return p, o, {"loss": loss, **metrics, **stats}
-    grad_calls = None
+    grad_calls = grads = None
     before = collective_counts(mesh)
     with SlstmMeter() as sm:
         (params, opt, m), step_s = host_s(timed_step)
     coll = collectives_since(mesh, before)
+    grad_err = grad_errors(grads, params, mesh, XLSTM_RANK_GRADS)
+    del grads
+    peak = torch.cuda.max_memory_allocated(mesh.device) / 2**30
+    with float64_mode():
+        p64 = model.init_params_sharded(cfg, 0, mesh)
+        loss64, _, g64 = steps.build_train_step(
+            cfg, oc, mesh, seq_shard=True).loss_and_grads(p64, batch)
+    check(all(g.dtype == torch.float64 for g in g64.values()),
+          "xlstm ranks training: float64_mode left a gradient leaf in "
+          "another type")
+    grad_err64 = grad_errors(g64, p64, mesh, XLSTM_RANK_GRADS64)
+    del p64, g64
     short = f["seq"] // 4
     before = collective_counts(mesh)
     step.loss_and_grads(params, xlstm_rank_batch(cfg, short, "cpu"))
     by_seq = {f["seq"]: grad_calls, short: calls(before)}
     out = dict(metrics={k: float(v) for k, v in m.items()}, ms=step_s * 1e3,
-               coll=coll, by_seq=by_seq,
+               coll=coll, by_seq=by_seq, grad_err=grad_err,
+               loss64=float(loss64), grad_err64=grad_err64,
                slstm_s=sum(sm.fwd_s) + sum(sm.bwd_s),
-               slstm_calls=(len(sm.fwd_s), len(sm.bwd_s)),
-               peak=torch.cuda.max_memory_allocated(mesh.device) / 2**30)
+               slstm_calls=(len(sm.fwd_s), len(sm.bwd_s)), peak=peak)
     del params, opt
     torch.cuda.empty_cache()
     return out
@@ -6480,17 +6604,43 @@ def check_whisper_ranks(ref, outs, smi):
 
 def check_xlstm_train_ranks(ref, outs, smi):
     """(d): the loss against the cut's one-card step, the same on every
-    rank; the collectives the same at half the sequence; the figures."""
+    rank; every rank's gradient blocks, leaf by leaf, in float64 within
+    ``SSM_RANK_GRAD_TOL`` of one card's and in float32 within their leaf's
+    bound (``XLSTM_RANK_SENS`` times its one-ulp sensitivity, at least
+    ``SSM_RANK_GRAD_TOL``); the collectives the same at a quarter of
+    the sequence; the figures."""
     want = ref["metrics"]
+    tol = SSM_RANK_GRAD_TOL[XLSTM_ARCH]
+    bound = {k: max(tol, XLSTM_RANK_SENS * v)
+             for k, v in ref["sens"].items()}
     for r, o in enumerate(outs):
         x = o["xtrain"]
-        check(abs(x["metrics"]["loss"] - want["loss"]) <= TRAIN_RANK_TOL
-              * abs(want["loss"]), f"xlstm ranks training: rank {r}'s loss "
-              f"{x['metrics']['loss']} against one card's {want['loss']}")
+        for key, got, one in (("loss", x["metrics"]["loss"], want["loss"]),
+                              ("float64 loss", x["loss64"], ref["loss64"])):
+            check(abs(got - one) <= TRAIN_RANK_TOL * abs(one),
+                  f"xlstm ranks training: rank {r}'s {key} {got} against "
+                  f"one card's {one}")
         seqs = list(x["by_seq"])
         check(x["by_seq"][seqs[0]] == x["by_seq"][seqs[1]],
               f"xlstm ranks training: rank {r}'s collectives grow with the "
               f"sequence: {x['by_seq']}")
+        bad = {k: e for k, e in x["grad_err64"].items() if e > tol}
+        check(not bad, f"xlstm ranks training: rank {r}'s float64 gradient "
+              f"blocks off one card's by more than {tol:g} of the leaf's "
+              f"largest: {bad}")
+        bad = {k: (e, bound[k]) for k, e in x["grad_err"].items()
+               if e > bound[k]}
+        check(not bad, f"xlstm ranks training: rank {r}'s float32 gradient "
+              f"blocks past their leaf's bound (error, bound): {bad}")
+    errs = [(e, r, k) for r, o in enumerate(outs)
+            for k, e in o["xtrain"]["grad_err"].items()]
+    worst64, worst64_r, worst64_k = max(
+        (e, r, k) for r, o in enumerate(outs)
+        for k, e in o["xtrain"]["grad_err64"].items())
+    worst, worst_r, worst_k = max(errs)
+    ratio, ratio_r, ratio_k = max((e / ref["sens"][k], r, k)
+                                  for e, r, k in errs)
+    sens = sorted(ref["sens"].values())
     x = outs[0]["xtrain"]
     f = XLSTM_RANK_TRAIN
     cfg = xlstm_rank_train_config()
@@ -6502,7 +6652,16 @@ def check_xlstm_train_ranks(ref, outs, smi):
           f"card {want['loss']:.6f}, "
           f"{abs(x['metrics']['loss'] - want['loss']) / want['loss']:.3e} "
           f"apart; grad norm {x['metrics']['grad_norm']:.6f}, one card "
-          f"{want['grad_norm']:.6f}); "
+          f"{want['grad_norm']:.6f}); every rank's gradient block of all "
+          f"{len(x['grad_err'])} leaves against one card's, over the "
+          f"leaf's largest: in float64 the worst {worst64:.3e} "
+          f"({worst64_k}, rank {worst64_r}; bound {tol:g}; loss "
+          f"{x['loss64']:.12f}, one card {ref['loss64']:.12f}); in float32 "
+          f"the worst {worst:.3e} ({worst_k}, rank {worst_r}), and over its "
+          f"leaf's one-ulp move (the most of {XLSTM_RANK_ULP_DRAWS} draws; "
+          f"the leaves' moves {sens[0]:.3e}-{sens[-1]:.3e}, median "
+          f"{sens[len(sens) // 2]:.3e}) at most {ratio:.3f} ({ratio_k}, "
+          f"rank {ratio_r}; bound {XLSTM_RANK_SENS:g}); "
           f"{max(o['xtrain']['ms'] for o in outs):.1f} ms a step (one card "
           f"{ref['ms']:.1f} ms); the sLSTM's host time {x['slstm_s']:.3f} s "
           f"= {x['slstm_s'] / (x['ms'] / 1e3) * 100:.1f}% of rank 0's step "
@@ -6577,10 +6736,6 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the card and has no CPU mode")
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        fail(f"src/repro_torch not found beside {Path(__file__).name}; run it "
-             "from the root of a checkout")
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import serving
     from repro_torch.configs import PAPER_HASHMEM, HashMemConfig
     from repro_torch.core import hashmap

@@ -2,8 +2,9 @@
 
 ``HashMemConfig`` and the paper's tables (``PAPER_HASHMEM``,
 ``SCALED_HASHMEM``, ``PAPER_WORKLOAD``); the model zoo's ``ModelConfig``s
-with the ``--arch`` registry (``get_config``, ``smoke_config``); the shape
-regimes ``SHAPES``, ``OptimConfig``, ``TrainConfig`` and ``ServeConfig``.
+with the ``--arch`` registry (``get_config``, ``smoke_config``) and the
+assigned (arch x shape) cells (``cells``); the shape regimes ``SHAPES``,
+``OptimConfig``, ``TrainConfig`` and ``ServeConfig``.
 The port keeps its own copy so it never imports the JAX package.
 """
 from __future__ import annotations
@@ -15,10 +16,10 @@ from repro_torch.configs.base import (PAPER_WORKLOAD, SHAPES, HashMemConfig,
                                       ServeConfig, ShapeConfig, TrainConfig)
 from repro_torch.configs.hashmem_paper import PAPER_HASHMEM, SCALED_HASHMEM
 
-__all__ = ["ARCHS", "HashMemConfig", "MeshConfig", "ModelConfig",
-           "OptimConfig", "PAPER_HASHMEM", "PAPER_WORKLOAD", "SCALED_HASHMEM",
-           "SHAPES", "ServeConfig", "ShapeConfig", "TrainConfig",
-           "get_config", "smoke_config"]
+__all__ = ["ARCHS", "HashMemConfig", "LONG_CONTEXT_ARCHS", "MeshConfig",
+           "ModelConfig", "OptimConfig", "PAPER_HASHMEM", "PAPER_WORKLOAD",
+           "SCALED_HASHMEM", "SHAPES", "ServeConfig", "ShapeConfig",
+           "TrainConfig", "cells", "get_config", "smoke_config"]
 
 _ARCH_MODULES = {
     "jamba-v0.1-52b": "jamba_v0_1_52b",
@@ -41,6 +42,24 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; available: {list(_ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     return mod.CONFIG
+
+
+# long_500k requires sub-quadratic attention: hybrid (jamba: 1/8 attention
+# + paged KV), SWA (h2o-danube: bounded window), ssm (xlstm: O(1)
+# recurrent state).  Pure full-attention archs skip it.
+LONG_CONTEXT_ARCHS = ("jamba-v0.1-52b", "h2o-danube-1.8b", "xlstm-1.3b")
+
+
+def cells():
+    """All assigned (arch x shape) cells: 40 assigned, 33 runnable (the 7
+    long_500k cells of the pure full-attention archs are skipped)."""
+    out = []
+    for arch in ARCHS:
+        for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+            if shape == "long_500k" and arch not in LONG_CONTEXT_ARCHS:
+                continue
+            out.append((arch, shape))
+    return out
 
 
 def smoke_config(arch: str) -> ModelConfig:

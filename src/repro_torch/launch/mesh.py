@@ -14,7 +14,9 @@ the channel ('model') axis.  The port has two forms of that mesh:
 The model meshes of ``make_mesh`` are ``ModelMesh``es: a world of ranks laid
 out row-major over named axes (``("data", "model")`` or ``("pod", "data",
 "model")``), one process group per axis subset, over which decode reduces
-and gathers (``make_model_mesh``).  The sharding rules and the decode
+and gathers (``make_model_mesh``); a ``RecordingMesh`` is one rank of such
+a mesh with no world, whose collectives count and move nothing (the
+dry-run's, ``recording_mesh``).  The sharding rules and the decode
 geometry also take a bare shape, {axis name: size}
 (``make_production_mesh`` gives the production one), which builds no
 world.
@@ -232,8 +234,7 @@ class ModelMesh:
     def _group(self, axes):
         return self.groups[tuple(a for a in self.shape if a in axes)]
 
-    def _count(self, t: torch.Tensor, t0: float, kind: str, backward: bool):
-        dt = time.perf_counter() - t0
+    def _count(self, t: torch.Tensor, dt: float, kind: str, backward: bool):
         nbytes = t.numel() * t.element_size()
         st = self.collectives
         st["calls"] += 1
@@ -246,44 +247,65 @@ class ModelMesh:
         k["seconds"] += dt
         k["largest"] = max(k.get("largest", 0), nbytes)
 
+    def _collective(self, kind: str, x: torch.Tensor, out: torch.Tensor,
+                    axes, backward: bool, op: str = "sum") -> torch.Tensor:
+        """One collective of ``x`` over ``axes`` into ``out``
+        (``_transport``), counted as ``x``'s bytes sent."""
+        out, dt = self._transport(kind, x, out, axes, op)
+        self._count(x, dt, kind, backward)
+        return out
+
+    def _transport(self, kind: str, x: torch.Tensor, out: torch.Tensor,
+                   axes, op: str):
+        """Move the data of one collective over the process group of
+        ``axes``: (its result, the host seconds it took).  An all-reduce
+        sums ``x`` in place; an all-gather fills ``out`` (n, ...) with the
+        ranks' ``x`` in their row-major order (in ``ALL_GATHER_FORM``'s
+        form for the backend); a reduce-scatter and an all-to-all fill
+        ``out``."""
+        import torch.distributed as dist
+        group = self._group(axes)
+        t0 = time.perf_counter()
+        with record_function(f"mesh.{kind}"):
+            if kind == "all_reduce":
+                red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+                dist.all_reduce(x, op=red, group=group)
+                out = x
+            elif kind == "all_gather" and \
+                    ALL_GATHER_FORM[self.backend] == "all_gather":
+                dist.all_gather(list(out.unbind(0)), x, group=group)
+            elif kind == "all_gather":
+                dist.all_to_all_single(out, x.expand(out.shape).contiguous(),
+                                       group=group)
+            elif kind == "reduce_scatter":
+                # the same collective under the name of the torch at hand
+                rs = getattr(dist, "reduce_scatter_single",
+                             dist.reduce_scatter_tensor)
+                rs(out, x, group=group)
+            else:
+                dist.all_to_all_single(out, x, group=group)
+        return out, time.perf_counter() - t0
+
     def all_reduce(self, t: torch.Tensor, axes, op: str = "sum",
                    backward: bool = False):
         """``t`` summed (``op="max"``: its largest) over the ranks along
         ``axes``; in place when a collective runs."""
-        import torch.distributed as dist
         if self.size(axes) == 1:
             return t
         t = t.contiguous()
-        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        t0 = time.perf_counter()
-        with record_function("mesh.all_reduce"):
-            dist.all_reduce(t, op=red, group=self._group(axes))
-        self._count(t, t0, "all_reduce", backward)
-        return t
+        return self._collective("all_reduce", t, t, axes, backward, op)
 
     def all_gather(self, t: torch.Tensor, axes, dim: int = 0,
                    backward: bool = False):
         """The ranks' ``t`` along ``axes`` joined on ``dim`` in their
-        row-major order (in ``ALL_GATHER_FORM``'s form for the
-        backend)."""
-        import torch.distributed as dist
+        row-major order."""
         n = self.size(axes)
         if n == 1:
             return t
         t = t.contiguous()
-        group = self._group(axes)
-        t0 = time.perf_counter()
-        with record_function("mesh.all_gather"):
-            if ALL_GATHER_FORM[self.backend] == "all_to_all":
-                x = t.expand(n, *t.shape).contiguous()
-                out = torch.empty_like(x)
-                dist.all_to_all_single(out, x, group=group)
-                out = out.unbind(0)
-            else:
-                out = [torch.empty_like(t) for _ in range(n)]
-                dist.all_gather(out, t, group=group)
-        self._count(t, t0, "all_gather", backward)
-        return torch.cat(out, dim=dim)
+        out = self._collective("all_gather", t, t.new_empty((n,) + t.shape),
+                               axes, backward)
+        return torch.cat(out.unbind(0), dim=dim)
 
     def reduce_scatter(self, t: torch.Tensor, axes, dim: int = 0,
                        backward: bool = False):
@@ -291,7 +313,6 @@ class ModelMesh:
         rank's block along ``dim`` (cut into equal blocks in their
         row-major order): the conjugate of ``all_gather``.  gloo runs it on
         CUDA tensors too (staged through the host)."""
-        import torch.distributed as dist
         n = self.size(axes)
         if n == 1:
             return t
@@ -300,20 +321,13 @@ class ModelMesh:
                              f"{n} ranks")
         x = t.movedim(dim, 0).contiguous()
         out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
-        # the same collective under the name of the torch at hand
-        rs = getattr(dist, "reduce_scatter_single",
-                     dist.reduce_scatter_tensor)
-        t0 = time.perf_counter()
-        with record_function("mesh.reduce_scatter"):
-            rs(out, x, group=self._group(axes))
-        self._count(x, t0, "reduce_scatter", backward)
-        return out.movedim(0, dim)
+        return self._collective("reduce_scatter", x, out, axes,
+                                backward).movedim(0, dim)
 
     def all_to_all(self, t: torch.Tensor, axes, backward: bool = False):
         """``t`` (n, ...) over the n ranks along ``axes``: block j goes to
         the j-th rank, and block j of the result is what the j-th rank sent
         here (``jax.lax.all_to_all`` on dimension 0, untiled)."""
-        import torch.distributed as dist
         n = self.size(axes)
         if n == 1:
             return t
@@ -321,12 +335,8 @@ class ModelMesh:
             raise ValueError(f"all_to_all of {t.shape[0]} blocks over {n} "
                              f"ranks")
         t = t.contiguous()
-        out = torch.empty_like(t)
-        t0 = time.perf_counter()
-        with record_function("mesh.all_to_all"):
-            dist.all_to_all_single(out, t, group=self._group(axes))
-        self._count(t, t0, "all_to_all", backward)
-        return out
+        return self._collective("all_to_all", t, torch.empty_like(t), axes,
+                                backward)
 
 
 def mesh_coords(shape: dict, rank: int) -> dict:
@@ -337,6 +347,45 @@ def mesh_coords(shape: dict, rank: int) -> dict:
         coords[a] = rank % shape[a]
         rank //= shape[a]
     return {a: coords[a] for a in shape}
+
+
+@dataclass(frozen=True)
+class RecordingMesh(ModelMesh):
+    """A ``ModelMesh`` with no world: rank ``rank`` of a mesh of ``shape``
+    (``recording_mesh``), which any number of ranks can take, as the
+    dry-run's production meshes of 256 and 512 ranks.  Its collectives
+    are the real mesh's (the skip over axes of size 1, the shapes and
+    checks, the count of ``_collective``) but for ``_transport``, which
+    moves nothing and takes no seconds: each returns a tensor of the
+    shape the real one returns, holding no data, and its ``collectives``
+    are a real mesh's, call for call and byte for byte, by kind and pass.
+    ``results`` keeps, by kind, the calls and the bytes of their results
+    (what an HLO collective's shape says; ``dryrun.jax_collectives``).
+    It imports nothing of ``torch.distributed``."""
+
+    results: dict = field(default_factory=dict, compare=False)
+
+    def _transport(self, kind: str, x, out, axes, op: str):
+        r = self.results.setdefault(kind, {"calls": 0, "bytes": 0})
+        r["calls"] += 1
+        r["bytes"] += out.numel() * out.element_size()
+        return out, 0.0
+
+    def reset(self):
+        """Count from zero."""
+        self.collectives.clear()
+        self.collectives.update(_new_collectives())
+        self.results.clear()
+
+
+def recording_mesh(shape: dict, rank: int = 0) -> RecordingMesh:
+    """Rank ``rank`` of a mesh of ``shape``, {axis: size} in mesh order,
+    on the CPU, with no world (``RecordingMesh``)."""
+    shape = {a: int(n) for a, n in shape.items()}
+    if not 0 <= rank < math.prod(shape.values()):
+        raise ValueError(f"rank {rank} is outside a mesh of {shape}")
+    return RecordingMesh(shape, rank, mesh_coords(shape, rank),
+                         torch.device("cpu"), "recording", {})
 
 
 def make_model_mesh(world: RankMesh, shape: dict) -> ModelMesh:

@@ -29,7 +29,12 @@ carry them across with ``params_from_numpy`` and ``shard_params``):
     ``init_params`` on the same device;
   * no family refuses a mesh; whisper's ``serve`` on a mesh of ranks
     refuses encoder-decoder archs as on one device (``refuse_encdec``);
-  * the CLI's ``--mesh 2 2`` serves from four rank processes.
+  * the CLI's ``--mesh 2 2`` serves from four rank processes;
+  * the dry-run's ``RecordingMesh`` trace of one decode step, on fake
+    tensors, counts what every rank's gloo mesh sent a step in the logits
+    cases, call for call and byte for byte by kind (dense on both meshes
+    and with replicated KV heads, the MoE experts stationary, the
+    hybrid).
 float32 on both sides; the tolerance covers the order of the partial
 sums."""
 import os
@@ -47,7 +52,8 @@ from repro.models import model as jmodel
 
 from repro_torch.configs import ServeConfig, ShapeConfig, smoke_config
 from repro_torch.distributed import sharding, steps
-from repro_torch.launch.mesh import ModelMesh, spawn_ranks
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import ModelMesh, recording_mesh, spawn_ranks
 from repro_torch.models import model
 from repro_torch.models.layers import flatten_tree
 
@@ -278,3 +284,33 @@ def test_serve_cli_decodes_over_a_mesh_of_ranks(worlds):
     assert sum(ln.startswith("served 3 requests") for ln in lines) == 1
     assert "live pages after drain: 0" in r.stdout
     assert sum("-> out [" in ln for ln in lines) == 3
+
+
+# the logits cases a RecordingMesh traces
+RECORDED = ("qwen3-1x4", "qwen3-2x2", "qwen3-kv2-1x4", "olmoe-2x2",
+            "jamba-1x4", "jamba-2x2")
+
+
+@pytest.mark.parametrize("name", RECORDED)
+def test_recording_mesh_counts_a_decode_step(name, worlds):
+    """``dryrun.trace_decode`` of one step (float32 pools, the whole
+    vocabulary's logits, as the case runs it) on a ``RecordingMesh`` of
+    the first and the last rank: its calls and bytes by kind, times the
+    case's steps, and its largest call, are what every rank's gloo mesh
+    counted over them."""
+    _, ranks, _ = worlds
+    arch, mesh, over = dc.LOGITS_CASES[name]
+    cfg = dc.torch_config(arch, over)
+    L = dc.LOGITS
+    scfg = ServeConfig(model=cfg, shape=ShapeConfig(
+        "t", L["horizon"], L["B"], "decode"), kv_page_tokens=L["pt"])
+    for r in (0, dc.WORLD - 1):
+        tr = dryrun.trace_decode(cfg, scfg, recording_mesh(dc.MESHES[mesh], r),
+                                 kv_dtype=torch.float32, full_logits=True)
+        got = {k: (v["calls"] * L["steps"], v["bytes"] * L["steps"],
+                   v["largest"]) for k, v in tr.counts.by_kind.items()}
+        assert got
+        for q, res in enumerate(ranks):
+            want = res[f"logits/{name}"]["collectives"]["by_kind"]
+            assert got == {k: (v["calls"], v["bytes"], v["largest"])
+                           for k, v in want.items()}, (r, q)

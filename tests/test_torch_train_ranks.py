@@ -24,6 +24,11 @@ both sides start from the same parameters, which the port draws here:
     a run without the failure;
   * the xlstm step's collectives do not grow with the sequence (the
     sLSTM's time loop issues none);
+  * the dry-run's ``RecordingMesh`` trace of a case's first step, on fake
+    tensors, counts what every rank's gloo mesh sent in that step, call
+    for call and byte for byte, by kind and pass (dense on (2, 2) with
+    ``seq_shard`` and on (1, 4) with int8 compression, the MoE with
+    expert parallelism, the hybrid);
   * a bare shape of more than one shard refuses
     (``tests/test_torch_train.py``).
 
@@ -47,7 +52,9 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import OptimConfig, ShapeConfig
 from repro_torch.data import SyntheticLMData
 from repro_torch.distributed import sharding, steps
-from repro_torch.launch.mesh import ModelMesh, mesh_coords, spawn_ranks
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import ModelMesh, mesh_coords, recording_mesh, \
+    spawn_ranks
 from repro_torch.launch.train import _restore_tree_shapes
 from repro_torch.models import model
 from repro_torch.models.layers import flatten_tree
@@ -326,3 +333,30 @@ def test_meshes_are_laid_out_row_major(worlds):
     for r, res in enumerate(ranks):
         for name, shape in tc.MESHES.items():
             assert res["coords"][name] == mesh_coords(shape, r)
+
+
+# the cases a RecordingMesh traces: dense on both meshes, the MoE with
+# expert parallelism, the hybrid (mamba, attention and MoE)
+RECORDED = ("qwen3-2x2", "qwen3-kv2-1x4", "olmoe-ep-2x2", "jamba-ep-2x2")
+
+
+@pytest.mark.parametrize("name", RECORDED)
+def test_recording_mesh_counts_a_train_step(name, worlds):
+    """``dryrun.trace_train`` of the case's step on a ``RecordingMesh`` of
+    the first and the last rank (their coordinates differ on every axis)
+    counts, by kind and pass, the calls and bytes every rank's gloo mesh
+    made in the case's first step."""
+    _, ranks, _, _, _ = worlds
+    c = tc.CASES[name]
+    cfg = tc.torch_config(c["arch"], c["over"])
+    for r in (0, tc.WORLD - 1):
+        tr = dryrun.trace_train(
+            cfg, OptimConfig(**tc.OC), ShapeConfig("t", tc.S, tc.B, "train"),
+            recording_mesh(tc.MESHES[c["mesh"]], r),
+            seq_shard=c["seq_shard"], grad_compression=c["comp"])
+        got = {k: [v["calls"], v["bytes"]]
+               for k, v in tr.counts.by_kind.items()}
+        assert got and all(v["seconds"] == 0.0
+                           for v in tr.counts.by_kind.values())
+        for q, res in enumerate(ranks):
+            assert got == res[name]["step_collectives"], (r, q)

@@ -24,7 +24,9 @@ pads (-100 labels) in rows 0 and 2, from parameters the port draws
     leaves replicated over ``"model"``; its ``final_norm/bias``, which the
     loss never reads, gets a zero gradient).
 The xlstm case's loss and gradient also run at 4 x 32, their collectives
-counted by kind at both lengths (``SEQ_CASE``).  Then, without JAX:
+counted by kind at both lengths (``SEQ_CASE``); every case's first step
+keeps its collectives' calls and bytes by kind and pass, which a
+``RecordingMesh``'s trace of the step must equal.  Then, without JAX:
 internvl2-2b on (2, 2) from ``init_params_sharded``
 (the test holds it against the port's one-device step), and the
 uninterrupted run the train CLI's ``--mesh 2 2`` restart must follow
@@ -149,6 +151,15 @@ def _collectives_since(mesh, before) -> dict:
     return {k: n for k, n in out.items() if n}
 
 
+def _sent_since(mesh, before) -> dict:
+    """{kind/pass: [calls, bytes]} since ``before``, the kinds called."""
+    zero = {"calls": 0, "bytes": 0}
+    out = {k: [v["calls"] - before.get(k, zero)["calls"],
+               v["bytes"] - before.get(k, zero)["bytes"]]
+           for k, v in mesh.collectives["by_kind"].items()}
+    return {k: v for k, v in out.items() if v[0]}
+
+
 def _case_rank(meshes, name, tmp):
     import copy
 
@@ -184,7 +195,11 @@ def _case_rank(meshes, name, tmp):
             out["nograd_loss"] = float(model.loss_fn(
                 params, cfg, ctx.local_batch(batches[0]), shard_ctx=ctx)[0])
     for s, b in enumerate(batches):
+        sent = copy.deepcopy(mesh.collectives["by_kind"])
         params, opt, m = step(params, opt, b)
+        if s == 0:
+            # the first step's own collectives, calls and bytes
+            out["step_collectives"] = _sent_since(mesh, sent)
         out["metrics"].append({k: float(v) for k, v in m.items()})
         out["params"].append(_blocks(dict(params.named_parameters())))
         if name == CKPT_CASE and s == 0:
