@@ -137,6 +137,8 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      (b) xlstm-1.3b at its published widths and depth: every layer's decode
      against its forward on the same inputs within 5e-4, the whole model's
      decode against forward (a drift float32 grows with depth, reported),
+     then the first 8 steps' logits under one-ulp moves of the parameters
+     and, the parameters cast to float64, in float64 for phase 18(b),
      served at batch 16, horizon 4096 (checked, timed against a bound of
      the weights and the mLSTM states, profiled), and at 8 of its 48
      layers trained at batch 4 x 512 through ``launch.train.train`` with
@@ -184,19 +186,22 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      trace of one serve step of the cell; (c) with four cards, (b) again
      over NCCL, a card a rank; the ``kernels`` line adds every rank's
      launches;
- 16. trains over ("data", "model") meshes of 4 rank processes (gloo with
-     every rank on the one card): (a) qwen3-8b at ``smoke_config`` widths,
-     2 layers, float32, on (2, 2) with ``seq_shard`` (2 steps), with 2 KV
-     heads on (1, 4) and int8 compression, olmoe-1b-7b with
-     ``moe_impl="gspmd"`` and with ``"ep"`` at capacity_factor = E (no
+ 16. trains over ("data", "model") and ("pod", "data", "model") meshes of
+     4 rank processes (gloo with every rank on the one card): (a)
+     qwen3-8b at ``smoke_config`` widths, 2 layers, float32, on (2, 2) and
+     on (2, 1, 2) with ``seq_shard`` (2 steps), with 2 KV heads on (1, 4)
+     and int8 compression, olmoe-1b-7b with ``moe_impl="gspmd"`` on
+     (2, 2) and (2, 1, 2) and with ``"ep"`` at capacity_factor = E (no
      drops) on (2, 2), and internvl2-2b on (2, 2), each rank drawing its
      blocks (``init_train_state``), against the port's one-card step from
      the same draw: loss, grad norm and aux terms within 1e-5 relative,
      ``moe_dropped`` equal, every gradient block within 1e-5 of its leaf's
-     largest, the stepped parameters; the first case's step-1 state saved
+     largest, the stepped parameters; each qwen3 case's step-1 state saved
      by the ranks' ``Checkpointer``, read back on one card (the gathered
-     blocks, bit for bit) and on (1, 4) (each rank's block), and the step
-     resumed from it bit-equal to the uninterrupted one; (b) OLMoE-1B-7B at
+     blocks, bit for bit) and on another mesh ((1, 4), and (2, 2) for the
+     pod mesh's: each rank's block), and the step resumed from it
+     bit-equal to the uninterrupted one on its mesh and as one card's on
+     the other; (b) OLMoE-1B-7B at
      its published widths, 4 of 16 layers, with expert parallelism on
      (2, 2), 3 steps at batch 4 x 4096 through ``launch.train.train``: ms
      a step, tokens/s, FLOP share, collectives a step by kind, the MoE
@@ -239,8 +244,14 @@ and CUDA PyTorch.  It imports only ``torch``, ``numpy`` and the port
      that layer at each of 16 steps within 1e-5 of the norm of its own
      output (or 4 x the one-card sensitivity there, where a one-ulp move
      of the input moves one card's output further), the end-to-end drift
-     of 8 steps printed, then phase 15's bf16 serve (ms a step, tokens/s,
-     share of the byte bound, collectives a step by kind, peak a rank,
+     of 8 steps printed; the same in float64 (``float64_mode``, the draw
+     cast up) against phase 13(b)'s float64 run: every layer's step-0
+     output and the 8 steps' logits within 1e-9, layer 39's float32
+     step-0 outputs (one card's, the ranks') within 8 times its one-ulp
+     sensitivity of the float64 output, the 8 steps' float32 logits (one
+     card's, the ranks') within 8 times the most a one-ulp move of every
+     parameter moves one card's; then phase 15's bf16 serve (ms a step,
+     tokens/s, share of the byte bound, collectives a step by kind, peak a rank,
      ``probe_perf`` launches by rank); (c) whisper-tiny at its published
      widths on (1, 4) and (2, 2): the cross K/V blocks and 8 float32
      teacher-forced steps over 1500 stub frames against one card, and one
@@ -3501,12 +3512,17 @@ def check_xlstm_decode_matches_forward(smi):
         (dec, _), dec_s = host_s(lambda: teacher_forced(model, params, cfg,
                                                         tokens, bt, ctx))
     resp = layer_sensitivity(layers, cfg, tape, btt, ctx)
-    save_xlstm_rank_reference(tokens, dec, tape, resp)
     full = model.logits_fn(params, cfg, xs[-1]).transpose(0, 1)
     check(bool(torch.isfinite(dec).all()) and bool(torch.isfinite(full)
                                                    .all()),
           "xlstm decode or forward logits not finite")
     drift = float((dec - full).abs().max())
+    # last: casts the parameters to float64 in place
+    f64, f64_s = host_s(lambda: xlstm_float64_decode(params, cfg, tokens,
+                                                     btt, ctx, tape, dec))
+    save_xlstm_rank_reference(tokens, dec, tape, resp, f64)
+    e1 = float(np.abs(dec[:XLSTM_RANK_E2E].cpu().numpy() -
+                      f64["logits64"]).max())
     worst = {k: max(e for e, kk, _, _ in errs if kk == k)
              for _, k, _, _ in errs}
     top = sorted(errs, reverse=True)[:3]
@@ -3526,7 +3542,13 @@ def check_xlstm_decode_matches_forward(smi):
           f"decode_step ({dec_s:.3f} s; forward {fwd_s:.3f} s) drifts from "
           f"forward by max |logit diff| {drift:.3e}, largest |logit| "
           f"{float(full.abs().max()):.3f}; TF32 off; block table probed "
-          f"through probe_perf; peak "
+          f"through probe_perf; in float64 (the draw cast up, "
+          f"float64_mode; {f64_s:.3f} s) the first {XLSTM_RANK_E2E} "
+          f"teacher-forced steps' float32 logits drift from the float64 ones "
+          f"by max |diff| {e1:.3e} ({e1 / np.abs(f64['logits64']).max():.3e} "
+          f"of the largest |logit|), and move by "
+          f"{[round(float(m), 6) for m in f64['logits_ulp_moves']]} under "
+          f"one-ulp moves of every parameter; peak "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card: {smi}")
     del params, dec, full, xs, states
     torch.cuda.empty_cache()
@@ -4793,7 +4815,13 @@ def kinds_line(by_kind, steps) -> str:
 
 TRAIN_RANK_SMALL = dict(batch=4, seq=64)
 TRAIN_RANK_TOL = 1e-5
-TRAIN_RANK_CKPT = "qwen3-8b@2x2"
+# (a)'s meshes: the decode meshes and the pod mesh ("pod", "data",
+# "model") = (2, 1, 2)
+TRAIN_RANK_MESHES = {**DECODE_MESHES,
+                     "2x1x2": {"pod": 2, "data": 1, "model": 2}}
+# the checkpoint cases: each saves its step-1 state on its mesh, restores
+# it there and on the mesh named here, and resumes its step 2 on both
+TRAIN_RANK_CKPT = {"qwen3-8b@2x2": "1x4", "qwen3-8b@2x1x2": "2x2"}
 # (b): OLMoE-1B-7B at its published widths on (2, 2) with expert
 # parallelism, cut to 4 of 16 layers (1.885G params: 30.2 GB of float32
 # parameters, gradients and moments over the 4 ranks) at phase 12's
@@ -4817,7 +4845,9 @@ def train_rank_cases() -> list:
         ("olmoe-gspmd@2x2", "olmoe-1b-7b", "2x2", {}, True, "none", 1),
         ("olmoe-ep@2x2", "olmoe-1b-7b", "2x2",
          {"moe_impl": "ep", "capacity_factor": float(E)}, True, "none", 1),
-        ("internvl2-2b@2x2", "internvl2-2b", "2x2", {}, True, "none", 1)]
+        ("internvl2-2b@2x2", "internvl2-2b", "2x2", {}, True, "none", 1),
+        ("olmoe-gspmd@2x1x2", "olmoe-1b-7b", "2x1x2", {}, True, "none", 1),
+        ("qwen3-8b@2x1x2", "qwen3-8b", "2x1x2", {}, True, "none", 2)]
 
 
 def train_rank_batches(cfg, steps):
@@ -4878,9 +4908,9 @@ def _np_blocks(named) -> dict:
 
 def rank_small_train(meshes, cases=None):
     """(a) on one rank: each case's (``train_rank_cases()`` by default)
-    gradient and steps from ``init_params_sharded``; the checkpoint case
-    saves its step-1 state, restores it on (1, 4), and resumes its step 2
-    on its mesh."""
+    gradient and steps from ``init_params_sharded``; a checkpoint case
+    (``TRAIN_RANK_CKPT``) saves its step-1 state, restores it on its mesh
+    and on the other mesh named there, and resumes its step 2 on both."""
     import shutil
     import torch
     from repro_torch.checkpoint import Checkpointer
@@ -4907,28 +4937,30 @@ def rank_small_train(meshes, cases=None):
             params, opt, m = step(params, opt, b)
             res["metrics"].append({k: float(v) for k, v in m.items()})
             res["params"].append(_np_blocks(dict(params.named_parameters())))
-            if name == TRAIN_RANK_CKPT and s == 0:
-                if mesh.rank == 0 and ckpt_dir.exists():
-                    shutil.rmtree(ckpt_dir)
+            if name in TRAIN_RANK_CKPT and s == 0:
+                if mesh.rank == 0 and (ckpt_dir / name).exists():
+                    shutil.rmtree(ckpt_dir / name)
                 t0 = time.perf_counter()
-                ck = Checkpointer(str(ckpt_dir), mesh=mesh)
+                ck = Checkpointer(str(ckpt_dir / name), mesh=mesh)
                 ck.save(1, {"params": params, "opt": opt})
                 ck.wait()
                 res["save_s"] = time.perf_counter() - t0
-        if name == TRAIN_RANK_CKPT:
-            other = meshes["1x4"]
-            st = Checkpointer(str(ckpt_dir), mesh=other).restore(
-                1, _restore_tree_shapes(cfg, oc, other), mesh.device)
-            res["restored_1x4"] = _np_blocks(dict(
-                st["params"].named_parameters()))
-            res["specs_1x4"] = {k: p.spec for k, p in
-                                st["params"].named_parameters()}
-            ck = Checkpointer(str(ckpt_dir), mesh=mesh)
-            st = ck.restore(ck.latest_step(),
-                            _restore_tree_shapes(cfg, oc, mesh), mesh.device)
-            p2, _, m2 = step(st["params"], st["opt"], batches[1])
-            res["resumed"] = (_np_blocks(dict(p2.named_parameters())),
-                              {k: float(v) for k, v in m2.items()})
+        if name in TRAIN_RANK_CKPT:
+            for key, m in (("resumed", mname),
+                           ("resumed_other", TRAIN_RANK_CKPT[name])):
+                on = meshes[m]
+                st = Checkpointer(str(ckpt_dir / name), mesh=on).restore(
+                    1, _restore_tree_shapes(cfg, oc, on), on.device)
+                if key == "resumed_other":
+                    res["restored_other"] = _np_blocks(dict(
+                        st["params"].named_parameters()))
+                    res["specs_other"] = {k: p.spec for k, p in
+                                          st["params"].named_parameters()}
+                fn = step if m == mname else steps.build_train_step(
+                    cfg, oc, on, seq_shard=seq_shard, grad_compression=comp)
+                p2, _, m2 = fn(st["params"], st["opt"], batches[1])
+                res[key] = (_np_blocks(dict(p2.named_parameters())),
+                            {k: float(v) for k, v in m2.items()})
         out[name] = res
         del params, opt, grads
     torch.cuda.empty_cache()
@@ -5010,7 +5042,8 @@ def train_rank_main(world, parts, depth):
     """Phase 16 on one rank: (a) and (b), or (b) alone (``parts``)."""
     from repro_torch.launch.mesh import make_model_mesh
     t_enter = time.time()
-    meshes = {n: make_model_mesh(world, s) for n, s in DECODE_MESHES.items()}
+    meshes = {n: make_model_mesh(world, s)
+              for n, s in TRAIN_RANK_MESHES.items()}
     out = dict(device=str(world.device), backend=world.backend,
                coords={n: m.coords for n, m in meshes.items()})
     if "small" in parts:
@@ -5045,8 +5078,9 @@ def check_small_train_ranks(refs, outs, cases=None, key="small",
     block within ``grad_tols[arch]`` (default ``TRAIN_RANK_TOL``) of its
     leaf's largest, and a never-read ``final_norm.bias`` (whisper's) with
     a zero gradient and zero after every step; where the cases
-    (``train_rank_cases()`` by default) hold the checkpoint's, its
-    restore on (1, 4) and on one card, and the resumed step.  Returns
+    (``train_rank_cases()`` by default) hold a checkpoint case's, its
+    restore on one card, on its mesh and on the other mesh, and the step
+    resumed on both.  Returns
     (cases, worst gradient error over its leaf's largest, worst parameter
     error where |g| >= 1e-6, int8 elements a step apart)."""
     cases = cases or train_rank_cases()
@@ -5062,8 +5096,8 @@ def check_small_train_ranks(refs, outs, cases=None, key="small",
         ref = refs[name]
         for r, o in enumerate(outs):
             got = o[key][name]
-            mesh = ModelMesh(DECODE_MESHES[mname], r, o["coords"][mname],
-                             torch.device("cpu"), "", {})
+            mesh = ModelMesh(TRAIN_RANK_MESHES[mname], r,
+                             o["coords"][mname], torch.device("cpu"), "", {})
             for s in range(n):
                 _close_step(got["metrics"][s], ref["metrics"][s],
                             f"{name} rank {r} step {s}")
@@ -5102,35 +5136,54 @@ def check_small_train_ranks(refs, outs, cases=None, key="small",
                               f"{d[sure].max(initial=0):.3e}")
                     check(d.max() <= 2 * lr, f"{name} rank {r} step {s}: "
                           f"parameter {k} off by {d.max():.3e}")
-    if all(c[0] != TRAIN_RANK_CKPT for c in cases):
-        return len(cases), worst_g, worst_p, flips
-    # the checkpoint: read back on one card it is the gathered blocks; on
-    # (1, 4) each rank's block of it; resumed, the step is bit-equal
-    name = TRAIN_RANK_CKPT
-    arch, over = [(c[1], c[3]) for c in train_rank_cases() if c[0] == name][0]
-    cfg = small_config(arch, over)
-    one = Checkpointer(str(CKPT_ROOT / "train_ranks")).restore(
-        1, _restore_tree_shapes(cfg, OptimConfig(**TRAIN_OC)), "cuda")
-    whole = {k: p.detach().cpu() for k, p in one["params"].named_parameters()}
-    mname = [c[2] for c in train_rank_cases() if c[0] == name][0]
-    for r, o in enumerate(outs):
-        got = o["small"][name]
-        for m, blocks, specs in ((mname, got["params"][0], got["specs"]),
-                                 ("1x4", got["restored_1x4"],
-                                  got["specs_1x4"])):
-            mesh = ModelMesh(DECODE_MESHES[m], r, o["coords"][m],
-                             torch.device("cpu"), "", {})
-            for k, a in blocks.items():
-                check(np.array_equal(a, sharding.local_block(
-                    whole[k], specs[k], mesh).numpy()),
-                    f"checkpoint: rank {r}'s {m} block of {k} is not the "
-                    f"one-card restore's")
-        p2, m2 = got["resumed"]
-        check(m2 == got["metrics"][1] and all(
-            np.array_equal(a, got["params"][1][k]) for k, a in p2.items()),
-            f"checkpoint: rank {r}'s resumed step differs from the "
-            f"uninterrupted one")
-    return len(refs), worst_g, worst_p, flips
+    # a checkpoint: read back on one card it is the gathered blocks; on the
+    # other mesh each rank's block of it; resumed on its mesh the step is
+    # bit-equal, on the other mesh it is one card's step 2
+    for name, arch, mname, over, _, _, _ in cases:
+        if name not in TRAIN_RANK_CKPT:
+            continue
+        other = TRAIN_RANK_CKPT[name]
+        cfg = small_config(arch, over)
+        one = Checkpointer(str(CKPT_ROOT / "train_ranks" / name)).restore(
+            1, _restore_tree_shapes(cfg, OptimConfig(**TRAIN_OC)), "cuda")
+        whole = {k: p.detach().cpu()
+                 for k, p in one["params"].named_parameters()}
+        ref = refs[name]
+        for r, o in enumerate(outs):
+            got = o["small"][name]
+            meshes = {m: ModelMesh(TRAIN_RANK_MESHES[m], r, o["coords"][m],
+                                   torch.device("cpu"), "", {})
+                      for m in (mname, other)}
+            for m, blocks, specs in ((mname, got["params"][0], got["specs"]),
+                                     (other, got["restored_other"],
+                                      got["specs_other"])):
+                for k, a in blocks.items():
+                    check(np.array_equal(a, sharding.local_block(
+                        whole[k], specs[k], meshes[m]).numpy()),
+                        f"checkpoint {name}: rank {r}'s {m} block of {k} is "
+                        f"not the one-card restore's")
+            p2, m2 = got["resumed"]
+            check(m2 == got["metrics"][1] and all(
+                np.array_equal(a, got["params"][1][k]) for k, a in p2.items()),
+                f"checkpoint {name}: rank {r}'s resumed step differs from "
+                f"the uninterrupted one")
+            p2, m2 = got["resumed_other"]
+            _close_step(m2, ref["metrics"][1],
+                        f"checkpoint {name} resumed on {other}, rank {r}")
+            for k, a in p2.items():
+                spec = got["specs_other"][k]
+
+                def blk(x):
+                    return sharding.local_block(torch.from_numpy(x), spec,
+                                                meshes[other]).numpy()
+                d = np.abs(a - blk(ref["params"][1][k]))
+                sure = np.abs(blk(ref["grads"][k])) >= 1e-6
+                worst_p = max(worst_p, float(d[sure].max(initial=0)))
+                check(d[sure].max(initial=0) <= TRAIN_RANK_TOL and
+                      d.max() <= 2 * ref["metrics"][0]["lr"],
+                      f"checkpoint {name} resumed on {other}: rank {r}'s "
+                      f"parameter {k} off by {d.max():.3e}")
+    return len(cases), worst_g, worst_p, flips
 
 
 def check_full_train_ranks(outs, label, smi, depth, cards):
@@ -5233,21 +5286,30 @@ def train_ranks_path(smi):
                            TRAIN_RANK_FULL["depth"], 1)
     n, worst_g, worst_p, flips = check_small_train_ranks(refs, outs)
     shutil.rmtree(CKPT_ROOT / "train_ranks", ignore_errors=True)
-    save_s = outs[0]["small"][TRAIN_RANK_CKPT]["save_s"]
-    print(f"train_ranks_small: {n} cases (qwen3-8b on 2x2 with seq_shard "
-          f"and 2 steps, with 2 KV heads on 1x4 and int8 compression, "
-          f"olmoe-1b-7b gspmd and ep at capacity_factor = E on 2x2, "
+    saves = ", ".join(
+        f"{c} saved on its mesh ({outs[0]['small'][c]['save_s']:.3f} s) and "
+        f"restored on {m}" for c, m in TRAIN_RANK_CKPT.items())
+    loss_off = {c: max(abs(o["small"][c]["metrics"][s]["loss"] - m["loss"])
+                       / abs(m["loss"]) for o in outs
+                       for s, m in enumerate(refs[c]["metrics"]))
+                for c in refs}
+    print(f"train_ranks_small: {n} cases (qwen3-8b on 2x2 and on the pod "
+          f"mesh 2x1x2 (pod, data, model) with seq_shard and 2 steps, with "
+          f"2 KV heads on 1x4 and int8 compression, olmoe-1b-7b gspmd and "
+          f"ep at capacity_factor = E on 2x2, olmoe-1b-7b gspmd on 2x1x2, "
           f"internvl2-2b on 2x2; smoke widths, 2 layers, float32) over "
           f"{RANKS} ranks (gloo, all on cuda:0) equal one card: loss, grad "
           f"norm and aux terms within {TRAIN_RANK_TOL} relative, "
-          f"moe_dropped equal, every gradient block within "
+          f"moe_dropped equal (the loss's largest relative difference by "
+          f"case: " + ", ".join(f"{c} {v:.3e}" for c, v in loss_off.items())
+          + f"), every gradient block within "
           f"{worst_g:.3e} of its leaf's largest, parameters within "
           f"{worst_p:.3e} where |g| >= 1e-6 (with int8 compression "
           f"{flips} elements a quantization step apart, each within 2 lr); "
-          f"the {TRAIN_RANK_CKPT} state "
-          f"saved after step 1 ({save_s:.3f} s) and restored on one card "
-          f"(the gathered blocks, bit for bit) and on 1x4 (each rank's "
-          f"block), the step resumed from it bit-equal; one-card references "
+          f"the step-1 states of {saves}: read back on one card as the "
+          f"gathered blocks and on the other mesh as each rank's block, bit "
+          f"for bit, the step resumed on its mesh bit-equal and on the other "
+          f"mesh one card's; one-card references "
           f"{ref_s:.3f} s, ranks {max(o['small_s'] for o in outs):.3f} s")
     lines = [f"gloo {spawn_s:.3f} s (the ranks started {start_s:.3f} s "
              f"after the spawn)"]
@@ -5865,6 +5927,27 @@ XLSTM_RANK_SENS = 4.0
 # a step, 98 gloo collectives): the printed end-to-end run to the first 8
 # of the 16 steps; phase 15's serve (cut to 8 new tokens a request)
 XLSTM_RANK_E2E = 8
+# (b) again in float64 (``float64_mode``, the float32 draw cast up), on one
+# card (phase 13(b), ``xlstm_float64_decode``) and on the ranks: the first
+# XLSTM_RANK_E2E teacher-forced steps' logits, and every layer's decode at
+# step 0 from the float32 input 13(b) taped there.  Float64 sums in
+# another order round 2^29 times finer than float32's, so the ranks'
+# float64 outputs lie within XLSTM_F64_TOL of one card's (over the layer
+# output's norm; the logits over the largest |logit|), where a wrong term
+# would stay O(1).  Layer XLSTM_F64_LAYER at step 0 (18(b)'s worst point on
+# the card, 1.360e-4 against a one-ulp sensitivity of 1.129e-4):
+# each float32 output, one card's and the ranks', within
+# XLSTM_F64_ROUNDING times that sensitivity of the float64 output, its own
+# rounding.  The float32 logits, one card's and the ranks', within
+# XLSTM_E2E_K times the most one card's float32 logits move under a
+# one-ulp move of every parameter (XLSTM_RANK_ULP_DRAWS draws) of the
+# float64 logits.  (Against one card's own float32 distance from float64
+# instead, 4.08e-3, the ranks' 1.743e-2 was 4.27 times it on an NVIDIA
+# H100 80GB HBM3 at 700 W: two draws of the same amplified rounding.)
+XLSTM_F64_LAYER = 39
+XLSTM_F64_TOL = 1e-9
+XLSTM_F64_ROUNDING = 8.0
+XLSTM_E2E_K = 8.0
 XLSTM_RANK_SERVE = DECODE_RANK_SERVE
 # (c) whisper-tiny at its published widths and depth: phase 13(c)'s 1500
 # stub frames and decoder tokens, 8 teacher-forced steps on (1, 4) (heads
@@ -5954,17 +6037,59 @@ def layer_sensitivity(layers, cfg, tape, bt, ctx):
     return resp.cpu().numpy()
 
 
-def save_xlstm_rank_reference(tokens, dec, tape, resp):
+def save_xlstm_rank_reference(tokens, dec, tape, resp, f64):
     """Phase 13(b)'s one-card decode for phase 18(b): the tokens, the
     first ``XLSTM_RANK_TF`` steps' float32 logits, every layer's input and
-    output in them and its sensitivity (``layer_sensitivity``)."""
+    output in them and its sensitivity (``layer_sensitivity``), and the
+    float64 run's logits and step-0 layer outputs
+    (``xlstm_float64_decode``)."""
     check(tape.calls == tape.layers * tokens.shape[1],
           f"the tape saw {tape.calls} layer calls")
     XLSTM_RANK_DATA.mkdir(parents=True, exist_ok=True)
     np.savez(XLSTM_RANK_DATA / "reference.npz", tokens=tokens,
              logits=dec[:XLSTM_RANK_TF].cpu().numpy(),
              layer_in=tape.x.cpu().numpy(), layer_out=tape.y.cpu().numpy(),
-             sensitivity=resp)
+             sensitivity=resp, **f64)
+
+
+def xlstm_float64_decode(params, cfg, tokens, bt, ctx, tape, dec):
+    """13(b)'s model in float64.  First, in float32, how far the first
+    ``XLSTM_RANK_E2E`` teacher-forced steps' logits (``dec``'s) move under a
+    one-ulp move of every parameter (``one_ulp``, each of
+    ``XLSTM_RANK_ULP_DRAWS`` draws from the parameters as drawn): the
+    float32 conditioning of those logits.  Then the parameters cast up in
+    place and, in ``float64_mode``, those steps' logits and every layer's
+    decode at step 0, from fresh states, of the float32 input the tape
+    holds there."""
+    import torch
+    from repro_torch.models import model, transformer
+    head = np.ascontiguousarray(tokens[:, :XLSTM_RANK_E2E])
+    drawn = [p.detach().clone() for p in params.parameters()]
+    moves = []
+    with torch.no_grad():
+        for seed in range(XLSTM_RANK_ULP_DRAWS):
+            one_ulp(params, seed)
+            moved, _ = teacher_forced(model, params, cfg, head, bt, ctx)
+            moves.append(float((moved - dec[:XLSTM_RANK_E2E]).abs().max()))
+            for p, d in zip(params.parameters(), drawn):
+                p.copy_(d)
+    del drawn
+    with torch.no_grad():
+        params.double()
+    layers = [p for unit in params.units for p in unit.values()]
+    B = tokens.shape[0]
+    with float64_mode(), torch.no_grad():
+        logits, _ = teacher_forced(model, params, cfg, head, bt, ctx)
+        states = transformer.init_decode_states(cfg, B, ctx, torch.float32,
+                                                device="cuda")
+        pos = torch.zeros((B,), dtype=torch.int32, device="cuda")
+        y0 = torch.stack([transformer._apply_layer_decode(
+            p, cfg, tape.x[i, 0].double()[:, None], states[i], bt, pos,
+            ctx)[0][:, 0] for i, p in enumerate(layers)])
+    check(logits.dtype == y0.dtype == torch.float64,
+          "xlstm float64 decode: a result is not float64")
+    return dict(logits64=logits.cpu().numpy(), layer_out64=y0.cpu().numpy(),
+                logits_ulp_moves=np.asarray(moves))
 
 
 def whisper_rank_references(smi):
@@ -6205,6 +6330,7 @@ def rank_xlstm_decode(mesh, k):
     x_in = torch.from_numpy(ref["layer_in"]).to(dev)
     y_one = torch.from_numpy(ref["layer_out"]).to(dev)
     errs = torch.zeros((len(layers), T), dtype=torch.float32, device=dev)
+    y0 = torch.zeros_like(y_one[:, 0])      # each layer's output at step 0
 
     def layer_by_layer():
         states = model.init_decode_states(params, cfg32, B, ctx,
@@ -6217,10 +6343,13 @@ def rank_xlstm_decode(mesh, k):
                         positions(t), ctx)
                     errs[i, t] = (y[:, 0] - y_one[i, t]).norm() / \
                         (y_one[i, t] - x_in[i, t]).norm()
+                    if t == 0:
+                        y0[i] = y[:, 0]
     _, layer_s = host_s(layer_by_layer)
     tf = dict(got=got.numpy(), seconds=tf_s, layer_s=layer_s,
-              layer_err=errs.cpu().numpy(), coll=coll_tf.counts,
-              launches=read_launches(k)["probe_perf"])
+              layer_err=errs.cpu().numpy(), y0=y0.cpu().numpy(),
+              coll=coll_tf.counts, launches=read_launches(k)["probe_perf"])
+    x0 = x_in[:, 0].clone()
     del x_in, y_one
     torch.cuda.empty_cache()
 
@@ -6238,13 +6367,49 @@ def rank_xlstm_decode(mesh, k):
             wall = time.perf_counter() - timer.t_first
     finally:
         model.init_params_sharded = drawn
-    return dict(draw_s=draw_s, n_local=n_local, tf=tf,
+    launches, peak = read_launches(k)["probe_perf"], \
+        torch.cuda.max_memory_allocated(dev) / 2**30
+    f64, f64_s = host_s(lambda: rank_xlstm_float64(
+        params, cfg32, scfg, mesh, tok, bt_d, x0))
+    return dict(draw_s=draw_s, n_local=n_local, tf=tf, f64=f64, f64_s=f64_s,
                 outs={r["id"]: r["out"] for r in done}, steps=n_steps,
                 step_ms=timer.step_ms, wall=wall, table_ms=timer.table_ms,
-                collectives=coll.counts,
-                launches=read_launches(k)["probe_perf"],
-                peak=torch.cuda.max_memory_allocated(dev) / 2**30,
+                collectives=coll.counts, launches=launches, peak=peak,
                 live=smgr.live_pages(), table=table_digests(hashmap, smgr.hm))
+
+
+def rank_xlstm_float64(params, cfg, scfg, mesh, tok, bt, x0):
+    """(b)'s float64 run on one rank: the rank's float32 block cast up in
+    place, then, in ``float64_mode``, the first ``XLSTM_RANK_E2E``
+    teacher-forced steps' logits through the serve step and every layer's
+    decode at step 0, from fresh states, of 13(b)'s float32 input ``x0``
+    (layers, B, d)."""
+    import torch
+    from repro_torch.distributed import steps
+    from repro_torch.models import model, transformer
+    B, dev = tok.shape[0], mesh.device
+    with torch.no_grad():
+        params.double()
+    layers = [p for unit in params.units for p in unit.values()]
+    with float64_mode(), torch.no_grad():
+        step, ctx = steps.build_serve_step(cfg, scfg, mesh=mesh)
+        states = model.init_decode_states(params, cfg, B, ctx,
+                                          kv_dtype=torch.float32)
+        logits = []
+        for i in range(XLSTM_RANK_E2E):
+            pos = torch.full((B,), i, dtype=torch.int32, device=dev)
+            _, lg, states = step(params, states, tok[:, i:i + 1], pos, bt)
+            logits.append(lg[:, 0])
+        logits = torch.stack(logits)
+        states = model.init_decode_states(params, cfg, B, ctx,
+                                          kv_dtype=torch.float32)
+        pos = torch.zeros((B,), dtype=torch.int32, device=dev)
+        y0 = torch.stack([transformer._apply_layer_decode(
+            p, cfg, x0[i].double()[:, None], states[i], bt, pos, ctx)[0][:, 0]
+            for i, p in enumerate(layers)])
+    check(logits.dtype == y0.dtype == torch.float64,
+          "xlstm ranks float64: a result is not float64")
+    return dict(logits=logits.cpu().numpy(), y0=y0.cpu().numpy())
 
 
 def rank_whisper(meshes, ref):
@@ -6534,6 +6699,75 @@ def check_xlstm_ranks(outs, smi):
     return sum(p["tf"]["launches"] + p["launches"] for p in papers)
 
 
+def check_xlstm_float64(outs, smi):
+    """(b) in float64: every rank's logits and step-0 layer outputs within
+    ``XLSTM_F64_TOL`` of one card's; layer ``XLSTM_F64_LAYER``'s float32
+    outputs at step 0, one card's and every rank's, within
+    ``XLSTM_F64_ROUNDING`` times the one-card sensitivity there of the
+    float64 output; the float32 logits after ``XLSTM_RANK_E2E`` steps, one
+    card's and every rank's, within ``XLSTM_E2E_K`` times one card's move
+    under a one-ulp move of the parameters of the float64 logits.  The
+    line is printed before the checks."""
+    with np.load(XLSTM_RANK_DATA / "reference.npz") as z:
+        ref = {n: z[n] for n in ("logits", "layer_in", "layer_out",
+                                 "sensitivity", "logits64", "layer_out64",
+                                 "logits_ulp_moves")}
+    papers = [o["paper"] for o in outs]
+    x0, y64 = ref["layer_in"][:, 0], ref["layer_out64"]
+
+    def layer_err(y):
+        """(layers,): |y - y64| over |y64 - x0|, normwise a layer."""
+        return np.linalg.norm((y - y64).reshape(len(y), -1), axis=1) / \
+            np.linalg.norm((y64 - x0).reshape(len(y), -1), axis=1)
+    want64 = ref["logits64"]
+    largest = float(np.abs(want64).max())
+    f64_layer = max(float(layer_err(p["f64"]["y0"]).max()) for p in papers)
+    f64_logits = max(float(np.abs(p["f64"]["logits"] - want64).max())
+                     for p in papers) / largest
+    L = XLSTM_F64_LAYER
+    sens = float(ref["sensitivity"][L, 0])
+    one32 = float(layer_err(ref["layer_out"][:, 0])[L])
+    ranks32 = [float(layer_err(p["tf"]["y0"])[L]) for p in papers]
+    want32 = ref["logits"][:XLSTM_RANK_E2E]
+    e1 = float(np.abs(want32 - want64).max())
+    er = [float(np.abs(p["tf"]["got"] - want64).max()) for p in papers]
+    apart = max(float(np.abs(p["tf"]["got"] - want32).max()) for p in papers)
+    ulp = float(ref["logits_ulp_moves"].max())
+    print(f"xlstm_ranks_float64 {XLSTM_ARCH} ({len(outs)} ranks on "
+          f"{XLSTM_RANK_MESH}, the float32 draw cast up, float64_mode; "
+          f"{max(p['f64_s'] for p in papers):.3f} s): the ranks' float64 "
+          f"step-0 outputs of all {len(y64)} layers within {f64_layer:.3e} "
+          f"of one card's float64 (over each layer's output norm) and their "
+          f"{XLSTM_RANK_E2E} steps' logits within {f64_logits:.3e} of the "
+          f"largest (bound {XLSTM_F64_TOL}); layer {L} at step 0 in "
+          f"float32 from the float64 output: one card {one32:.3e}, ranks "
+          f"{[float(f'{e:.4g}') for e in ranks32]} = "
+          f"{max([one32] + ranks32) / sens:.2f} x its one-ulp sensitivity "
+          f"{sens:.3e} (bound {XLSTM_F64_ROUNDING:g} x); float32 logits "
+          f"after {XLSTM_RANK_E2E} steps: ranks from one card {apart:.3e} "
+          f"({apart / largest:.3e} of the largest |logit| {largest:.3f}); "
+          f"from the float64 ones, one card {e1:.3e}, ranks "
+          f"{[float(f'{e:.4g}') for e in er]}; one card's move under a "
+          f"one-ulp move of every parameter {ulp:.3e} (the most of "
+          f"{len(ref['logits_ulp_moves'])} draws), so one card "
+          f"{e1 / ulp:.2f} x and the ranks {max(er) / ulp:.2f} x it (bound "
+          f"{XLSTM_E2E_K:g} x); card: {smi}")
+    check(f64_layer <= XLSTM_F64_TOL and f64_logits <= XLSTM_F64_TOL,
+          f"xlstm ranks float64: the ranks' step-0 layer outputs differ from "
+          f"one card's by {f64_layer:.3e} of a layer's output norm, their "
+          f"logits by {f64_logits:.3e} of the largest (bound "
+          f"{XLSTM_F64_TOL}): a term differs")
+    check(max([one32] + ranks32) <= XLSTM_F64_ROUNDING * sens,
+          f"xlstm float32 layer {L} at step 0: one card {one32:.3e}, ranks "
+          f"{[f'{e:.3e}' for e in ranks32]} of the layer output's norm from "
+          f"the float64 output, past {XLSTM_F64_ROUNDING:g} x its one-ulp "
+          f"sensitivity {sens:.3e}")
+    check(max([e1] + er) <= XLSTM_E2E_K * ulp,
+          f"xlstm float32 logits after {XLSTM_RANK_E2E} steps: one card "
+          f"{e1:.3e}, ranks up to {max(er):.3e} from the float64 ones, past "
+          f"{XLSTM_E2E_K:g} x one card's one-ulp move {ulp:.3e}")
+
+
 def check_whisper_ranks(ref, outs, smi):
     """(c): every rank's logits rows and greedy tokens against one card's
     (within ``FAMILY_RANK_TOL``), its cross K/V blocks (within it of the
@@ -6718,6 +6952,7 @@ def ssm_ranks_path(smi):
           f"final_norm/bias gradient 0; probe_perf launches over the ranks "
           f"{small_l}; ranks {max(o['small_s'] for o in outs):.3f} s")
     launches = small_l + check_xlstm_ranks(outs, smi)
+    check_xlstm_float64(outs, smi)
     check_whisper_ranks(wref, outs, smi)
     check_xlstm_train_ranks(xref, outs, smi)
     print(f"ssm_ranks_time: phase 18 took "

@@ -1,7 +1,8 @@
 """Training driver of the port (the JAX package's ``launch/train.py``): data
 pipeline -> train step, with checkpointing, failure injection/restart,
 straggler monitoring and gradient compression, on one card or over the
-ranks of a ``("data", "model")`` mesh.
+ranks of a ``("data",)``, ``("data", "model")`` or ``("pod", "data",
+"model")`` mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
         --smoke --steps 20 --device cpu
@@ -9,13 +10,18 @@ ranks of a ``("data", "model")`` mesh.
         --smoke --steps 50 --ckpt-dir /tmp/ck --inject-failure-at 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
         --smoke --steps 3 --mesh 2 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
+        --smoke --steps 3 --mesh 2 1 2 --device cpu
 
 The flags are the JAX CLI's, plus ``--device`` (the card by default; "cpu"
-runs the plain PyTorch path).  ``--mesh D M`` trains over D x M rank
-processes (``train_ranks``): on the CPU over gloo, else a card a rank over
-NCCL where there are enough cards, or every rank on the one card over
-gloo.  The checkpoint format is JAX's, so a run resumes from a checkpoint
-either package wrote, on any mesh.
+runs the plain PyTorch path).  ``--mesh`` takes one, two or three sizes
+and names the axes as the JAX CLI does: ``D`` is ``("data",)``, ``D M``
+``("data", "model")`` and ``P D M`` ``("pod", "data", "model")``.  A
+mesh of one rank trains on one device, as JAX's default ``(1, 1)``; any
+other trains over its rank processes (``train_ranks``): on the CPU over
+gloo, else a card a rank over NCCL where there are enough cards, or every
+rank on the one card over gloo.  The checkpoint format is JAX's, so a run
+resumes from a checkpoint either package wrote, on any mesh.
 """
 from __future__ import annotations
 
@@ -146,6 +152,23 @@ def _train_rank(world, cfg, mesh_shape, shape, oc, kw):
     return losses, policy.restarts, len(monitor.flagged)
 
 
+MESH_AXES = {1: ("data",), 2: ("data", "model"), 3: ("pod", "data", "model")}
+
+
+def mesh_shape(sizes) -> dict | None:
+    """``--mesh``'s sizes as {axis: size}, the axes named by their count as
+    the JAX CLI names them; None without sizes (one device, as JAX's CLI
+    takes ``--mesh`` with none)."""
+    if not sizes:
+        return None
+    if len(sizes) not in MESH_AXES:
+        raise ValueError(f"--mesh takes 1, 2 or 3 sizes (data; data model; "
+                         f"pod data model), not {len(sizes)}")
+    if min(sizes) < 1:
+        raise ValueError(f"--mesh sizes must be positive: {list(sizes)}")
+    return dict(zip(MESH_AXES[len(sizes)], sizes))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -161,14 +184,19 @@ def main(argv=None):
     ap.add_argument("--inject-failure-at", type=int, nargs="*", default=None)
     ap.add_argument("--grad-compression", default="none",
                     choices=["none", "bf16", "int8"])
-    ap.add_argument("--mesh", type=int, nargs=2, default=None,
-                    metavar=("D", "M"),
-                    help="train over a (data, model) mesh of D x M rank "
-                         "processes")
+    ap.add_argument("--mesh", type=int, nargs="*", default=None,
+                    metavar="N",
+                    help="train over a mesh of rank processes: D (data), "
+                         "D M (data, model) or P D M (pod, data, model)")
     ap.add_argument("--device", default=None,
                     help="'cpu' for the plain PyTorch path; the card by "
                          "default")
     args = ap.parse_args(argv)
+    try:
+        mesh = mesh_shape(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    ranks = mesh is not None and math.prod(mesh.values()) > 1
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
@@ -178,10 +206,9 @@ def main(argv=None):
     kw = dict(num_steps=args.steps, ckpt_dir=args.ckpt_dir,
               ckpt_every=args.ckpt_every, inject=args.inject_failure_at,
               grad_compression=args.grad_compression)
-    if args.mesh:
+    if ranks:
         losses, restarts, stragglers = train_ranks(
-            cfg, {"data": args.mesh[0], "model": args.mesh[1]}, shape, oc,
-            device=args.device, **kw)[0]
+            cfg, mesh, shape, oc, device=args.device, **kw)[0]
     else:
         _, _, losses, monitor, policy = train(cfg, shape, oc,
                                               device=args.device, **kw)
@@ -192,7 +219,7 @@ def main(argv=None):
         return losses
     print(f"first loss {losses[ls[0]]:.4f} -> last loss {losses[ls[-1]]:.4f}; "
           f"restarts={restarts} stragglers={stragglers}")
-    if args.mesh:
+    if ranks:
         print(f"losses: {[losses[s] for s in ls]!r}")
     return losses
 

@@ -21,8 +21,10 @@ Cases, on the ("data", "model") meshes (1, 4) and (2, 2):
     over ``"model"``, both from seeded stub frames (``enc_frames``);
   * ``serve``: ``serve`` of qwen3-8b on both meshes, of jamba on (2, 2)
     and of xlstm on (1, 4) from JAX's parameters, each rank returning its
-    outputs, steps, page-table trace and leaves;
-  * ``init``: each rank's ``init_params_sharded`` leaves;
+    outputs, steps, page-table trace and leaves; qwen3-8b also on the pod
+    mesh ("pod", "data", "model") = (2, 1, 2) (``POD_SERVE_CASES``), whose
+    tokens must be JAX's on (1, 4);
+  * ``init``: each rank's ``init_params_sharded`` leaves, on every mesh;
   * ``refuse``: whisper's ``serve`` on a mesh of ranks, which refuses
     encoder-decoder archs as on one device (``REFUSED``, the families
     that would refuse a mesh, is empty)."""
@@ -34,7 +36,8 @@ import textwrap
 import numpy as np
 
 WORLD = 4
-MESHES = {"1x4": {"data": 1, "model": 4}, "2x2": {"data": 2, "model": 2}}
+MESHES = {"1x4": {"data": 1, "model": 4}, "2x2": {"data": 2, "model": 2},
+          "2x1x2": {"pod": 2, "data": 1, "model": 2}}
 ATTN = dict(B=4, H=4, K=2, hd=8, pt=4, n_pages=4)
 ATTN_CASES = {"1x4": 0, "2x2": 0, "1x4-window": 6}     # sliding window
 LOGITS = dict(B=2, steps=8, pt=4, horizon=32)
@@ -65,6 +68,9 @@ SERVE_CASES = {"1x4": ("qwen3-8b", "1x4", "perf", {}),
                "2x2": ("qwen3-8b", "2x2", "ref", {}),
                "jamba-2x2": (JAMBA[0], "2x2", "perf", JAMBA[1]),
                "xlstm-1x4": ("xlstm-1.3b", "1x4", "perf", {})}
+# served over ranks on a mesh JAX does not serve here: name -> (mesh, the
+# SERVE_CASES case whose JAX outputs it must give)
+POD_SERVE_CASES = {"qwen3-2x1x2": ("2x1x2", "1x4")}
 INIT_ARCH = "qwen3-8b"
 # the families that refuse a mesh of ranks: none; the serving loop refuses
 # encoder-decoder archs on any mesh, as on one device
@@ -304,6 +310,8 @@ def decode_world(world, tmp):
         out[f"logits/{name}"] = _logits_rank(meshes[mesh], name, tmp)
     for name, (_, mesh, _, _) in SERVE_CASES.items():
         out[f"serve/{name}"] = _serve_rank(meshes[mesh], name, tmp)
+    for name, (mesh, case) in POD_SERVE_CASES.items():
+        out[f"serve/{name}"] = _serve_rank(meshes[mesh], case, tmp)
     for name in MESHES:
         out[f"init/{name}"] = _init_rank(meshes[name])
     out["refuse"] = _refuse_rank(meshes["1x4"])

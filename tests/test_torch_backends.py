@@ -29,6 +29,9 @@ from repro_torch.kernels.probe_perf import probe_pages_perf
 
 from test_kernels_probe import make_pool, make_queries
 from test_torch_probe import SHAPES, lanes_oracle, t_pages, t_pool, t_q
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 KERNELS = (probe_pages_perf, probe_pages_area, probe_pages_bitserial)
 

@@ -16,6 +16,10 @@ from repro_torch.core import hashmap as thm
 from repro_torch.core import layout as tlayout
 from repro_torch.kernels import ops
 
+import torch_threads
+
+one_thread = torch_threads.one_thread
+
 
 def t32(a):
     """numpy uint32 -> int32 tensor with the same bits."""

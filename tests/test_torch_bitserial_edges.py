@@ -33,6 +33,9 @@ from repro_torch.kernels import ops
 
 from test_torch_backends import masked
 from test_torch_probe import lanes_oracle, t_pages, t_pool, t_q
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")

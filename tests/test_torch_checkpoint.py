@@ -10,6 +10,7 @@ and three HashMem tables
 saved by JAX and restored by the port with equal leaves and equal probes,
 and the port's manifest, files and leaves read back by JAX.  Everything
 here is exact: the files carry bits."""
+import functools
 import json
 
 import jax
@@ -37,18 +38,23 @@ from repro_torch.optim import init_opt_state
 
 from model import mine_bucket_colliding_keys
 from test_checkpoint import _displaced_cfg as _j_displaced_cfg
+from test_torch_paged_kv import jitted_jax_page_table
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 CPU = "cpu"
 
 
 @pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on a few cores,
-    and PyTorch's thread pool in each would oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
+def jitted_jax_tables():
+    """The JAX hashmap calls the tables below make, jitted (eager JAX
+    compiles every primitive anew), and its probe."""
+    mp = jitted_jax_page_table()
+    mp.setattr(jhashmap, "probe", jax.jit(jhashmap.probe,
+                                          static_argnames=("backend",)))
     yield
-    torch.set_num_threads(n)
+    mp.undo()
 
 
 def tree(seed=0):
@@ -258,13 +264,21 @@ def port_cfg(jcfg) -> HashMemConfig:
     return HashMemConfig(**dataclasses.asdict(jcfg))
 
 
-def test_jax_displaced_table_restores_into_the_port(tmp_path):
+@functools.cache
+def displaced_jax_table(scale: int):
+    """JAX's displaced table of 36 keys colliding on one bucket, valued
+    ``scale`` times 1..36 (built once a module: JAX's tables are values)."""
     jcfg = _j_displaced_cfg()
     keys = mine_bucket_colliding_keys(36, jcfg.num_buckets, same_b2=True)
-    vals = np.arange(1, 37, dtype=np.uint32) * 5
+    vals = np.arange(1, 37, dtype=np.uint32) * scale
     jhm, ok = jhashmap.insert(jhashmap.create(jcfg), jnp.asarray(keys),
                               jnp.asarray(vals))
     assert bool(np.asarray(ok).all())
+    return jcfg, keys, jhm
+
+
+def test_jax_displaced_table_restores_into_the_port(tmp_path):
+    jcfg, keys, jhm = displaced_jax_table(5)
     assert int(np.asarray(jhm.store.stash_fill)) > 0
     JCheckpointer(str(tmp_path), async_save=False).save(11, jhm)
 
@@ -280,6 +294,7 @@ def test_jax_displaced_table_restores_into_the_port(tmp_path):
     assert bool(f[:36].all())
 
 
+@functools.cache
 def extendible_jax_table():
     jcfg = JHashMemConfig(num_buckets=8, slots_per_page=4, overflow_pages=120,
                           max_chain=2, backend="ref", auto_grow=True,
@@ -442,10 +457,7 @@ def crosses_both_ways(tmp_path, jcfg, cfg, step) -> dict:
 
 def test_port_tables_checkpoint_is_jax_s(tmp_path):
     jhm, _ = extendible_jax_table()
-    jcfg = _j_displaced_cfg()
-    keys = mine_bucket_colliding_keys(36, jcfg.num_buckets, same_b2=True)
-    jd, _ = jhashmap.insert(jhashmap.create(jcfg), jnp.asarray(keys),
-                            jnp.arange(1, 37, dtype=jnp.uint32))
+    jcfg, _, jd = displaced_jax_table(1)
     jtables = {"displaced": jd, "extendible": jhm}
     JCheckpointer(str(tmp_path / "j"), async_save=False).save(6, jtables)
     tables = {"displaced": hashmap.from_numpy(port_cfg(jcfg),

@@ -4,8 +4,9 @@ decode on a mesh of four forced XLA devices, on (1, 4) and (2, 2).
 
 ONE world of 4 spawned CPU ranks runs every case of ``tests/decode_cases.py``
 on both meshes while ONE JAX subprocess runs JAX's side of them; both start
-from the same JAX parameters (drawn here, written to ``.npz``; the ranks
-carry them across with ``params_from_numpy`` and ``shard_params``):
+from the same parameters (the port's draw, here, written to ``.npz`` as
+JAX's tree; the ranks carry them across with ``params_from_numpy`` and
+``shard_params``):
   * ``append_sharded`` and ``decode_attention_sharded`` on each rank
     against JAX's inside ``shard_map``: the output rows within 1e-5, the
     pools, joined in the grouped order, equal;
@@ -42,13 +43,9 @@ import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-import jax
 import numpy as np
 import pytest
 import torch
-
-from repro.configs import smoke_config as j_smoke_config
-from repro.models import model as jmodel
 
 from repro_torch.configs import ServeConfig, ShapeConfig, smoke_config
 from repro_torch.distributed import sharding, steps
@@ -58,6 +55,9 @@ from repro_torch.models import model
 from repro_torch.models.layers import flatten_tree
 
 import decode_cases as dc
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 TOL = 1e-5
 CLI_ARGS = ["--arch", "qwen3-8b", "--smoke", "--device", "cpu", "--requests",
@@ -74,17 +74,11 @@ def worlds(tmp_path_factory):
               for arch, _, _, over in dc.SERVE_CASES.values()} | {
         (arch, tuple(sorted(over.items())))
         for arch, _, over in dc.LOGITS_CASES.values()}
-    init = jax.jit(jmodel.init_params, static_argnums=0)
-
-    def draw(arch, over):
-        jcfg = j_smoke_config(arch).replace(dtype="float32",
-                                            **{**dc.LAYERS, **dict(over)})
-        tree = jax.tree.map(np.asarray, init(jcfg, jax.random.PRNGKey(0)))
-        np.savez(dc.params_path(tmp, arch, dict(over)), **flatten_tree(tree))
-    # the draws compile apart, in threads of their own
-    with ThreadPoolExecutor(len(models)) as ex:
-        for f in [ex.submit(draw, *m) for m in sorted(models)]:
-            f.result()
+    # the port's draws (JAX's jitted init would compile for seconds a model)
+    for arch, over in sorted(models):
+        cfg = dc.torch_config(arch, dict(over))
+        np.savez(dc.params_path(tmp, arch, dict(over)), **flatten_tree(
+            model.params_to_numpy(model.init_params(cfg, 0, "cpu"))))
     proc = dc.start_jax_side(tmp)
     try:
         with ThreadPoolExecutor(1) as ex:
@@ -201,16 +195,20 @@ def test_decode_step_logits_match_jax(name, worlds):
         assert not kv_split
 
 
-@pytest.mark.parametrize("name", list(dc.SERVE_CASES))
+@pytest.mark.parametrize("name", list(dc.SERVE_CASES) +
+                         list(dc.POD_SERVE_CASES))
 def test_serve_over_ranks_matches_jax(name, worlds):
+    """Every serve case against JAX's ``serve`` of it; a pod-mesh case
+    against JAX's outputs of the same config on the mesh it names."""
     jax_out, ranks, _ = worlds
     res = [r[f"serve/{name}"] for r in ranks]
+    jname = dc.POD_SERVE_CASES.get(name, (None, name))[1]
     want = {int(k.rsplit("out", 1)[1]): v.tolist()
-            for k, v in jax_out.items() if k.startswith(f"serve/{name}/out")}
+            for k, v in jax_out.items() if k.startswith(f"serve/{jname}/out")}
     assert len(want) == dc.SERVE["requests"]
     for r, got in enumerate(res):
         assert got["out"] == want, f"rank {r}"
-        assert got["steps"] == int(jax_out[f"serve/{name}/steps"])
+        assert got["steps"] == int(jax_out[f"serve/{jname}/steps"])
         assert got["events"][2] == 0
         assert got["log"] == res[0]["log"], f"rank {r}: block tables differ"
         assert got["free"] == res[0]["free"]

@@ -27,6 +27,9 @@ from repro_torch.core import layout as tlayout
 import fp_ablation
 from model import DictModel, mine_bucket_colliding_keys
 from test_torch_hashmap import assert_same_state, j_build, jcfg
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 CPU = "cpu"
 BACKENDS = ("ref", "perf", "area", "bitserial")

@@ -61,6 +61,10 @@ from repro_torch.configs import LONG_CONTEXT_ARCHS, OptimConfig, \
 from repro_torch.launch import dryrun
 from repro_torch.models import model
 
+import torch_threads
+
+one_thread = torch_threads.one_thread
+
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 ATTN_CHUNK = 1024
 JAX_CELLS = (("qwen3-8b", "train_4k", "unit1"),

@@ -35,6 +35,10 @@ from repro.models import model as jmodel
 from repro_torch.configs import ServeConfig, ShapeConfig, smoke_config
 from repro_torch.models import encdec, layers, mlp, model
 
+import torch_threads
+
+one_thread = torch_threads.one_thread
+
 CPU = "cpu"
 TOL = dict(rtol=5e-4, atol=5e-4)
 B, S_ENC, S_DEC, PT = 2, 96, 16, 8
@@ -48,16 +52,6 @@ def t(a):
 def no_grad():
     with torch.no_grad():
         yield
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on a few cores,
-    and PyTorch's thread pool in each would oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -29,6 +29,9 @@ from repro_torch.core.hashing import bits_used
 
 from model import DictModel, mine_bucket_colliding_keys
 from test_torch_hashmap import assert_same_state, jcfg
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 CPU = "cpu"
 

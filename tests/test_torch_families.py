@@ -7,7 +7,8 @@ the ssm, encdec and vlm families at ``smoke_config`` of xlstm-1.3b (two
 units of sLSTM + mLSTM, 32 tokens: two mLSTM chunks), whisper-tiny (2 + 2
 layers over 32 stub frames) and internvl2-2b (8 patch embeddings before 24
 tokens, the prefix labels -100).  In float32, on the same parameters
-(JAX's init carried across by ``params_from_numpy``) and inputs:
+(the port's init carried to JAX, its tree held against JAX's
+``init_params`` by path, shape and dtype) and inputs:
 ``forward`` logits, ``loss_fn`` with its MoE aux terms, ``decode_step``
 logits and states step by step (whisper's from ``init_decode_states(...,
 enc_frames=)``; internvl2 decodes tokens only, as JAX does), decode against
@@ -49,6 +50,10 @@ from repro_torch.configs import (ServeConfig, ShapeConfig, get_config,
 from repro_torch.models import model, transformer
 from repro_torch.models.layers import flatten_tree
 
+import torch_threads
+
+one_thread = torch_threads.one_thread
+
 CPU = "cpu"
 ARCHS = ["olmoe-1b-7b", "llama4-maverick-400b-a17b", "jamba-v0.1-52b"]
 TOL = dict(rtol=5e-4, atol=5e-4)
@@ -65,16 +70,6 @@ def no_grad():
         yield
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on a few cores,
-    and PyTorch's thread pool in each would oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def tokens_np(cfg, seed=0):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, S)).astype(np.int32)
@@ -85,8 +80,10 @@ def fam(request):
     arch = request.param
     jcfg = j_smoke_config(arch).replace(dtype="float32")
     cfg = smoke_config(arch).replace(dtype="float32")
-    jp = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
-    tree = jax.tree.map(np.asarray, jp)
+    # the port's init carried to JAX (JAX's own eager init takes seconds);
+    # the round trip checks the tree against JAX's
+    tree = model.params_to_numpy(model.init_params(cfg, 0, CPU))
+    jp = jax.tree.map(jnp.asarray, tree)
     toks = tokens_np(cfg)
     labels = toks.copy()
     labels[0, :3] = -100
@@ -185,8 +182,14 @@ def test_params_round_trip_on_the_unit_trees(fam):
     assert unit == jtransformer.scan_unit_size(fam["jcfg"])
     want = flatten_tree(tree)
     got = flatten_tree(model.params_to_numpy(fam["params"]))
-    assert list(got) == list(want) == list(
-        flatten_tree(jax.tree.map(np.asarray, tree)))
+    shapes = jax.eval_shape(lambda k: jmodel.init_params(fam["jcfg"], k),
+                            jax.random.PRNGKey(0))
+    jax_order = ["/".join(str(k.key) for k in path) for path, _ in
+                 jax.tree_util.tree_leaves_with_path(shapes)]
+    assert list(got) == list(want) == jax_order
+    for path, leaf in jax.tree_util.tree_leaves_with_path(shapes):
+        k = "/".join(str(p.key) for p in path)
+        assert got[k].shape == leaf.shape and got[k].dtype == leaf.dtype, k
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], k)
     assert {k.split("/")[1] for k in want if k.startswith("stacks")} == \

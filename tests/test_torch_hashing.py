@@ -18,6 +18,9 @@ from repro_torch.core import hashing as th
 from repro_torch.data import kv_synth as tkv
 
 from model import murmur3_fmix_np
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 SPECIAL = [0, 1, 2, 0x7FFFFFFF, 0x80000000, 0x80000001, 0xFFFFFFEF,
            0xFFFFFFF0, 0xFFFFFFF1, 0xFFFFFFFD, 0xFFFFFFFE, 0xFFFFFFFF]

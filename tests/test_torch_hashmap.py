@@ -22,6 +22,9 @@ from repro_torch.core import layout as tlayout
 from repro_torch.kernels.probe_perf import probe_pages_perf
 
 from model import DictModel, mine_bucket_colliding_keys, murmur3_fmix_np
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 CPU = "cpu"
 

@@ -35,6 +35,10 @@ from repro_torch.configs import (SHAPES, ServeConfig, ShapeConfig, get_config,
                                  smoke_config)
 from repro_torch.models import attention, layers, mlp, model, transformer
 
+import torch_threads
+
+one_thread = torch_threads.one_thread
+
 CPU = "cpu"
 TOL = dict(rtol=5e-4, atol=5e-4)
 BF16_ATOL = 0.05
@@ -265,13 +269,15 @@ def run(request):
         kw["sliding_window"] = window
     jcfg = j_smoke_config(arch).replace(**kw)
     cfg = smoke_config(arch).replace(**kw)
-    tree = j_params_tree(jcfg)
+    # the port's draw carried to JAX (JAX's eager init takes seconds a
+    # config; test_params_from_numpy_round_trip carries JAX's tree across)
+    tree = model.params_to_numpy(model.init_params(cfg, 0, CPU))
     jp = jax.tree.map(jnp.asarray, tree)
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                                (B, S)).astype(np.int32)
-    jx, _ = jax.jit(lambda p, tk: jmodel.forward(p, jcfg, {"tokens": tk}))(
-        jp, jnp.asarray(tokens))
-    jfull = np.asarray(jmodel.logits_fn(jp, jcfg, jx))
+    jfull = np.asarray(jax.jit(lambda p, tk: jmodel.logits_fn(
+        p, jcfg, jmodel.forward(p, jcfg, {"tokens": tk})[0]))(
+        jp, jnp.asarray(tokens)))
     jscfg = JServeConfig(model=jcfg, shape=JShapeConfig("t", S, B, "decode"),
                          kv_page_tokens=PT)
     jctx = jmodel.make_decode_ctx(jcfg, jscfg, B)

@@ -36,6 +36,10 @@ from repro.models.layers import split_params
 from repro_torch.configs import smoke_config
 from repro_torch.models import moe
 
+import torch_threads
+
+one_thread = torch_threads.one_thread
+
 ARCHS = ["olmoe-1b-7b", "jamba-v0.1-52b", "llama4-maverick-400b-a17b"]
 MODES = {"learned": {}, "hash": {}, "drop": dict(capacity_factor=0.25),
          "tie": {}}
@@ -44,16 +48,6 @@ Y_ATOL = 1e-5
 AUX_RTOL = 1e-6
 GRAD_TOL = 1e-5
 TOP1_ROUTER_ATOL = 2e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on a few cores,
-    and PyTorch's thread pool in each would oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def t(a):

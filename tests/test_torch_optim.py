@@ -35,6 +35,10 @@ from repro_torch.models.model import ParamDict, _jax_path
 from repro_torch.models.layers import flatten_tree, unflatten_tree
 from repro_torch.optim import adamw
 
+import torch_threads
+
+one_thread = torch_threads.one_thread
+
 # A mixed tree: an embedding, a norm scale, and two layer leaves stacked on
 # a leading axis of 2 (a weight and a norm scale)
 SHAPES = {"embed": (6, 4), "final_norm/scale": (4,),

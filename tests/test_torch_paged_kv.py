@@ -39,6 +39,9 @@ from repro_torch.models import attention
 from repro_torch.models import transformer as ttransformer
 
 from test_torch_hashmap import jax_leaves
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 CPU = "cpu"
 TOL = dict(rtol=5e-4, atol=5e-4)

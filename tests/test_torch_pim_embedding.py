@@ -17,6 +17,9 @@ from repro_torch.core.pim_embedding import (DictionaryVocab, init_qr,
                                             qr_embedding)
 
 from test_torch_hashmap import jax_leaves
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 CPU = "cpu"
 

@@ -18,6 +18,9 @@ from repro_torch.kernels import ops, ref as tref
 from repro_torch.kernels.probe_perf import probe_pages_perf
 
 from test_kernels_probe import make_pool, make_queries
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 SHAPES = [(16, 128, 32, 1), (32, 256, 64, 4), (8, 512, 16, 2),
           (64, 128, 128, 3)]

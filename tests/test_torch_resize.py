@@ -22,6 +22,9 @@ from repro_torch.core import layout as tlayout
 from model import DictModel
 from test_torch_hashmap import assert_same_state
 from test_torch_paged_kv import jitted_jax_page_table
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 CPU = "cpu"
 BACKENDS = ("ref", "perf", "area", "bitserial")

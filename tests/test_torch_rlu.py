@@ -24,6 +24,9 @@ from repro_torch.core import hashmap as thm
 from repro_torch.core import rlu as trlu
 
 from test_torch_hashmap import assert_same_state, jcfg, jax_leaves
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 CPU = "cpu"
 HASHES = ("murmur3_fmix", "mult_shift", "identity")

@@ -25,6 +25,9 @@ from repro_torch.launch.mesh import make_serving_mesh
 
 from rlu_cases import (CASES, D, case_inputs, finish_jax_side, past_pool,
                        start_jax_side)
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 
 @pytest.fixture(scope="module")

@@ -33,6 +33,9 @@ from rank_cases import (TICK_KEYS, extendible_case, grow_case, rlu_world,
 from rlu_cases import CASES, finish_jax_side, kill_jax_side, start_jax_side
 from test_torch_hashmap import jax_leaves, jcfg
 from test_torch_rlu import j_build_sharded, j_grow, padded_insert_with_buckets
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 D = 4
 NAMES_D2 = ("ref", "perf", "displaced", "overflowed")

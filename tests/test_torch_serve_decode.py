@@ -23,7 +23,6 @@ whisper where the port refuses it, and the ``serve_paged`` example."""
 import jax
 import numpy as np
 import pytest
-import torch
 
 from repro.configs import smoke_config as j_smoke_config
 from repro.core import paged_kv as jkv
@@ -39,18 +38,11 @@ from repro_torch.models import model as tmodel
 
 from test_torch_hashmap import jax_leaves
 from test_torch_paged_kv import jitted_jax_page_table
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 CPU = "cpu"
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on a few cores,
-    and PyTorch's thread pool in each would oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
 
 SCENARIOS = {
     "llama3-8b-ref": ("llama3-8b", "ref", dict(
@@ -108,10 +100,11 @@ def served(request):
     arch, backend, kw = SCENARIOS[request.param]
     jcfg = j_smoke_config(arch).replace(dtype="float32")
     cfg = smoke_config(arch).replace(dtype="float32")
-    # JAX's init jitted once, and JAX's serve handed the same parameters
-    # (its seed 0 draws them from PRNGKey(0)): eager init takes seconds
-    jparams = jax.jit(jmodel.init_params, static_argnums=0)(
-        jcfg, jax.random.PRNGKey(0))
+    # JAX's init, eager: the scenarios share most leaf shapes, so their
+    # draws share compiled primitives where one jitted init each would not;
+    # JAX's serve is handed the same parameters (its seed 0 draws them from
+    # PRNGKey(0))
+    jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
     tree = jax.tree.map(np.asarray, jparams)
     jlog, tlog, gaps, dups = [], [], [], []
     mp = jitted_jax_page_table()

@@ -33,6 +33,9 @@ from model import DictModel, make_engine_schedule, \
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from tools import trace_report  # noqa: E402
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 CPU = "cpu"
 

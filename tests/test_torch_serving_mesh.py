@@ -23,6 +23,9 @@ from repro_torch.serving import Request, ServingEngine, build_ycsb_engine
 
 from model import (DictModel, make_engine_schedule,
                    make_insert_heavy_schedule, replay_schedule_against_model)
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 CPU = "cpu"
 CLOCK_KEYS = ("wall_seconds", "ops_per_sec", "request_latency_ms",

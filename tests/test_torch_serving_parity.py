@@ -49,6 +49,9 @@ from repro_torch.core import rlu as trlu
 from model import (DictModel, make_insert_heavy_schedule,
                    replay_schedule_against_model)
 from test_torch_hashmap import jax_leaves
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 CPU = "cpu"
 PACKAGES = {"jax": (jserving, JaxConfig), "torch": (tserving, HashMemConfig)}

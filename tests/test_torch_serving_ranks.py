@@ -26,6 +26,9 @@ from repro_torch.launch.serve import serve_kv
 from model import DictModel, replay_schedule_against_model
 from rank_cases import ENGINE_CASES, engine_case, run_engine_case, \
     serving_world
+import torch_threads
+
+one_thread = torch_threads.one_thread
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 WORLDS = (2, 4)

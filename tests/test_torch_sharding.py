@@ -34,6 +34,10 @@ from repro_torch.distributed import sharding, steps
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import model, transformer
 
+import torch_threads
+
+one_thread = torch_threads.one_thread
+
 MESHES = {"1x4": ((1, 4), ("data", "model")),
           "2x2": ((2, 2), ("data", "model")),
           "4x1": ((4, 1), ("data", "model")),

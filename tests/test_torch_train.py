@@ -9,7 +9,8 @@ their ``stacks/j{j}`` trees; and of the ssm, encdec and vlm families in
 float32: one step and 8 steps of ``train`` of xlstm-1.3b, whisper-tiny and
 internvl2-2b, the decay mask on the ``stacks/{encoder, decoder}`` and
 xLSTM trees, ``input_specs`` of encdec and vlm.  Parameters cross from JAX by ``params_from_numpy`` or through a
-step-0 checkpoint JAX wrote; every JAX function runs jitted, once a case.
+step-0 checkpoint JAX wrote (the loss tests take the port's draw, carried
+to JAX); every JAX function runs jitted, once a case.
 
 Tolerances, each from what float32 summation order can do:
   * loss and cross-entropy (``loss_fn``, ``chunked_cross_entropy``, pads of
@@ -79,17 +80,11 @@ from repro_torch.models import model
 from repro_torch.models.layers import flatten_tree
 from repro_torch.optim import init_opt_state
 
+import torch_threads
+
+one_thread = torch_threads.one_thread
+
 CPU = "cpu"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on a few cores,
-    and PyTorch's thread pool in each would oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 OC = dict(lr=1e-3, warmup_steps=2, total_steps=16)
 B, S = 4, 64
 CASES = [("llama3-8b", "float32"), ("qwen3-8b", "float32"),
@@ -123,18 +118,28 @@ def mesh():
 
 
 @pytest.fixture(scope="module")
-def jax_state(mesh):
+def jax_state():
     """JAX's train state drawn from ``PRNGKey(0)``, once a config, as
-    numpy: ``test_train_step_matches_jax`` takes its parameters and
-    ``test_train_from_jax_checkpoint_follows_jax`` saves it at step 0."""
+    numpy (zero moments, step 0, as ``init_opt_state`` makes them):
+    ``test_train_step_matches_jax`` takes its parameters and
+    ``test_train_from_jax_checkpoint_follows_jax`` saves it at step 0.
+    JAX's init does not read ``dtype``: llama3-8b's float32 and bfloat16
+    cases share one draw."""
+    from repro.optim import init_opt_state as j_init_opt_state
     cache = {}
 
     def get(jcfg, joc):
-        if (jcfg, joc) not in cache:
-            state = jsteps.init_train_state(jcfg, joc, mesh,
-                                            jax.random.PRNGKey(0))
-            cache[jcfg, joc] = jax.tree.map(np.asarray, state)
-        return cache[jcfg, joc]
+        key = (jcfg.replace(dtype="float32"), joc)
+        if key not in cache:
+            # eager: the configs share most leaf shapes, so their draws share
+            # compiled primitives where one jitted init a config would not
+            params = jax.tree.map(np.asarray, jmodel.init_params(
+                key[0], jax.random.PRNGKey(0)))
+            opt = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype),
+                               jax.eval_shape(lambda p: j_init_opt_state(
+                                   p, joc), params))
+            cache[key] = params, opt
+        return cache[key]
     return get
 
 
@@ -220,7 +225,8 @@ def rel(a, b):
 @pytest.mark.parametrize("c", CASES[:3], ids=case_id)
 def test_loss_matches_jax(c):
     jcfg, cfg = configs(*c)
-    p = jmodel.init_params(jcfg, jax.random.PRNGKey(1))
+    p = jax.tree.map(jnp.asarray, model.params_to_numpy(
+        model.init_params(cfg, 1, CPU)))
     b = batch_np(cfg)
     jb = {k: jnp.asarray(v) for k, v in b.items()}
 

@@ -12,17 +12,11 @@ from repro_torch import train_lm
 from repro_torch.configs import OptimConfig, ShapeConfig, smoke_config
 from repro_torch.launch import train as ttrain
 
+import torch_threads
+
+one_thread = torch_threads.one_thread
+
 CPU = "cpu"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on a few cores,
-    and PyTorch's thread pool in each would oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_loss_decreases(tmp_path):

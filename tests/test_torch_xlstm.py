@@ -28,6 +28,10 @@ from repro.models.layers import split_params
 from repro_torch.configs import smoke_config
 from repro_torch.models import xlstm
 
+import torch_threads
+
+one_thread = torch_threads.one_thread
+
 B, S = 2, 64
 TOL = dict(rtol=5e-4, atol=5e-4)
 GRAD_TOL = 1e-5
@@ -41,16 +45,6 @@ def t(a):
 def no_grad():
     with torch.no_grad():
         yield
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread: the suite runs several workers on a few cores,
-    and PyTorch's thread pool in each would oversubscribe them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def carried(cls, cfg, jp):

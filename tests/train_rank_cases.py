@@ -22,8 +22,18 @@ pads (-100 labels) in rows 0 and 2, from parameters the port draws
     ``seq_shard``;
   * whisper-tiny with 6 heads on (1, 4) with ``seq_shard`` (its attention
     leaves replicated over ``"model"``; its ``final_norm/bias``, which the
-    loss never reads, gets a zero gradient).
-The xlstm case's loss and gradient also run at 4 x 32, their collectives
+    loss never reads, gets a zero gradient);
+  * the pod axis, held against the JAX step of the case named by ``jax``:
+    olmoe-1b-7b gspmd on ("pod", "data", "model") = (2, 1, 2), qwen3-8b
+    with 2 KV heads, ``seq_shard`` and int8 compression on (2, 2, 1); and
+    JAX's multi-pod step, olmoe at 8 x 64 without ``seq_shard``, over the 8
+    ranks of (2, 2, 2) (``pod_world``), which JAX runs on (2, 1, 2).
+One bf16-compressed olmoe step runs on (2, 2) and on (2, 1, 2)
+(``BF16_CASE``).  The checkpoint case's step-1 state also restores on the
+pod mesh
+``CKPT_POD``, is saved there again, and resumes on (2, 2) and (1, 4)
+(``_ckpt_rank``).  The xlstm case's loss and gradient also run at 4 x 32,
+their collectives
 counted by kind at both lengths (``SEQ_CASE``); every case's first step
 keeps its collectives' calls and bytes by kind and pass, which a
 ``RecordingMesh``'s trace of the step must equal.  Then, without JAX:
@@ -39,7 +49,13 @@ import textwrap
 import numpy as np
 
 WORLD = 4
-MESHES = {"2x2": {"data": 2, "model": 2}, "1x4": {"data": 1, "model": 4}}
+# the meshes of the 4-rank world; "2x1x2" and "2x2x1" add the pod axis
+MESHES = {"2x2": {"data": 2, "model": 2}, "1x4": {"data": 1, "model": 4},
+          "2x1x2": {"pod": 2, "data": 1, "model": 2},
+          "2x2x1": {"pod": 2, "data": 2, "model": 1}}
+# the multi-pod mesh of the 8-rank world (JAX's test_multipod_mesh_train_step)
+POD_WORLD = 8
+POD_MESHES = {"2x2x2": {"pod": 2, "data": 2, "model": 2}}
 B, S = 4, 64
 LAYERS = {"num_layers": 2}
 OC = dict(lr=1e-3, warmup_steps=2, total_steps=16)
@@ -60,8 +76,28 @@ CASES = {
     "whisper-h6-1x4": dict(arch="whisper-tiny",
                            over={"num_heads": 6, "num_kv_heads": 6},
                            mesh="1x4", seq_shard=True, comp="none", steps=1),
+    # the pod axis: held against the JAX step of the case named by "jax"
+    # (the same arch, config and batch on another mesh)
+    "olmoe-gspmd-2x1x2": dict(arch="olmoe-1b-7b", over={}, mesh="2x1x2",
+                              seq_shard=True, comp="none", steps=1,
+                              jax="olmoe-gspmd-2x2"),
+    "qwen3-kv2-2x2x1": dict(arch="qwen3-8b", over={"num_kv_heads": 2},
+                            mesh="2x2x1", seq_shard=True, comp="int8",
+                            steps=1, jax="qwen3-kv2-1x4"),
+    # JAX's multi-pod step (olmoe smoke at 8 x 64, no seq_shard) on the
+    # 8 ranks of (2, 2, 2); JAX runs it on the pod mesh (2, 1, 2) of its
+    # four devices
+    "olmoe-2x2x2": dict(arch="olmoe-1b-7b", over={}, mesh="2x2x2",
+                        seq_shard=False, comp="none", steps=1, batch=8,
+                        jax_mesh="2x1x2"),
 }
+# bf16 gradient compression, elementwise: the step on the pod mesh must be
+# the step on (2, 2) (olmoe smoke, seq_shard, from the gspmd case's draw)
+BF16_CASE = dict(arch="olmoe-1b-7b", over={}, meshes=("2x2", "2x1x2"))
 CKPT_CASE = "qwen3-2x2"
+# where the checkpoint case's step-1 state, restored on it from the (2, 2)
+# save, is saved again and resumed from on (2, 2) and (1, 4)
+CKPT_POD = "2x1x2"
 # the case whose collectives are counted at S and at S / 2
 SEQ_CASE = "xlstm-2x2"
 VLM = dict(arch="internvl2-2b", mesh="2x2", seq_shard=True, seed=0)
@@ -71,11 +107,20 @@ CLI = dict(arch="olmoe-1b-7b", steps=3, batch=4, seq=64, lr=3e-4)
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 
 
-def cli_args(ckpt_dir: str) -> list:
-    return ["--arch", CLI["arch"], "--smoke", "--mesh", "2", "2", "--device",
+def cli_args(ckpt_dir: str, mesh=("2", "2")) -> list:
+    return ["--arch", CLI["arch"], "--smoke", "--mesh", *mesh, "--device",
             "cpu", "--steps", str(CLI["steps"]), "--batch", str(CLI["batch"]),
             "--seq", str(CLI["seq"]), "--lr", str(CLI["lr"]), "--ckpt-dir",
             ckpt_dir, "--ckpt-every", "1", "--inject-failure-at", "2"]
+
+
+def world_of(case: dict) -> int:
+    return POD_WORLD if case["mesh"] in POD_MESHES else WORLD
+
+
+def jax_case(name: str) -> str:
+    """The case whose JAX outputs ``name`` is held against."""
+    return CASES[name].get("jax", name)
 
 
 def torch_config(arch, over):
@@ -83,10 +128,10 @@ def torch_config(arch, over):
     return smoke_config(arch).replace(dtype="float32", **{**LAYERS, **over})
 
 
-def batch_np(data_cls, cfg, shape_cls, step: int) -> dict:
+def batch_np(data_cls, cfg, shape_cls, step: int, batch: int = B) -> dict:
     """The global batch of ``step`` (the port's and JAX's
     ``SyntheticLMData`` are the same numpy code), with pads."""
-    b = data_cls(cfg, shape_cls("t", S, B, "train")).batch_at(step)
+    b = data_cls(cfg, shape_cls("t", S, batch, "train")).batch_at(step)
     b["labels"][0, :10] = -100
     b["labels"][2, -5:] = -100
     return b
@@ -168,7 +213,6 @@ def _case_rank(meshes, name, tmp):
     from repro_torch.configs import OptimConfig, ShapeConfig
     from repro_torch.data import SyntheticLMData
     from repro_torch.distributed import steps
-    from repro_torch.launch.train import _restore_tree_shapes
     from repro_torch.models import model
     c = CASES[name]
     mesh = meshes[c["mesh"]]
@@ -182,7 +226,7 @@ def _case_rank(meshes, name, tmp):
     step = steps.build_train_step(cfg, oc, mesh, seq_shard=c["seq_shard"],
                                   grad_compression=c["comp"])
     batches = [{k: torch.from_numpy(v) for k, v in batch_np(
-        SyntheticLMData, cfg, ShapeConfig, s).items()}
+        SyntheticLMData, cfg, ShapeConfig, s, c.get("batch", B)).items()}
         for s in range(c["steps"])]
     _, _, grads = step.loss_and_grads(params, batches[0])
     out = {"grads": _blocks(grads), "metrics": [], "params": [],
@@ -190,7 +234,8 @@ def _case_rank(meshes, name, tmp):
     if cfg.num_experts and cfg.moe_impl != "ep":
         # the loss without autograd: its MoE layers expert-stationary
         from repro_torch.distributed import sharding
-        ctx = sharding.ShardCtx(mesh, c["seq_shard"]).bind(B, S)
+        ctx = sharding.ShardCtx(mesh, c["seq_shard"]).bind(
+            c.get("batch", B), S)
         with torch.no_grad():
             out["nograd_loss"] = float(model.loss_fn(
                 params, cfg, ctx.local_batch(batches[0]), shard_ctx=ctx)[0])
@@ -216,17 +261,73 @@ def _case_rank(meshes, name, tmp):
                                          for k, v in batches[0].items()})
             out["by_seq"][seq] = _collectives_since(mesh, before)
     if name == CKPT_CASE:
-        # restored on the other mesh, and the step resumed on this one
-        other = meshes["1x4"]
-        ck = Checkpointer(os.path.join(tmp, "ckpt"), mesh=other)
-        st = ck.restore(1, _restore_tree_shapes(cfg, oc, other), "cpu")
-        out["restored_1x4"] = _blocks(dict(st["params"].named_parameters()))
-        ck = Checkpointer(os.path.join(tmp, "ckpt"), mesh=mesh)
-        st = ck.restore(ck.latest_step(), _restore_tree_shapes(cfg, oc, mesh),
-                        "cpu")
-        params, _, m = step(st["params"], st["opt"], batches[1])
-        out["resumed"] = (_blocks(dict(params.named_parameters())),
-                          {k: float(v) for k, v in m.items()})
+        out.update(_ckpt_rank(meshes, c, cfg, oc, step, batches[1], tmp))
+    return out
+
+
+def _ckpt_rank(meshes, c, cfg, oc, step, batch, tmp):
+    """The checkpoint case's step-1 save on its mesh restored on (1, 4), and
+    the step resumed from it on its mesh and on the pod mesh ``CKPT_POD``;
+    that restored state saved again on the pod mesh, and resumed from on
+    the case's mesh and on (1, 4)."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed import steps
+    from repro_torch.launch.train import _restore_tree_shapes
+
+    def restore(directory, mname):
+        mesh = meshes[mname]
+        return mesh, Checkpointer(os.path.join(tmp, directory),
+                                  mesh=mesh).restore(
+            1, _restore_tree_shapes(cfg, oc, mesh), "cpu")
+
+    def resume(mname, st, step_fn=None):
+        step_fn = step_fn or steps.build_train_step(
+            cfg, oc, meshes[mname], seq_shard=c["seq_shard"])
+        params, _, m = step_fn(st["params"], st["opt"], batch)
+        return (_blocks(dict(params.named_parameters())),
+                {k: float(v) for k, v in m.items()})
+    out = {}
+    _, st = restore("ckpt", "1x4")
+    out["restored_1x4"] = _blocks(dict(st["params"].named_parameters()))
+    _, st = restore("ckpt", c["mesh"])
+    out["resumed"] = resume(c["mesh"], st, step)
+    pod, st = restore("ckpt", CKPT_POD)
+    ck = Checkpointer(os.path.join(tmp, "ckpt_pod"), mesh=pod)
+    ck.save(1, st)
+    ck.wait()
+    out["resumed_pod"] = resume(CKPT_POD, st)
+    _, st = restore("ckpt_pod", c["mesh"])
+    out["resumed_from_pod"] = resume(c["mesh"], st, step)
+    _, st = restore("ckpt_pod", "1x4")
+    out["resumed_from_pod_1x4"] = resume("1x4", st)
+    return out
+
+
+def _bf16_rank(meshes, tmp):
+    """One bf16-compressed step of ``BF16_CASE`` on each of its meshes: its
+    metrics and every stepped parameter made whole (``full_tensor``)."""
+    import torch
+    from repro_torch.configs import OptimConfig, ShapeConfig
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.distributed import sharding, steps
+    from repro_torch.models import model
+    c = BF16_CASE
+    cfg = torch_config(c["arch"], c["over"])
+    oc = OptimConfig(**OC)
+    b = {k: torch.from_numpy(v) for k, v in batch_np(
+        SyntheticLMData, cfg, ShapeConfig, 0).items()}
+    out = {}
+    for name in c["meshes"]:
+        mesh = meshes[name]
+        params = model.shard_params(model.params_from_numpy(cfg, load_tree(
+            params_path(tmp, c["arch"], c["over"])), "cpu"), mesh)
+        step = steps.build_train_step(cfg, oc, mesh, seq_shard=True,
+                                      grad_compression="bf16")
+        params, _, m = step(params, steps.init_opt_state(params, oc), b)
+        with torch.no_grad():
+            whole = {n: sharding.full_tensor(p, mesh).numpy().copy()
+                     for n, p in params.named_parameters()}
+        out[name] = ({k: float(v) for k, v in m.items()}, whole)
     return out
 
 
@@ -264,15 +365,28 @@ def _cli_reference(meshes):
 
 
 def train_world(world, tmp):
-    """Every case on this rank (every rank makes both meshes and runs every
-    case in the same order)."""
+    """Every case of the 4-rank world on this rank (every rank makes every
+    mesh and runs every case in the same order)."""
     from repro_torch.launch.mesh import make_model_mesh
     meshes = {n: make_model_mesh(world, s) for n, s in MESHES.items()}
     out = {"coords": {n: m.coords for n, m in meshes.items()}}
-    for name in CASES:
-        out[name] = _case_rank(meshes, name, tmp)
+    for name, c in CASES.items():
+        if world_of(c) == WORLD:
+            out[name] = _case_rank(meshes, name, tmp)
     out["vlm"] = _vlm_rank(meshes)
+    out["bf16"] = _bf16_rank(meshes, tmp)
     out["cli"] = _cli_reference(meshes)
+    return out
+
+
+def pod_world(world, tmp):
+    """The cases of the 8-rank world on this rank."""
+    from repro_torch.launch.mesh import make_model_mesh
+    meshes = {n: make_model_mesh(world, s) for n, s in POD_MESHES.items()}
+    out = {"coords": {n: m.coords for n, m in meshes.items()}}
+    for name, c in CASES.items():
+        if world_of(c) == POD_WORLD:
+            out[name] = _case_rank(meshes, name, tmp)
     return out
 
 
@@ -313,7 +427,7 @@ def lower(name):
     c = tc.CASES[name]
     cfg = smoke_config(c["arch"]).replace(dtype="float32",
                                           **{{**tc.LAYERS, **c["over"]}})
-    shape = tc.MESHES[c["mesh"]]
+    shape = tc.MESHES[c.get("jax_mesh", c["mesh"])]
     mesh = make_mesh(tuple(shape.values()), tuple(shape))
     train_step, _, pshard, oshard = jsteps.build_train_step(
         cfg, oc, mesh, seq_shard=c["seq_shard"], grad_compression=c["comp"])
@@ -322,7 +436,7 @@ def lower(name):
         tc.params_path({tmp!r}, c["arch"], c["over"])))
     opt = init_opt_state(params, oc)
     bs = [{{k: jnp.asarray(v) for k, v in tc.batch_np(
-        SyntheticLMData, cfg, ShapeConfig, s).items()}}
+        SyntheticLMData, cfg, ShapeConfig, s, c.get("batch", tc.B)).items()}}
         for s in range(c["steps"])]
     bshard = {{k: jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec(
         shd.batch_spec(mesh, v.shape[0]), *([None] * (v.ndim - 1))))
@@ -365,7 +479,8 @@ def finish(name, lowered, args):
 # compiles and runs in a thread of its own meanwhile
 out = {{}}
 with ThreadPoolExecutor(len(tc.CASES)) as ex:
-    jobs = [ex.submit(finish, *lower(n)) for n in reversed(tc.CASES)]
+    jobs = [ex.submit(finish, *lower(n)) for n in reversed(tc.CASES)
+            if "jax" not in tc.CASES[n]]
     for f in jobs:
         out.update(f.result())
 np.savez({path!r}, **out)
