@@ -339,7 +339,7 @@ from repro.models import model as jmodel
 from repro.models.transformer import scan_unit_size
 from jax.sharding import PartitionSpec as P
 import decode_cases as dc
-from test_torch_paged_kv import jitted_jax_page_table
+from paged_kv_cases import jitted_jax_page_table
 
 THREADS = {threads}
 out = {{}}

@@ -31,8 +31,8 @@ from repro.kernels import ref as jref
 from repro_torch.core import layout as tlayout
 from repro_torch.kernels import ops
 
-from test_torch_backends import masked
-from test_torch_probe import lanes_oracle, t_pages, t_pool, t_q
+from backends_cases import masked
+from probe_cases import lanes_oracle, t_pages, t_pool, t_q
 import torch_threads
 
 one_thread = torch_threads.one_thread

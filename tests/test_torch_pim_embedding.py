@@ -16,7 +16,7 @@ from repro_torch.core import hashmap
 from repro_torch.core.pim_embedding import (DictionaryVocab, init_qr,
                                             qr_embedding)
 
-from test_torch_hashmap import jax_leaves
+from hashmap_cases import jax_leaves
 import torch_threads
 
 one_thread = torch_threads.one_thread

@@ -31,8 +31,8 @@ from repro_torch.launch.mesh import spawn_ranks
 from rank_cases import (TICK_KEYS, extendible_case, grow_case, rlu_world,
                         stacked_case)
 from rlu_cases import CASES, finish_jax_side, kill_jax_side, start_jax_side
-from test_torch_hashmap import jax_leaves, jcfg
-from test_torch_rlu import j_build_sharded, j_grow, padded_insert_with_buckets
+from hashmap_cases import jax_leaves, jcfg
+from rlu_parity_cases import j_build_sharded, j_grow, padded_insert_with_buckets
 import torch_threads
 
 one_thread = torch_threads.one_thread
@@ -132,7 +132,7 @@ def test_rank_phases_match_the_stacked_backend_at_every_cap(world, worlds):
 
 def _jax_insert_sharded(steps_in, D, sb, cfg, hs):
     """JAX's host-level insert_sharded over ``steps_in`` batches, its two
-    module loops jitted as ``tests/test_torch_rlu.py`` jits them: per
+    module loops jitted as ``tests/rlu_parity_cases.py`` jits them: per
     step (ok, cfg', events so far, stacked leaves)."""
     out, ev, jc = [], {}, jcfg(cfg)
     with pytest.MonkeyPatch.context() as mp:

@@ -1,6 +1,6 @@
 """The port's mesh-backed serving engine (``ServingEngine(mesh=...)``) on its
 own, on the CPU: no JAX corpus.  The port's host-shard engine is already
-equal to the JAX engine (``tests/test_torch_serving_parity.py``), so the mesh
+equal to the JAX engine (``tests/test_torch_serving_parity_*.py``), so the mesh
 engine is held against it on the schedules of ``tests/model.py`` -- equal
 results, ``record_schedule`` logs, deterministic metrics and, where no
 growth differs, equal tables -- and against the ``DictModel`` replay, with

@@ -1,7 +1,7 @@
 """The serving engine with one HashMem shard a rank (``ServingEngine(mesh=
 RankMesh)``), over gloo on the CPU: no JAX corpus.  The stacked mesh engine
 is already equal to the host engine and the JAX engine
-(``tests/test_torch_serving_mesh.py``, ``test_torch_serving_parity.py``),
+(``tests/test_torch_serving_mesh.py``, ``test_torch_serving_parity_*.py``),
 so every rank's engine is held against it on the same streams: results,
 ``record_schedule`` logs, the snapshot and stats without their clock
 fields (per-shard stats and chain samples gathered from the ranks) and, for

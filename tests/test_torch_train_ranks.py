@@ -43,9 +43,9 @@ the same parameters, which the port draws here:
     ``seq_shard`` and on (1, 4) with int8 compression, the MoE with
     expert parallelism, the hybrid);
   * a bare shape of more than one shard refuses
-    (``tests/test_torch_train.py``).
+    (``tests/test_torch_train_moe.py``).
 
-Bounds, those of ``tests/test_torch_train.py``, from what float32
+Bounds, those of ``tests/train_cases.py``, from what float32
 summation order can do: loss, cross-entropy, grad norm, lr, ``moe_aux`` and
 ``moe_z`` within 1e-5 relative; ``moe_dropped`` exactly; each rank's
 gradient block within 1e-5 of its leaf's largest |g| (xlstm's within
@@ -84,7 +84,7 @@ TOL = 1e-5
 # xLSTM's exponential gates amplify float32 rounding (ROADMAP Queue 3):
 # JAX against itself on (2, 2) and (1, 4) against (1, 1) moves the smoke
 # case's sLSTM ``up1`` gradient by 1.07e-5 of its largest, so its
-# gradients take tests/test_torch_train.py's xLSTM bound
+# gradients take tests/train_cases.py's xLSTM bound
 GRAD_TOL = {"xlstm-1.3b": 1e-4}
 CPU = torch.device("cpu")
 

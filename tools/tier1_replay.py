@@ -5,6 +5,7 @@ how pytest-xdist's ``--dist loadfile`` schedules those files on the
 workers, with the time each worker ends.
 
     python tools/tier1_replay.py RUN.xml [OTHER.xml] [--workers 6] [-v]
+        [--layout COLLECTED.txt] [--stamps STAMPS.log]
 
 The replay follows ``xdist.scheduler.LoadScopeScheduling``: files are
 queued by their number of tests, most first (ties in name order); each
@@ -13,22 +14,119 @@ to run, so a file can wait behind the last tests of the one before it.
 It takes each test's junit time as its duration on that worker, so it
 shows order and queueing, not contention: a file shared with a busier
 machine runs longer than the replay says.
+
+``--layout`` predicts a layout before it is run: it takes the output of
+``pytest --collect-only -q`` on the new tree, moves each test of RUN.xml
+to the file that now holds a test of its name and parametrisation id, and
+replays that queue.
+
+The module is also a pytest plugin that stamps a run's clock: with
+``tools`` on ``PYTHONPATH``, ``-p tier1_replay`` and ``TIER1_STAMPS=FILE``
+in the environment, the controller writes one line per test start and
+end (seconds since the session began, worker, event, node id).
+``--stamps FILE`` then prints when each file started and ended.
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import heapq
+import os
+import time
 import xml.etree.ElementTree as ET
+
+
+def timed_tests(path: str) -> list:
+    """[(test file, test name with its parametrisation id, seconds)], in
+    run order."""
+    return [(tc.get("classname", "").split(".")[-1], tc.get("name", ""),
+             float(tc.get("time", 0)))
+            for tc in ET.parse(path).getroot().iter("testcase")]
 
 
 def file_times(path: str) -> dict:
     """{test file: [seconds of each test, in run order]}."""
     out: dict = collections.OrderedDict()
-    for tc in ET.parse(path).getroot().iter("testcase"):
-        name = tc.get("classname", "").split(".")[-1]
-        out.setdefault(name, []).append(float(tc.get("time", 0)))
+    for f, _, t in timed_tests(path):
+        out.setdefault(f, []).append(t)
     return out
+
+
+def collected(path: str) -> dict:
+    """{test name with its id: [files]} from ``pytest --collect-only -q``."""
+    out: dict = {}
+    for line in open(path):
+        path_, sep, name = line.strip().partition("::")
+        if sep and path_.endswith(".py"):
+            f = path_.rsplit("/", 1)[-1][:-3]
+            out.setdefault(name, []).append(f)
+    return out
+
+
+def relayout(tests: list, layout: dict) -> dict:
+    """{new test file: [seconds]}: each timed test moved to the file that
+    holds its name in ``layout``. A name held by several files goes to the
+    file it came from if that still holds it, else to the one whose name
+    extends its old file's name. Collected tests with no time count 0 s."""
+    out: dict = collections.OrderedDict()
+    placed = collections.Counter()
+    for old, name, t in tests:
+        files = layout.get(name, [])
+        if old in files:
+            new = old
+        else:
+            near = [f for f in files if f.startswith(old + "_")]
+            if len(near) != 1 and len(files) != 1:
+                raise SystemExit(f"{old}::{name}: held by {files or 'none'}")
+            new = near[0] if len(near) == 1 else files[0]
+        out.setdefault(new, []).append(t)
+        placed[name, new] += 1
+    for name, files in layout.items():
+        for f in files:
+            if placed[name, f]:
+                placed[name, f] -= 1
+            else:
+                out.setdefault(f, []).append(0.0)
+    return out
+
+
+def file_spans(path: str) -> dict:
+    """{test file: (first start, last end, worker)} from a stamps log."""
+    out: dict = {}
+    for line in open(path):
+        t, worker, event, nodeid = line.split(maxsplit=3)
+        f = nodeid.split("::")[0].rsplit("/", 1)[-1][:-3]
+        s0, s1, w = out.get(f, (float("inf"), 0.0, worker))
+        t = float(t)
+        out[f] = (min(s0, t) if event == "start" else s0,
+                  max(s1, t) if event == "end" else s1,
+                  worker if worker != "-" else w)
+    return out
+
+
+class _Stamps:
+    def __init__(self, path):
+        self.t0 = time.monotonic()
+        self.out = open(path, "w", buffering=1)
+
+    def _write(self, worker, event, nodeid):
+        self.out.write(f"{time.monotonic() - self.t0:.3f} {worker} "
+                       f"{event} {nodeid}\n")
+
+    def pytest_runtest_logstart(self, nodeid, location):
+        self._write("-", "start", nodeid)
+
+    def pytest_runtest_logreport(self, report):
+        if report.when == "teardown":
+            node = getattr(report, "node", None)
+            worker = getattr(node, "gateway", None)
+            self._write(getattr(worker, "id", "-"), "end", report.nodeid)
+
+
+def pytest_configure(config):
+    path = os.environ.get("TIER1_STAMPS")
+    if path and not hasattr(config, "workerinput"):
+        config.pluginmanager.register(_Stamps(path), "tier1_stamps")
 
 
 def replay(times: dict, workers: int) -> list:
@@ -67,13 +165,28 @@ def replay(times: dict, workers: int) -> list:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("run")
+    ap.add_argument("run", nargs="?")
     ap.add_argument("other", nargs="?")
     ap.add_argument("--workers", type=int, default=6)
     ap.add_argument("-v", action="store_true", help="each worker's files")
+    ap.add_argument("--layout", metavar="COLLECTED",
+                    help="replay RUN's tests in this collection's files")
+    ap.add_argument("--stamps", metavar="LOG",
+                    help="each file's measured start and end")
     args = ap.parse_args(argv)
+    if args.stamps:
+        spans = file_spans(args.stamps)
+        for f, (s0, s1, w) in sorted(spans.items(), key=lambda i: i[1]):
+            print(f"{f:40s} {w:5s} {s0:8.1f}-{s1:8.1f} {s1 - s0:7.1f}")
+        print(f"the last test ended at "
+              f"{max(s1 for _, s1, _ in spans.values()):.1f} s")
+    if not args.run:
+        return
+    if args.layout and args.other:
+        ap.error("--layout replaces OTHER")
     a = file_times(args.run)
-    b = file_times(args.other) if args.other else {}
+    b = (relayout(timed_tests(args.run), collected(args.layout))
+         if args.layout else file_times(args.other) if args.other else {})
     for f in sorted(a, key=lambda f: -sum(a[f])):
         line = f"{f:40s} {len(a[f]):4d} {sum(a[f]):8.1f}"
         if b:
@@ -85,7 +198,7 @@ def main(argv=None):
           f"{sum(map(sum, a.values())):8.1f}" + (
               f"   {sum(map(len, b.values())):4d} "
               f"{sum(map(sum, b.values())):8.1f}" if b else ""))
-    for label, times in (("run", a), ("other", b)):
+    for label, times in (("run", a), ("layout" if args.layout else "other", b)):
         if not times:
             continue
         spans = replay(times, args.workers)
